@@ -1,0 +1,422 @@
+// Segment-masked GQA flash-attention forward for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `_fwd_kernel` reached through `_mh_fwd`
+// (titok_tpu/ops/flash_attention_mh.py), entry `flash_segment_attention_mh`.
+//
+// Computes, for every q row i and q head h (kv head hk = h / (Hq/Hkv)):
+//   s_ij = (q_i . k_j) * scale           fp32, masked to -1e30 unless seg_q[i] == seg_k[j]
+//   online softmax in fp32: m, l; p = mask ? exp(s - m_new) : 0
+//   acc += bf16(p) @ v                   p rounded to v's dtype before the PV product
+//   out = acc / max(l, 1e-30),  lse = m + log(max(l, 1e-30))
+// Pad slots (segment 0) are remapped to 2^30 on load, so ids are
+// non-decreasing and pad rows attend among themselves, as in the JAX kernel.
+//
+// Inputs: q [S, Hq*64], k/v [Sk, Hkv*64] row-major (the JAX [S,H,D] layout),
+// int32 segment ids; outputs: out [S, Hq*64] in q's dtype, lse [S, Hq] f32.
+//
+// What bounds it on the H100: at the serving shape (S = 6144, ten 576-row
+// segments, Hq/Hkv = 4/2, D = 64, bf16) the useful work is
+// 4*D*Hq*sum(L_b^2) = 3.4 GFLOP, 3.4 us at 989 TFLOP/s, and the bytes
+// (q, k, v, out, lse, ids: ~9.6 MB) take 2.9 us at 3.35 TB/s: compute-bound,
+// on the tensor cores, and only on the block-diagonal part of S x Sk.
+//
+// What the design does about it:
+// - Block skipping without a pre-pass: segments are contiguous, so each
+//   CTA binary-searches seg_k for the exact kv interval
+//   [lower_bound(seg_q[first]), upper_bound(seg_q[last])) of its q tile and
+//   visits nothing else (the JAX kernel visits whole blocks of a
+//   host-computed interval). No padding of S or Sk: ragged edges are masked.
+// - bf16: one CTA per (64-row q tile, q head), 4 warps of 16 q rows each;
+//   Q K^T and P V on the tensor cores with mma.sync m16n8k16 (bf16 in,
+//   fp32 accumulate); the softmax stays in registers (the S accumulator's
+//   fragment layout is reused as the A operand of P V). K/V tiles of 64
+//   rows are staged in shared memory with 16-byte loads.
+// - f32: the same tiling on fp32 FMA (no TF32: the f32 path must hold
+//   1e-5 against the plain version), 256 threads per 64-row q tile.
+// Not yet: wgmma, TMA, cp.async double buffering, one CTA per GQA group
+// sharing the K/V tile (later work; PERF.md has the measured gap).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int D = 64;         // head dim
+constexpr int BQ = 64;        // q rows per CTA
+constexpr float NEG_INF = -1e30f;
+constexpr int PAD_ID = 1 << 30;
+constexpr int NO_ROW_Q = -2;  // segment of q rows past S: matches nothing
+constexpr int NO_ROW_K = -1;  // segment of kv rows past the interval
+
+__device__ __forceinline__ int remap(int s) { return s == 0 ? PAD_ID : s; }
+
+// [lo, hi): the kv rows whose (remapped) segment lies in [first, last]
+__device__ void kv_interval(const int* __restrict__ seg_q, const int* __restrict__ seg_k,
+                            int q0, int q1, int Sk, int* lo_out, int* hi_out) {
+  const int first = remap(seg_q[q0]);
+  const int last = remap(seg_q[q1 - 1]);
+  int lo = 0, hi = Sk;
+  while (lo < hi) {  // first j with seg_k[j] >= first
+    const int mid = (lo + hi) >> 1;
+    if (remap(seg_k[mid]) < first) lo = mid + 1; else hi = mid;
+  }
+  *lo_out = lo;
+  hi = Sk;
+  while (lo < hi) {  // first j with seg_k[j] > last
+    const int mid = (lo + hi) >> 1;
+    if (remap(seg_k[mid]) <= last) lo = mid + 1; else hi = mid;
+  }
+  *hi_out = lo;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: mma.sync m16n8k16
+// ---------------------------------------------------------------------------
+
+constexpr int BK = 64;       // kv rows per tile
+constexpr int LDS = D + 8;   // smem row stride (bf16): 144 B, conflict-free fragment loads
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c[16x8] += a[16x16] (row) * b[16x8] (col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__global__ void __launch_bounds__(128)
+fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
+             const int* __restrict__ seg_k, __nv_bfloat16* __restrict__ out,
+             float* __restrict__ lse, int S, int Sk, int hq, int hkv, float scale) {
+  __shared__ __align__(16) __nv_bfloat16 q_s[BQ * LDS];
+  __shared__ __align__(16) __nv_bfloat16 k_s[BK * LDS];
+  __shared__ __align__(16) __nv_bfloat16 v_s[BK * LDS];
+  __shared__ int segq_s[BQ];
+  __shared__ int segk_s[BK];
+  __shared__ int range_s[2];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2;        // fragment row group
+  const int t2 = (lane & 3) * 2;  // fragment column pair
+  const int q0 = blockIdx.x * BQ;
+  const int q1 = min(q0 + BQ, S);
+  const int h = blockIdx.y;
+  const int hk = h / (hq / hkv);
+  const int ldq = hq * D, ldk = hkv * D;
+
+  if (tid == 0) kv_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
+  for (int e = tid; e < BQ * D / 8; e += blockDim.x) {
+    const int r = e >> 3, c = (e & 7) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (q0 + r < S) val = *reinterpret_cast<const uint4*>(q + (size_t)(q0 + r) * ldq + h * D + c);
+    *reinterpret_cast<uint4*>(&q_s[r * LDS + c]) = val;
+  }
+  if (tid < BQ) segq_s[tid] = (q0 + tid < S) ? remap(seg_q[q0 + tid]) : NO_ROW_Q;
+  __syncthreads();
+
+  // this thread's rows in the tile: r0 and r0 + 8
+  const int r0 = warp * 16 + g;
+  uint32_t qa[4][4];  // A fragments of Q, one per 16-wide k step over D
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    qa[kk][0] = ld32(&q_s[r0 * LDS + kk * 16 + t2]);
+    qa[kk][1] = ld32(&q_s[(r0 + 8) * LDS + kk * 16 + t2]);
+    qa[kk][2] = ld32(&q_s[r0 * LDS + kk * 16 + t2 + 8]);
+    qa[kk][3] = ld32(&q_s[(r0 + 8) * LDS + kk * 16 + t2 + 8]);
+  }
+  const int sq0 = segq_s[r0], sq1 = segq_s[r0 + 8];
+  const int lo = range_s[0], hi = range_s[1];
+
+  float m0 = NEG_INF, m1 = NEG_INF;  // running max of rows r0, r0 + 8
+  float l0 = 0.f, l1 = 0.f;          // this thread's share of the running sums
+  float o[8][4];
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+
+  for (int kv0 = lo; kv0 < hi; kv0 += BK) {
+    __syncthreads();  // the previous tile is consumed
+    for (int e = tid; e < BK * D / 8; e += blockDim.x) {
+      const int r = e >> 3, c = (e & 7) * 8;
+      uint4 kval = make_uint4(0, 0, 0, 0), vval = make_uint4(0, 0, 0, 0);
+      if (kv0 + r < hi) {
+        const size_t off = (size_t)(kv0 + r) * ldk + hk * D + c;
+        kval = *reinterpret_cast<const uint4*>(k + off);
+        vval = *reinterpret_cast<const uint4*>(v + off);
+      }
+      *reinterpret_cast<uint4*>(&k_s[r * LDS + c]) = kval;
+      *reinterpret_cast<uint4*>(&v_s[r * LDS + c]) = vval;
+    }
+    if (tid < BK) segk_s[tid] = (kv0 + tid < hi) ? remap(seg_k[kv0 + tid]) : NO_ROW_K;
+    __syncthreads();
+
+    // S = Q K^T: 16 rows x 64 kv columns per warp, as 8 n-tiles of 8
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t b[2];
+        b[0] = ld32(&k_s[(nt * 8 + g) * LDS + kk * 16 + t2]);
+        b[1] = ld32(&k_s[(nt * 8 + g) * LDS + kk * 16 + t2 + 8]);
+        mma_bf16(s[nt], qa[kk], b);
+      }
+    }
+
+    // scale, mask, row max (rows are shared by the 4 lanes of a quad)
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+    bool msk[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int sk0 = segk_s[nt * 8 + t2], sk1 = segk_s[nt * 8 + t2 + 1];
+      msk[nt][0] = sq0 == sk0;
+      msk[nt][1] = sq0 == sk1;
+      msk[nt][2] = sq1 == sk0;
+      msk[nt][3] = sq1 == sk1;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = msk[nt][i] ? s[nt][i] * scale : NEG_INF;
+      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // p, the row sums, and P as A fragments (n-tiles 2j, 2j+1 -> k step j)
+    uint32_t pa[4][4];
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float p0 = msk[nt][0] ? expf(s[nt][0] - mn0) : 0.f;
+      const float p1 = msk[nt][1] ? expf(s[nt][1] - mn0) : 0.f;
+      const float p2 = msk[nt][2] ? expf(s[nt][2] - mn1) : 0.f;
+      const float p3 = msk[nt][3] ? expf(s[nt][3] - mn1) : 0.f;
+      ps0 += p0 + p1;
+      ps1 += p2 + p3;
+      pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
+      pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * a0 + ps0;
+    l1 = l1 * a1 + ps1;
+
+    // O = O * alpha + P V: 16 rows x 64 d per warp, 8 n-tiles of d
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) {
+      o[dt][0] *= a0;
+      o[dt][1] *= a0;
+      o[dt][2] *= a1;
+      o[dt][3] *= a1;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kr = j * 16 + t2;
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        const int n = dt * 8 + g;
+        uint32_t b[2];
+        b[0] = pack_raw(v_s[kr * LDS + n], v_s[(kr + 1) * LDS + n]);
+        b[1] = pack_raw(v_s[(kr + 8) * LDS + n], v_s[(kr + 9) * LDS + n]);
+        mma_bf16(o[dt], pa[j], b);
+      }
+    }
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
+  const int row0 = q0 + r0, row1 = row0 + 8;
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) {
+    const int col = h * D + dt * 8 + t2;
+    if (row0 < S)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row0 * ldq + col) =
+          pack_bf16(o[dt][0] / L0, o[dt][1] / L0);
+    if (row1 < S)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row1 * ldq + col) =
+          pack_bf16(o[dt][2] / L1, o[dt][3] / L1);
+  }
+  if ((lane & 3) == 0) {
+    if (row0 < S) lse[(size_t)row0 * hq + h] = m0 + logf(L0);
+    if (row1 < S) lse[(size_t)row1 * hq + h] = m1 + logf(L1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: fp32 FMA
+// ---------------------------------------------------------------------------
+
+constexpr int BKF = 32;  // kv rows per tile
+
+__global__ void __launch_bounds__(256)
+fwd_f32_fma(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const int* __restrict__ seg_q,
+            const int* __restrict__ seg_k, float* __restrict__ out,
+            float* __restrict__ lse, int S, int Sk, int hq, int hkv, float scale) {
+  // padded strides keep the column walks of each half-warp on distinct banks
+  __shared__ float q_s[BQ][D + 1];
+  __shared__ float k_s[BKF][D + 1];
+  __shared__ float v_s[BKF][D];
+  __shared__ float p_s[BQ][BKF + 1];
+  __shared__ int segq_s[BQ];
+  __shared__ int segk_s[BKF];
+  __shared__ int range_s[2];
+
+  // thread (ty, tx) owns rows ty + 16 i (i < 4); S columns tx + 16 j (j < 2);
+  // output columns tx + 16 j (j < 4). A row's 16 owners are one half-warp.
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = blockIdx.x * BQ;
+  const int q1 = min(q0 + BQ, S);
+  const int h = blockIdx.y;
+  const int hk = h / (hq / hkv);
+  const int ldq = hq * D, ldk = hkv * D;
+
+  if (tid == 0) kv_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
+  for (int e = tid; e < BQ * D; e += blockDim.x) {
+    const int r = e / D, c = e % D;
+    q_s[r][c] = (q0 + r < S) ? q[(size_t)(q0 + r) * ldq + h * D + c] : 0.f;
+  }
+  if (tid < BQ) segq_s[tid] = (q0 + tid < S) ? remap(seg_q[q0 + tid]) : NO_ROW_Q;
+  __syncthreads();
+
+  int sq[4];
+  float m[4], l[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    sq[i] = segq_s[ty + 16 * i];
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+  const int lo = range_s[0], hi = range_s[1];
+
+  for (int kv0 = lo; kv0 < hi; kv0 += BKF) {
+    __syncthreads();
+    for (int e = tid; e < BKF * D; e += blockDim.x) {
+      const int r = e / D, c = e % D;
+      const bool ok = kv0 + r < hi;
+      const size_t off = (size_t)(kv0 + r) * ldk + hk * D + c;
+      k_s[r][c] = ok ? k[off] : 0.f;
+      v_s[r][c] = ok ? v[off] : 0.f;
+    }
+    if (tid < BKF) segk_s[tid] = (kv0 + tid < hi) ? remap(seg_k[kv0 + tid]) : NO_ROW_K;
+    __syncthreads();
+
+    float s[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qv[4], kv[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = q_s[ty + 16 * i][d];
+      kv[0] = k_s[tx][d];
+      kv[1] = k_s[tx + 16][d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][0] = fmaf(qv[i], kv[0], s[i][0]);
+        s[i][1] = fmaf(qv[i], kv[1], s[i][1]);
+      }
+    }
+
+    const int sk[2] = {segk_s[tx], segk_s[tx + 16]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool mk0 = sq[i] == sk[0], mk1 = sq[i] == sk[1];
+      const float s0 = mk0 ? s[i][0] * scale : NEG_INF;
+      const float s1 = mk1 ? s[i][1] * scale : NEG_INF;
+      float mx = fmaxf(s0, s1);
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - mn);
+      m[i] = mn;
+      const float p0 = mk0 ? expf(s0 - mn) : 0.f;
+      const float p1 = mk1 ? expf(s1 - mn) : 0.f;
+      float ps = p0 + p1;
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l[i] = l[i] * alpha + ps;
+      p_s[ty + 16 * i][tx] = p0;
+      p_s[ty + 16 * i][tx + 16] = p1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int r = 0; r < BKF; ++r) {
+      float pv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = p_s[ty + 16 * i][r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vv[j] = v_s[r][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= S) continue;
+    const float L = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[(size_t)row * ldq + h * D + tx + 16 * j] = acc[i][j] / L;
+    if (tx == 0) lse[(size_t)row * hq + h] = m[i] + logf(L);
+  }
+}
+
+}  // namespace
+
+// q [S, hq*64], k/v [Sk, hkv*64], seg_q [S], seg_k [Sk] int32 (non-decreasing
+// once 0 is remapped to 2^30); out [S, hq*64] in q's dtype, lse [S, hq] f32.
+// Launches on `stream` and returns cudaGetLastError().
+extern "C" int flash_segment_attn_fwd(const void* q, const void* k, const void* v,
+                                      const int* seg_q, const int* seg_k, void* out,
+                                      float* lse, int S, int Sk, int hq, int hkv,
+                                      float scale, int is_bf16, void* stream) {
+  const dim3 grid((S + BQ - 1) / BQ, hq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    fwd_bf16_mma<<<grid, 128, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
+        static_cast<__nv_bfloat16*>(out), lse, S, Sk, hq, hkv, scale);
+  } else {
+    fwd_f32_fma<<<grid, 256, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), seg_q, seg_k, static_cast<float*>(out), lse,
+        S, Sk, hq, hkv, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

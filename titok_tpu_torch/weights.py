@@ -1,0 +1,40 @@
+"""Carry flax parameters over to the port's state dict.
+
+The port's module tree mirrors the flax names (``encoder.model_layers.
+attn_0.to_qkv`` …), so the mapping is mechanical:
+
+- a flax ``Dense`` ``kernel [in, out]`` becomes ``Linear.weight [out, in]``;
+- ``bias``, RMSNorm ``weight`` and ``mask_token [1, 1]`` are copied as
+  they are.
+
+Takes a nested dict of numpy arrays (for a JAX tree:
+``jax.tree.map(np.asarray, params)``); imports no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+
+
+def from_flax_params(tree: Mapping) -> dict[str, np.ndarray]:
+    """Nested flax params (numpy leaves) -> flat torch state dict (numpy
+    values, f32)."""
+    out: dict[str, np.ndarray] = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        for key, val in node.items():
+            name = f"{prefix}{key}"
+            if isinstance(val, Mapping):
+                walk(val, name + ".")
+            elif key == "kernel":
+                arr = np.asarray(val, np.float32)
+                if arr.ndim != 2:
+                    raise ValueError(f"{name}: expected a 2-D Dense kernel, got {arr.shape}")
+                out[f"{prefix}weight"] = np.ascontiguousarray(arr.T)
+            else:
+                out[name] = np.asarray(val, np.float32)
+
+    walk(tree, "")
+    return out
