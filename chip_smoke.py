@@ -8,15 +8,32 @@ toolkit. Phases, in order; any failure exits non-zero:
 
 1. device and build: the card, its power limit, and the ``nvcc`` build of
    every ``titok_tpu_torch/csrc/*.cu`` with its ``-Xptxas -v`` lines;
-2. every kernel against its plain PyTorch version on the card, at the
-   serving shape and beside it, in bf16 and f32, with times (CUDA events)
-   of the kernel, the plain version, one library call and the bound;
-3. the serving path, tiny TiTok at full width (``configs/tiny.yaml``),
+2. the attention forward kernel against its plain PyTorch version on the
+   card, at the serving shape and beside it, in bf16 and f32, with times
+   (CUDA events) of the kernel, the plain version, one library call and
+   the bound;
+3. the two attention backward kernels (dq, dk/dv) against the plain
+   backward, in bf16 and f32, at the bench shape, large heads, a ragged
+   packing, the stacked discriminator buffer of a train batch (24,752
+   rows) and separate k ids, with the same four times at the bench shape,
+   and planted faults (a wrong scale, dv of one q head, a skipped kv tile,
+   bf16 roundings dropped) that the comparison must reject;
+4. the serving path, tiny TiTok at full width (``configs/tiny.yaml``),
    seeded random weights: encode, forward, decode_indices and a uint8
    encode through ``TiTokModel``, with launch counts, range checks, the
    kernel path against the plain path (f32 and bf16), and request times;
-4. one JSON line listing every kernel with its numbers;
-5. last line: ``{"ok": true, "device": {...}}``.
+5. the training path: the tiny GAN recipe at full width
+   (``perceptual_weight=0``, ``train_seq_len`` 6144, bf16-mixed), seeded
+   random weights and synthetic clips, 2 warm-up and 4 timed steps through
+   ``TrainStepBuilder`` with launch counts per step, finite metrics, moved
+   params, index ranges, ms/step and a profile of one step; then 3 steps
+   of the f32 kernel path against the f32 plain path at ``train_seq_len``
+   2048 from the same weights, batches and noise;
+6. one JSON line listing every kernel with its numbers; ``launches`` is
+   the kernel's count on the training path of its dtype, and
+   ``launches_by_path`` its count on each path (serving bf16/f32, training
+   bf16/f32), each read from counters set to 0 just before that path;
+7. last line: ``{"ok": true, "device": {...}}``.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -35,6 +52,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SRC = "titok_tpu_torch/csrc/flash_segment_attn_fwd.cu"
 KERNEL_REPLACES = "titok_tpu/ops/flash_attention_mh.py:58"  # _fwd_kernel, via _mh_fwd
+BWD_SRC = "titok_tpu_torch/csrc/flash_segment_attn_bwd.cu"
+BWD_REPLACES = {"dq": "titok_tpu/ops/flash_attention_mh.py:404",   # _bwd_dq_kernel
+                "dkv": "titok_tpu/ops/flash_attention_mh.py:450"}  # _bwd_dkv_kernel
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 FMA, HBM
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -42,6 +62,22 @@ PEAK_BYTES = 3.35e12
 #   f32: fp32 FMA order only; bf16: two bf16 roundings (p and out) and
 #   another summation order
 TOL = {"f32": (1e-5, 0.0, 1e-5), "bf16": (3e-2, 1e-2, 1e-3)}
+# backward kernels vs plain backward, each of dq, dk, dv against the plain
+# version's b: (atol_frac, rtol, nrel) for
+#   |kernel - b| <= atol_frac * M + rtol * |b|   every entry,
+#   rms(kernel - b) <= nrel * R                  over each output,
+# with M the largest |entry| and R the rms of the plain dq, dk and dv
+# together: the size of the whole gradient. The grads are small (about 0.07
+# at the bench shape, max|b| 0.7-4.8 over the cases), so the absolute part
+# scales with them; taken over all three outputs, it also covers an output
+# that is only round-off (a one-row segment has dq = dk = 0). bf16: both
+# sides round p, ds and the outputs to bf16 at the same places; they differ
+# by the f32 sum order, so an output lands on the neighbouring bf16 value at
+# times: one bf16 ulp is under 2**-7 (0.8 %) of |b|, which rtol admits.
+# f32: FMA order only. The limits are about 3x the worst the kernels needed
+# over the five cases on an H100 (PERF.md, Findings); the planted faults of
+# phase_bwd_kernels show what they reject.
+BWD_TOL = {"f32": (1e-6, 1e-4, 3e-6), "bf16": (1.5e-3, 1e-2, 5e-4)}
 
 
 class SmokeFailure(Exception):
@@ -116,7 +152,8 @@ def phase_build():
         for line in rec["ptxas"].splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"    {line.strip()}")
-    check("flash_segment_attn_fwd" in info, "no flash_segment_attn_fwd build")
+    for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd"):
+        check(name in info, f"no {name} build")
     return card
 
 
@@ -167,7 +204,15 @@ def phase_kernels(card: str) -> dict:
         k = torch.randn(S, hkv, D, generator=gen, device=dev).to(dtype)
         v = torch.randn(S, hkv, D, generator=gen, device=dev).to(dtype)
         seg = torch.from_numpy(seg_np).to(dev)
-        kernel_ms = cuda_ms(lambda: fa._fwd(q, k, v, seg), reps=200)
+        # the kernel alone: its C entry on fixed buffers, so the wrapper's
+        # Python (checks, allocation) cannot starve the card; then the
+        # wrapper as the model calls it
+        out, lse = torch.empty_like(q), torch.empty(S, hq, device=dev)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), seg.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), S, S, hq, hkv, float(D ** -0.5),
+                int(dname == "bf16"), torch.cuda.current_stream().cuda_stream)
+        kernel_ms = cuda_ms(lambda: fa._kernel()(*args), reps=200)
+        wrapper_ms = cuda_ms(lambda: fa._fwd(q, k, v, seg), reps=200)
         plain_ms = cuda_ms(lambda: fa.flash_segment_attention_mh_reference(q, k, v, seg),
                            reps=10, warmup=2)
         # yardstick only, never called by the port: one SDPA call with the
@@ -180,15 +225,239 @@ def phase_kernels(card: str) -> dict:
         library_ms = cuda_ms(
             lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask), reps=20)
         bound_ms, bound_by, flops, nbytes = attn_bound_ms(seg_np, S, hq, hkv, D, dname)
-        print(f"timing {dname} {label} S={S} [{card}]: kernel {kernel_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library (SDPA, bool mask) {library_ms:.4f} ms, "
-              f"bound {bound_ms * 1e3:.2f} us ({bound_by}; {flops / 1e9:.3f} GFLOP, "
+        print(f"timing {dname} {label} S={S} [{card}]: kernel {kernel_ms:.4f} ms "
+              f"(through the wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"library (SDPA, bool mask) {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}; {flops / 1e9:.3f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB), share of bound {bound_ms / kernel_ms:.4f}")
         results[dname].update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                               bound_ms=bound_ms, bound_by=bound_by)
-        del q, k, v, qb, kb, vb, mask
+        del q, k, v, qb, kb, vb, mask, out, lse
     torch.cuda.empty_cache()
     return results
+
+
+def live_pairs(seg_q: np.ndarray, seg_k: np.ndarray) -> float:
+    """sum over real segments (id != 0) of q rows x kv rows: the score
+    entries the attention must compute."""
+    ids, cq = np.unique(seg_q[seg_q != 0], return_counts=True)
+    kid, ck = np.unique(seg_k[seg_k != 0], return_counts=True)
+    kc = dict(zip(kid.tolist(), ck.tolist()))
+    return float(sum(float(c) * kc.get(i, 0) for i, c in zip(ids.tolist(), cq.tolist())))
+
+
+def bwd_bound_ms(seg_np, S, Sk, hq, hkv, d, dtype, products, outputs):
+    """Least time for ``products`` [S x Sk x D] products (2 FLOP per
+    multiply-add, live segments only) at the type's peak, or for the bytes
+    (q, k, v, dO, lse, delta, ids read once; ``outputs``: "dq" and/or
+    "dkv" written once) over HBM; the larger one."""
+    flops = 2.0 * products * d * hq * live_pairs(seg_np, seg_np)
+    esize = 2 if dtype == "bf16" else 4
+    nbytes = (S * hq * d * esize * 2 + Sk * hkv * d * esize * 2 + S * hq * 4 * 2
+              + (S + Sk) * 4)
+    if "dq" in outputs:
+        nbytes += S * hq * d * esize
+    if "dkv" in outputs:
+        nbytes += Sk * hkv * d * esize * 2
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def bwd_gate(got, want, dname):
+    """dq, dk, dv against the plain version under BWD_TOL: returns (ok,
+    rows) with per output (name, max|d|, max|b|, the atol_frac its entries
+    need at the stated rtol, rms(d) / R)."""
+    import torch
+
+    atol_frac, rtol, nrel = BWD_TOL[dname]
+    bs = [b.float() for b in want]
+    M = max(max(b.abs().max().item() for b in bs), 1e-30)
+    R = max(torch.cat([b.flatten() for b in bs]).square().mean().sqrt().item(), 1e-30)
+    ok, rows = True, []
+    for name, a, b32 in zip(("dq", "dk", "dv"), got, bs):
+        a32 = a.float()
+        d = (a32 - b32).abs()
+        need = (d - rtol * b32.abs()).clamp(min=0).max().item() / M
+        rel = d.square().mean().sqrt().item() / R
+        ok = ok and bool(torch.isfinite(a32).all()) and need <= atol_frac and rel <= nrel
+        rows.append((name, d.max().item(), b32.abs().max().item(), need, rel))
+    return ok, rows
+
+
+def _gate_line(rows) -> str:
+    return "; ".join(f"{n} max|d| {e:.3e} max|b| {m:.3e} needs atol_frac {need:.2e} "
+                     f"rms ratio {rel:.2e}" for n, e, m, need, rel in rows)
+
+
+def _planted_faults(q, k, v, seg, out, lse, do, want, dname, hq, hkv):
+    """The gate against kernels with a planted fault, at the bench shape:
+    each fault is made by the kernel itself on altered inputs, by scaling
+    its outputs, or (bf16 roundings dropped) by the plain version in f32,
+    so it looks as a faulty kernel's output would. The gate must reject
+    each."""
+    import torch
+
+    from titok_tpu_torch.ops import flash_attention_mh as fa
+
+    D = q.shape[-1]
+    good = fa._bwd(q, k, v, seg, out, lse, do)
+    faults = {}
+    faults["scale 5 % high in the kernel"] = fa._bwd(q, k, v, seg, out, lse, do,
+                                                    scale=1.05 * D ** -0.5)
+    faults["ds 2 % high (dq, dk)"] = (
+        (good[0].float() * 1.02).to(q.dtype), (good[1].float() * 1.02).to(q.dtype), good[2])
+    rep = hq // hkv
+    keep = (torch.arange(hq, device=q.device) % rep == 0).to(do.dtype)
+    one = fa._bwd(q, k, v, seg, out, lse, (do * keep[None, :, None]).contiguous())
+    faults["dv summed over one q head of each group"] = (good[0], good[1], one[2])
+    # the last 64 kv rows of every segment skipped: those rows get ids of
+    # their own (2i+2 after 2i+1), which no q row carries
+    s_np = seg.cpu().numpy()
+    q_ids = np.where(s_np > 0, 2 * s_np - 1, 0).astype(np.int32)
+    k_ids = q_ids.copy()
+    for sid in np.unique(s_np[s_np > 0]):
+        rows = np.nonzero(s_np == sid)[0]
+        k_ids[rows[-64:]] = 2 * sid
+    faults["last kv tile of every segment skipped"] = fa._bwd(
+        q, k, v, torch.from_numpy(q_ids).to(q.device), out, lse, do,
+        k_segment_ids=torch.from_numpy(k_ids).to(q.device))
+    if dname == "bf16":
+        # p and ds left in f32 (not rounded to bf16 before their products)
+        f = fa.flash_segment_attention_mh_bwd_reference(
+            q.float(), k.float(), v.float(), seg, out.float(), lse, do.float())
+        faults["bf16 roundings of p and ds dropped"] = [t.to(q.dtype) for t in f]
+    for name, got in faults.items():
+        ok, rows = bwd_gate(got, want, dname)
+        print(f"  planted fault {dname}, {name}: {'REJECTED' if not ok else 'PASSED'} "
+              f"({_gate_line(rows)})")
+        check(not ok, f"the {dname} backward gate passes a planted fault: {name}")
+
+
+def _stacked_disc_ids(train_cfg):
+    """The discriminator's stacked ids for the first batch of the training
+    stream: build_disc_batch of a 6144-row tokenizer batch, 4 copies."""
+    import torch
+
+    from titok_tpu_torch.data.packing import build_disc_batch
+    from titok_tpu_torch.losses.loss_module import DISC_TOKENS, stacked_segment_ids
+    from titok_tpu_torch.training.trainer import synthetic_batches
+
+    batch = next(iter(synthetic_batches(train_cfg, seed=0)))
+    disc = build_disc_batch(batch, DISC_TOKENS)
+    B1 = disc.sample_valid.shape[0] + 1
+    seg = stacked_segment_ids(torch.from_numpy(disc.segment_ids), 4, B1).numpy()
+    return seg, disc.sample_valid.shape[0], disc.segment_ids.shape[0]
+
+
+def phase_bwd_kernels(card: str, train_cfg) -> dict:
+    """Backward kernels vs the plain backward; times at the bench shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from titok_tpu_torch.ops import flash_attention_mh as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    D = 64
+    disc_seg, bmax, sd = _stacked_disc_ids(train_cfg)
+    print(f"stacked disc layout: Bmax {bmax}, Sd {sd}, 4 copies = {disc_seg.shape[0]} rows, "
+          f"ids {int(disc_seg.min())}..{int(disc_seg.max())} non-decreasing "
+          f"{bool((np.diff(disc_seg) >= 0).all())}")
+    check(bool((np.diff(disc_seg) >= 0).all()) and int(disc_seg.min()) > 0,
+          "stacked disc ids must be non-decreasing with no id 0")
+    bench_seg = segments([576] * 10, 6144)
+    # (label, q ids, k ids or None, hq, hkv)
+    cases = [
+        ("bench 10x576 4/2", bench_seg, None, 4, 2),
+        ("large heads 10x576 16/4", bench_seg, None, 16, 4),
+        ("ragged 1..1892 4/2", segments([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299),
+         None, 4, 2),
+        (f"stacked disc 4x{sd} 4/2", disc_seg, None, 4, 2),
+        ("Sk != S 7x576 vs 10x576 4/2", segments([576] * 7, 4096), bench_seg, 4, 2),
+    ]
+    res = {f"{k}_{d}": {"max_abs_err": 0.0} for k in ("dq", "dkv") for d in ("bf16", "f32")}
+
+    def inputs(S, Sk, hq, hkv, dtype):
+        q = torch.randn(S, hq, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(Sk, hkv, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(Sk, hkv, D, generator=gen, device=dev).to(dtype)
+        do = torch.randn(S, hq, D, generator=gen, device=dev).to(dtype)
+        return q, k, v, do
+
+    for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        atol_frac, rtol, nrel = BWD_TOL[dname]
+        for label, seg_np, kseg_np, hq, hkv in cases:
+            S = seg_np.shape[0]
+            Sk = S if kseg_np is None else kseg_np.shape[0]
+            gen.manual_seed(S * 100 + hq + 7)
+            q, k, v, do = inputs(S, Sk, hq, hkv, dtype)
+            seg = torch.from_numpy(seg_np).to(dev)
+            kseg = None if kseg_np is None else torch.from_numpy(kseg_np).to(dev)
+            out, lse = fa._fwd(q, k, v, seg, k_segment_ids=kseg)
+            got = fa._bwd(q, k, v, seg, out, lse, do, k_segment_ids=kseg)
+            torch.cuda.synchronize()
+            want = fa.flash_segment_attention_mh_bwd_reference(q, k, v, seg, out, lse, do,
+                                                               k_segment_ids=kseg)
+            ok, rows = bwd_gate(got, want, dname)
+            errs = [r[1] for r in rows]
+            print(f"bwd kernels {dname} {label} S={S} Sk={Sk} (atol_frac {atol_frac}, rtol "
+                  f"{rtol}, nrel {nrel}): {_gate_line(rows)} {'ok' if ok else 'FAIL'}")
+            check(ok, f"backward kernels disagree with the plain backward: {dname} {label}")
+            res[f"dq_{dname}"]["max_abs_err"] = max(res[f"dq_{dname}"]["max_abs_err"], errs[0])
+            res[f"dkv_{dname}"]["max_abs_err"] = max(res[f"dkv_{dname}"]["max_abs_err"],
+                                                     errs[1], errs[2])
+            del q, k, v, do, out, lse, got, want
+            torch.cuda.empty_cache()
+
+        # times at the bench shape
+        S, hq, hkv = 6144, 4, 2
+        gen.manual_seed(1)
+        q, k, v, do = inputs(S, S, hq, hkv, dtype)
+        seg = torch.from_numpy(bench_seg).to(dev)
+        out, lse = fa._fwd(q, k, v, seg)
+        _planted_faults(q, k, v, seg, out, lse, do,
+                        fa.flash_segment_attention_mh_bwd_reference(q, k, v, seg, out, lse, do),
+                        dname, hq, hkv)
+        delta = fa._delta(out, do)
+        dq_fn, dkv_fn = fa._bwd_kernels()
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        stream = torch.cuda.current_stream().cuda_stream
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), seg.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+        tail = (S, S, hq, hkv, float(D ** -0.5), int(dname == "bf16"), stream)
+        dq_ms = cuda_ms(lambda: dq_fn(*common, dq.data_ptr(), *tail), reps=100)
+        dkv_ms = cuda_ms(lambda: dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *tail), reps=100)
+        both_ms = cuda_ms(lambda: fa._bwd(q, k, v, seg, out, lse, do), reps=100)
+        plain_ms = cuda_ms(lambda: fa.flash_segment_attention_mh_bwd_reference(
+            q, k, v, seg, out, lse, do), reps=10, warmup=2)
+        # yardstick only, never called by the port: the backward of one SDPA
+        # call with the block-diagonal boolean mask, on a retained graph
+        qb = q.permute(1, 0, 2)[None].detach().requires_grad_()
+        kb = k.repeat_interleave(hq // hkv, dim=1).permute(1, 0, 2)[None].detach().requires_grad_()
+        vb = v.repeat_interleave(hq // hkv, dim=1).permute(1, 0, 2)[None].detach().requires_grad_()
+        rs = fa._remap_pad(seg)
+        mask = (rs[:, None] == rs[None, :])[None, None]
+        ob = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
+        dob = do.permute(1, 0, 2)[None]
+        library_ms = cuda_ms(lambda: torch.autograd.grad(ob, (qb, kb, vb), dob,
+                                                         retain_graph=True), reps=20)
+        # 10 = the five products of the backward (S, dP, dV, dQ, dK) done once;
+        # each kernel alone: dq 3 products (S, dP, dQ), dk/dv 4 (S, dP, dV, dK)
+        tot_bound, tot_by, flops, nbytes = bwd_bound_ms(bench_seg, S, S, hq, hkv, D, dname,
+                                                        5, ("dq", "dkv"))
+        print(f"timing bwd {dname} bench S={S} [{card}]: dq kernel {dq_ms:.4f} ms, dk/dv kernel "
+              f"{dkv_ms:.4f} ms, sum {dq_ms + dkv_ms:.4f} ms, both through the wrapper (with "
+              f"delta) {both_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library (SDPA backward, bool mask) {library_ms:.4f} ms, "
+              f"bound {tot_bound * 1e3:.2f} us ({tot_by}; {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB), share of bound {tot_bound / (dq_ms + dkv_ms):.4f}")
+        for kname, ms, products, outs in (("dq", dq_ms, 3, ("dq",)), ("dkv", dkv_ms, 4, ("dkv",))):
+            bound, by, _, _ = bwd_bound_ms(bench_seg, S, S, hq, hkv, D, dname, products, outs)
+            res[f"{kname}_{dname}"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                           bound_ms=bound, bound_by=by)
+        del q, k, v, do, out, lse, dq, dk, dv, qb, kb, vb, ob, mask
+        torch.cuda.empty_cache()
+    return res
 
 
 def _clips(rng):
@@ -281,6 +550,7 @@ def phase_serving(card: str) -> dict:
     reset_launches()
     main = _serve(model, a, a_tc, b, b_tc, d, launches, "bf16")
     torch.cuda.synchronize()
+    paths = {"serving_bf16": dict(launches)}
     main_launches = launches["bf16"]
     print(f"serving bf16 (kernel): launches encode/forward/decode/encode-u8 = "
           f"{main['launches']}, total {main_launches}; indices in [0, "
@@ -291,6 +561,7 @@ def phase_serving(card: str) -> dict:
     k32 = build(**{"training.main.precision": "32"})
     reset_launches()
     out_k32 = _serve(k32, a, a_tc, b, b_tc, d, launches, "f32")
+    paths["serving_f32"] = dict(launches)
     f32_launches = launches["f32"]
     p32 = build(**{"training.main.precision": "32", "training.main.attn_impl": "reference"})
     out_p32 = _serve(p32, a, a_tc, b, b_tc, d, launches, "f32", check_counts=False)
@@ -319,7 +590,7 @@ def phase_serving(card: str) -> dict:
     print(f"encode (a), 6 clips 8x128x128, bf16 [{card}]: {ms:.3f} ms/request, "
           f"{len(a) / ms * 1e3:.1f} clips/s (host clock, {reps} requests)")
     _breakdown(model, a, a_tc)
-    return {"bf16": main_launches, "f32": f32_launches}
+    return paths
 
 
 def _breakdown(model, a, a_tc) -> None:
@@ -336,18 +607,204 @@ def _breakdown(model, a, a_tc) -> None:
         model.encode(a, a_tc)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    print_breakdown(prof, f"one encode (a) request (profiled, wall {wall_ms:.3f} ms): host "
+                    f"packing {pack_ms:.3f} ms (unprofiled);", wall_ms, 8)
+
+
+def print_breakdown(prof, title: str, wall_ms: float, top: int) -> None:
+    """Device busy time and the top device events of a profile. Only the
+    device's own events count (kernels, copies): a CPU op's self device
+    time is the time of the kernels it launched, which are rows of their
+    own, and a ``record_function`` range (``Optimizer.step``) is mirrored on
+    the device timeline over its kernels; summing those too counts the
+    same time twice."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    cpu_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in events
+                   if e.device_type == DeviceType.CUDA and e.key not in cpu_keys
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     if busy == 0:
-        print("breakdown: the profiler recorded no device time (not measured)")
+        print(f"breakdown of {title} the profiler recorded no device time (not measured)")
         return
-    print(f"breakdown of one encode (a) request (profiled, wall {wall_ms:.3f} ms): host "
-          f"packing {pack_ms:.3f} ms (unprofiled); device busy {busy:.3f} ms "
-          f"({busy / wall_ms * 100:.1f} % of wall); top device kernels:")
-    for key, dev_ms, count in rows[:8]:
+    print(f"breakdown of {title} device busy {busy:.3f} ms ({busy / wall_ms * 100:.1f} % of "
+          f"wall); top device events:")
+    for key, dev_ms, count in rows[:top]:
         print(f"    {dev_ms:8.4f} ms  x{count:<4d} {key[:90]}")
+
+
+def train_config(**over):
+    """configs/tiny.yaml as the training phase runs it: LPIPS off (not
+    ported), warm-up 2 steps so the timed steps run at lr > 0."""
+    from titok_tpu_torch.config import load_config
+
+    over = {"tokenizer.losses.perceptual_weight": 0, "optimizer.warmup_steps": 2, **over}
+    return load_config(os.path.join(REPO, "configs", "tiny.yaml"),
+                       [f"{k}={v}" for k, v in over.items()])
+
+
+def _trainer(cfg, f32_disc=False):
+    """Builder, state and step for ``cfg``. ``f32_disc``: the discriminator
+    rebuilt to compute in f32 (the package builds it in bf16, as the JAX
+    package does), so that an f32 run is f32 throughout."""
+    import torch
+
+    from titok_tpu_torch.losses.loss_module import LossSystem
+    from titok_tpu_torch.models.blocks import PackedEncoder
+    from titok_tpu_torch.models.titok import make_titok
+    from titok_tpu_torch.training.train_step import TrainStepBuilder
+
+    ls = LossSystem(cfg)
+    if f32_disc:
+        ls.disc_model = PackedEncoder(
+            model_size=cfg.discriminator.model.model_size, patch_size=ls.patch_size,
+            in_channels=3, out_channels=1, dtype=torch.float32,
+            attn_impl=str(cfg.training.main.get("attn_impl", "auto")))
+    builder = TrainStepBuilder(make_titok(cfg), ls, cfg)
+    state = builder.init_state(device="cuda")
+    return builder, state, builder.make_train_step()
+
+
+def _host_batches(cfg, n, seed=0):
+    """n packed batches and their disc layouts (host work, before timing)."""
+    import itertools
+
+    from titok_tpu_torch.data.packing import build_disc_batch
+    from titok_tpu_torch.losses.loss_module import DISC_TOKENS
+    from titok_tpu_torch.training.trainer import synthetic_batches
+
+    t0 = time.perf_counter()
+    out = [(b, build_disc_batch(b, DISC_TOKENS))
+           for b in itertools.islice(synthetic_batches(cfg, seed=seed), n)]
+    return out, (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_training(card: str) -> dict:
+    """The tiny GAN train step at full width through the kernels."""
+    import torch
+
+    from titok_tpu_torch.data.packing import to_device
+    from titok_tpu_torch.ops.flash_attention_mh import launches, reset_launches
+
+    dev = torch.device("cuda")
+    cfg = train_config()
+    cb = 4375
+    builder, state, step = _trainer(cfg)
+    batches, pack_ms = _host_batches(cfg, 6)
+    seq_len = int(cfg.training.sampling.train_seq_len)
+    print(f"training: tiny GAN, width 256, enc/dec 4+4 layers, disc {cfg.discriminator.model.model_size}"
+          f", train_seq_len {seq_len}, {cfg.training.main.precision}, samples per batch "
+          f"{[int(b.sample_valid.sum()) for b, _ in batches]}, host packing {pack_ms:.1f} ms/batch")
+    gen0 = [p.detach().clone() for p in state.model.parameters()]
+    disc0 = [p.detach().clone() for p in state.disc_model.parameters()]
+
+    reset_launches()  # the main path: the 6 steps below, read right after them
+    per_step, metrics_all, times = [], [], []
+    for i, (b, d) in enumerate(batches):
+        before = dict(launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics, idx = step(state, to_device(b, dev), to_device(d, dev))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: launches[k] - before[k] for k in launches})
+        metrics_all.append(metrics)
+        tok = torch.from_numpy(b.token_mask).to(dev)
+        check(bool(((idx[tok] >= 0) & (idx[tok] < cb)).all()), f"step {i}: index out of range")
+    paths = {"train_bf16": dict(launches)}
+    want = {"bf16": 16, "bwd_dq_bf16": 16, "bwd_dkv_bf16": 16,
+            "f32": 0, "bwd_dq_f32": 0, "bwd_dkv_f32": 0}
+    for i, got in enumerate(per_step):
+        check(got == want, f"step {i}: launches {got}, want {want}")
+    print(f"training launches per step (every one of 6): {per_step[0]} -- per attention layer "
+          f"one forward and one of each backward kernel: generator pass encoder 4 + decoder 4 + "
+          f"stacked disc 4, discriminator pass 4")
+    for i, m in enumerate(metrics_all):
+        vals = {k: float(v) for k, v in m.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"step {i}: non-finite metric {vals}")
+        check(vals["nonfinite_grad/generator"] == 0 and vals["nonfinite_grad/discriminator"] == 0,
+              f"step {i}: a non-finite grad was zeroed")
+        print(f"  step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in vals.items()))
+    moved_g = max((p.detach() - p0).abs().max().item()
+                  for p, p0 in zip(state.model.parameters(), gen0))
+    moved_d = max((p.detach() - p0).abs().max().item()
+                  for p, p0 in zip(state.disc_model.parameters(), disc0))
+    print(f"params moved: generator max|dp| {moved_g:.3e}, discriminator {moved_d:.3e}")
+    check(moved_g > 0 and moved_d > 0, "the params did not move")
+    timed = times[2:]
+    print(f"train step, tiny GAN bf16 S={seq_len} [{card}]: {np.mean(timed):.3f} ms/step "
+          f"(host clock, mean of 4 after 2 warm-up; steps {', '.join(f'{t:.2f}' for t in times)} "
+          f"ms), {seq_len / np.mean(timed) * 1e3:.0f} tokens/s")
+    _train_breakdown(step, state, batches[0])
+
+    # f32 kernel path vs f32 plain path (dense attention), same weights,
+    # batches and noise; the discriminator in f32 too
+    cfg32 = train_config(**{"training.main.precision": "32",
+                            "training.sampling.train_seq_len": 2048})
+    batches32, _ = _host_batches(cfg32, 3, seed=1)
+    noise_gen = torch.Generator(device=dev).manual_seed(3)
+    noises = [torch.randn(d.segment_ids.shape[0], b.patches.shape[1], generator=noise_gen,
+                          device=dev) for b, d in batches32]
+    runs = {}
+    for name, over in (("kernel", {}), ("plain", {"training.main.attn_impl": "reference"})):
+        c = train_config(**{"training.main.precision": "32",
+                            "training.sampling.train_seq_len": 2048, **over})
+        builder, st, stp = _trainer(c, f32_disc=True)
+        reset_launches()
+        b0, d0 = batches32[0]
+        bt, dt_ = to_device(b0, dev), to_device(d0, dev)
+        recon, _ = st.model(bt)
+        loss, _ = builder.loss_system.generator_loss(recon, bt, dt_)
+        grads = torch.autograd.grad(loss, list(st.model.parameters()))
+        losses = []
+        for (b, d), noise in zip(batches32, noises):
+            st, m, _ = stp(st, to_device(b, dev), to_device(d, dev), noise=noise)
+            losses.append({k: float(v) for k, v in m.items() if "loss" in k or "penalty" in k})
+        torch.cuda.synchronize()
+        runs[name] = (grads, losses, dict(launches))
+        del builder, st, stp, recon, loss
+        torch.cuda.empty_cache()
+    k_grads, k_losses, k_launch = runs["kernel"]
+    p_grads, p_losses, p_launch = runs["plain"]
+    check(all(v == 0 for v in p_launch.values()), f"the plain path launched kernels: {p_launch}")
+    check(k_launch["f32"] > 0 and k_launch["bwd_dq_f32"] > 0 and k_launch["bwd_dkv_f32"] > 0,
+          f"the f32 kernel path launched no kernel: {k_launch}")
+    gmax = max(g.abs().max().item() for g in p_grads)
+    gerr = max((a - b).abs().max().item() for a, b in zip(k_grads, p_grads))
+    pairs = [(k_losses[i][key], p_losses[i][key]) for i in range(3) for key in p_losses[i]]
+    labs = max(abs(a - b) for a, b in pairs)
+    lrel = max(abs(a - b) / abs(b) for a, b in pairs if b != 0)
+    lok = all(abs(a - b) <= 1e-6 + 1e-4 * abs(b) for a, b in pairs)
+    print(f"f32 train path S=2048, kernel vs plain (dense attention), 3 steps: losses max|diff| "
+          f"{labs:.3e}, max rel diff {lrel:.3e} (gate atol 1e-6 + rtol 1e-4); first step's "
+          f"generator grads max|diff| {gerr:.3e} of max|g| {gmax:.3e} (gate 1e-4 x max|g|); "
+          f"kernel-path launches {k_launch}")
+    for i in range(3):
+        print(f"  step {i}: kernel {k_losses[i]}")
+        print(f"          plain  {p_losses[i]}")
+    check(lok, "f32 kernel path losses disagree with the plain path")
+    check(gerr <= 1e-4 * gmax, "f32 kernel path grads disagree with the plain path")
+    paths["train_f32"] = k_launch
+    return paths
+
+
+def _train_breakdown(step, state, batch_disc) -> None:
+    """Device time by kernel over one train step (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from titok_tpu_torch.data.packing import to_device
+
+    b, d = batch_disc
+    dev = torch.device("cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, to_device(b, dev), to_device(d, dev))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_breakdown(prof, f"one train step (profiled, wall {wall_ms:.3f} ms):", wall_ms, 12)
 
 
 def main() -> int:
@@ -368,20 +825,33 @@ def main() -> int:
     try:
         card = phase_build()
         kres = phase_kernels(card)
-        served = phase_serving(card)
+        bres = phase_bwd_kernels(card, train_config())
+        paths = phase_serving(card)
+        paths.update(phase_training(card))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
+    # launches: each path's counts were set to 0 just before it ran and read
+    # just after; a kernel's "launches" is its count on the training path of
+    # its dtype (bf16: the main path, 6 steps; f32: the f32 kernel path)
+    entries = [(f"flash_segment_attn_fwd_{d}", KERNEL_SRC, KERNEL_REPLACES, d, kres[d])
+               for d in ("bf16", "f32")]
+    entries += [(f"flash_segment_attn_bwd_{k}_{d}", BWD_SRC, BWD_REPLACES[k], f"bwd_{k}_{d}",
+                 bres[f"{k}_{d}"]) for k in ("dq", "dkv") for d in ("bf16", "f32")]
     kernels = []
-    for dname in ("bf16", "f32"):
-        r = kres[dname]
+    for name, src, replaces, key, r in entries:
+        dname = "f32" if key.endswith("f32") else "bf16"
         kernels.append({
-            "name": f"flash_segment_attn_fwd_{dname}", "route": "cuda",
-            "source": KERNEL_SRC, "replaces": KERNEL_REPLACES,
-            "launches": served[dname], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": paths[f"train_{dname}"][key],
+            "launches_by_path": {p: c[key] for p, c in paths.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        print(f"FAIL: not launched on their training path: {idle}", file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

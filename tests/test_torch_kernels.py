@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the segment-attention forward and its backward (dq and dk/dv kernels), and
+one train step that goes through both.
 
 Every test here needs a CUDA card and the CUDA toolkit; without one it skips
 (the fixture decides, never the import). This file imports no JAX, so it
@@ -120,3 +122,168 @@ def test_serving_path_launches_the_kernel(cuda):
     assert fa.launches["bf16"] == 12
     assert [len(i) for i in idx] == [3, 5, 7]
     assert all(np.isfinite(r).all() for r in recon)
+
+
+# backward vs plain, each of dq, dk, dv against the plain version's b:
+# (atol_frac, rtol, nrel) for |d| <= atol_frac * M + rtol * |b| per entry
+# and rms(d) <= nrel * R per output, M the largest |entry| and R the rms of
+# the plain dq, dk, dv together. The grads are small (max|b| 0.7-1.3 at the
+# bench shape), so the absolute part scales with them; over all three
+# outputs it also covers one that is only round-off (one row: dq = dk = 0).
+# bf16: both sides round p, ds and the outputs at the same places and sum
+# in another order, so an output may land one bf16 ulp (< 0.8 % of |b|)
+# away; f32: FMA order only. The same limits as chip_smoke.py's, which
+# says how they were set and where planted faults show what they reject.
+BWD_TOL = {torch.float32: (1e-6, 1e-4, 3e-6), torch.bfloat16: (1.5e-3, 1e-2, 5e-4)}
+
+
+def _assert_bwd_close(got, want, dtype):
+    atol_frac, rtol, nrel = BWD_TOL[dtype]
+    bs = [b.float() for b in want]
+    M = max(b.abs().max().item() for b in bs)
+    R = torch.cat([b.flatten() for b in bs]).square().mean().sqrt().item()
+    for name, a, b32 in zip(("dq", "dk", "dv"), got, bs):
+        a32 = a.float()
+        torch.testing.assert_close(a32, b32, atol=atol_frac * M, rtol=rtol, msg=name)
+        rms_d = (a32 - b32).square().mean().sqrt().item()
+        assert rms_d <= nrel * R, (name, rms_d, R)
+
+
+def _stacked_ids(S1, lengths, copies):
+    """``copies`` disc buffers of S1 rows stacked as the discriminator's
+    packed pass lays them out (pads get a per-copy id, no id is 0)."""
+    from titok_tpu_torch.losses.loss_module import stacked_segment_ids
+
+    return stacked_segment_ids(_segments(lengths, S1), copies, len(lengths) + 2)
+
+
+BWD_CASES = {
+    "bench 10x576 4/2": (lambda: _segments([576] * 10, 6144), 4, 2),
+    "large heads 16/4": (lambda: _segments([576] * 10, 6144), 16, 4),
+    "ragged 1..1892, pad": (lambda: _segments([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299),
+                            4, 2),
+    "stacked disc ids x4": (lambda: _stacked_ids(700, [300, 1, 250, 120], 4), 4, 2),
+    "one row": (lambda: _segments([1], 1), 4, 2),
+}
+
+
+def _bwd_inputs(dev, dtype, seg, hq, hkv, seed=1, Sk=None, k_seg=None):
+    S = seg.shape[0]
+    q, k, v = _inputs(dev, dtype, S, hq, hkv, seed=seed, Sk=Sk)
+    out, lse = fa._fwd(q, k, v, seg, k_segment_ids=k_seg)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dout = torch.randn(S, hq, 64, generator=g, device=dev).to(dtype)
+    return q, k, v, out, lse, dout
+
+
+def _check_bwd(dev, dtype, seg, hq, hkv, Sk=None, k_seg=None):
+    q, k, v, out, lse, dout = _bwd_inputs(dev, dtype, seg, hq, hkv, Sk=Sk, k_seg=k_seg)
+    key = "bf16" if dtype == torch.bfloat16 else "f32"
+    before = (fa.launches[f"bwd_dq_{key}"], fa.launches[f"bwd_dkv_{key}"])
+    got = fa._bwd(q, k, v, seg, out, lse, dout, k_segment_ids=k_seg)
+    torch.cuda.synchronize()
+    assert (fa.launches[f"bwd_dq_{key}"], fa.launches[f"bwd_dkv_{key}"]) == \
+        (before[0] + 1, before[1] + 1)
+    want = fa.flash_segment_attention_mh_bwd_reference(q, k, v, seg, out, lse, dout,
+                                                       k_segment_ids=k_seg)
+    for name, a, x in zip(("dq", "dk", "dv"), got, (q, k, v)):
+        assert a.dtype == dtype and a.shape == x.shape, name
+        assert bool(torch.isfinite(a.float()).all()), name
+    _assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_bwd_kernels_match_plain(cuda, dtype, case):
+    make_seg, hq, hkv = BWD_CASES[case]
+    _check_bwd(cuda, dtype, make_seg().to(cuda), hq, hkv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_bwd_kernels_separate_k_segments(cuda, dtype):
+    seg_q = _segments([90, 110], 200).to(cuda)
+    seg_k = _segments([60, 140, 100], 333).to(cuda)
+    _check_bwd(cuda, dtype, seg_q, 4, 2, Sk=333, k_seg=seg_k)
+
+
+def test_bwd_raises_on_cuda_instead_of_falling_back(cuda):
+    seg = _segments([128], 128).to(cuda)
+    q, k, v, out, lse, dout = _bwd_inputs(cuda, torch.float32, seg, 4, 2)
+    with pytest.raises(ValueError, match="dout must be a contiguous"):
+        fa._bwd(q, k, v, seg, out, lse, dout.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="lse is"):
+        fa._bwd(q, k, v, seg, out, lse.double(), dout)
+    with pytest.raises(ValueError, match="dout is"):
+        fa._bwd(q, k, v, seg, out, lse, dout.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="int32"):
+        fa._bwd(q, k, v, seg.long(), out, lse, dout)
+
+
+def _small_train_config():
+    import os
+
+    from titok_tpu_torch.config import load_config
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return load_config(os.path.join(repo, "configs", "tiny.yaml"), [
+        "tokenizer.model.patch_size=[2,4,4]", "discriminator.model.patch_size=[2,4,4]",
+        "tokenizer.losses.perceptual_weight=0", "training.sampling.min_grid=[2,8,8]",
+        "training.sampling.max_grid=[4,16,16]", "training.sampling.token_range=[1,8]",
+        "training.sampling.train_seq_len=256", "optimizer.warmup_steps=0"])
+
+
+def test_bf16_grads_reach_every_parameter(cuda):
+    """bf16 compute with fp32 params, through the kernels: the generator
+    loss reaches every generator parameter through the per-call casts of
+    ``Dense`` and FSQ's straight-through rounding, and the discriminator
+    loss every discriminator parameter, with finite, non-zero grads."""
+    from titok_tpu_torch.data.packing import build_disc_batch, to_device
+    from titok_tpu_torch.losses.loss_module import LossSystem
+    from titok_tpu_torch.models.titok import make_titok
+    from titok_tpu_torch.training.train_step import TrainStepBuilder
+    from titok_tpu_torch.training.trainer import synthetic_batches
+
+    cfg = _small_train_config()
+    ls = LossSystem(cfg)
+    state = TrainStepBuilder(make_titok(cfg), ls, cfg).init_state(device=cuda)
+    batch = next(synthetic_batches(cfg, seed=1))
+    bt, dt = to_device(batch, cuda), to_device(build_disc_batch(batch, ls.disc_tokens), cuda)
+    recon, _ = state.model(bt)
+    assert recon.dtype == torch.bfloat16
+    for module, loss in ((state.model, ls.generator_loss(recon, bt, dt)[0]),
+                         (state.disc_model, ls.discriminator_loss(recon.detach(), bt, dt)[0])):
+        params = list(module.parameters())
+        assert all(p.dtype == torch.float32 for p in params)
+        grads = torch.autograd.grad(loss, params)  # raises if a param is unused
+        assert all(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0) for g in grads)
+
+
+def test_train_step_launches_both_backward_kernels(cuda):
+    """One GAN train step of a small-patch tiny model on the card: every
+    attention layer runs the forward kernel once and both backward kernels
+    once (generator pass: encoder 4 + decoder 4 + the stacked disc pass 4;
+    discriminator pass: 4), all in bf16, and the metrics are finite."""
+    import itertools
+
+    from titok_tpu_torch.data.packing import build_disc_batch, to_device
+    from titok_tpu_torch.losses.loss_module import LossSystem
+    from titok_tpu_torch.models.titok import make_titok
+    from titok_tpu_torch.training.train_step import TrainStepBuilder
+    from titok_tpu_torch.training.trainer import synthetic_batches
+
+    cfg = _small_train_config()
+    ls = LossSystem(cfg)
+    builder = TrainStepBuilder(make_titok(cfg), ls, cfg)
+    state = builder.init_state(device=cuda)
+    step = builder.make_train_step()
+    (batch,) = itertools.islice(synthetic_batches(cfg, seed=0), 1)
+    disc = build_disc_batch(batch, ls.disc_tokens)
+    fa.reset_launches()
+    state, metrics, indices = step(state, to_device(batch, cuda), to_device(disc, cuda))
+    torch.cuda.synchronize()
+    assert fa.launches["bf16"] == 16
+    assert fa.launches["bwd_dq_bf16"] == 16 and fa.launches["bwd_dkv_bf16"] == 16
+    assert fa.launches["f32"] == fa.launches["bwd_dq_f32"] == 0
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert float(metrics["nonfinite_grad/generator"]) == 0.0
+    assert int(indices.max()) < 4375 and int(indices.min()) >= 0

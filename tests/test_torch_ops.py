@@ -3,6 +3,7 @@ CPU: patchify, decode_rows, RoPE tables and rotation, RMSNorm, and the
 packer (every PackedBatch buffer equal, bit for bit)."""
 
 import importlib
+import itertools
 
 import numpy as np
 import pytest
@@ -104,22 +105,118 @@ def _mixed_clips(rng):
     ]
 
 
-def test_pack_samples_buffers_equal_jax(rng):
+# The JAX packer normalizes uint8 clips with the C++ `patchify_normalize`
+# (`x * (2/255) - 1`) when `libtitok_native.so` loads, and with a numpy
+# fallback (`x / 255 * 2 - 1`) when it does not. The library is built at
+# first use; under xdist several workers may build it into the same file at
+# once, and a worker that fails to load it takes the fallback. The two
+# formulas differ by 1 ulp on 111 of the 256 byte values, so rows of uint8
+# clips are held to 1 ulp of [-1, 1] (2**-23) whichever path JAX took;
+# float clips and every other field stay bit-exact.
+_U8_ULP = 2.0 ** -23
+_FIELDS = ("patches", "segment_ids", "token_mask", "rope_cos", "rope_sin",
+           "token_counts", "grid_sizes", "grids", "sample_valid", "fps")
+
+
+def _assert_packed_equal(got, want, clips):
+    for field in _FIELDS:
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.dtype == b.dtype and a.shape == b.shape, field
+        if field != "patches":
+            np.testing.assert_array_equal(a, b, err_msg=field)
+    offs = tpack.sample_offsets(got.token_counts, got.grid_sizes)
+    u8 = np.zeros(got.seq_len, bool)
+    for b, clip in enumerate(clips):
+        if clip.dtype == np.uint8:
+            u8[offs[b] + got.token_counts[b]: offs[b + 1]] = True
+    np.testing.assert_array_equal(got.patches[~u8], want.patches[~u8])
+    np.testing.assert_allclose(got.patches[u8], want.patches[u8], atol=_U8_ULP, rtol=0)
+
+
+def _pack_both(rng):
     clips = _mixed_clips(rng)
     tcs = [3, 1, 7, 2]
     kw = dict(seq_len=160, max_samples=6, patch_size=PATCH, head_dim=64,
               fps=[3.0, 4.0, 5.0, 3.5])
-    got = tpack.pack_samples(clips, tcs, **kw)
-    want = jpack.pack_samples(clips, tcs, **kw)
-    for field in ("patches", "segment_ids", "token_mask", "rope_cos", "rope_sin",
-                  "token_counts", "grid_sizes", "grids", "sample_valid", "fps"):
-        a, b = getattr(got, field), getattr(want, field)
-        assert a.dtype == b.dtype and a.shape == b.shape, field
-        np.testing.assert_array_equal(a, b, err_msg=field)
+    return clips, tpack.pack_samples(clips, tcs, **kw), jpack.pack_samples(clips, tcs, **kw)
+
+
+def test_pack_samples_buffers_equal_jax(rng):
+    clips, got, want = _pack_both(rng)
+    _assert_packed_equal(got, want, clips)
     # pad rows: segment 0 at the end, identity rotation
     pad = got.segment_ids == 0
     assert pad[-1] and not pad[0]
     assert np.all(got.rope_cos[pad] == 1.0) and np.all(got.rope_sin[pad] == 0.0)
+
+
+def test_pack_samples_within_ulp_of_jax_numpy_fallback(rng, monkeypatch):
+    """JAX pinned to its numpy normalize (`x/255*2-1`): the port's f32
+    `x*(2/255)-1` stays within 1 ulp."""
+    from titok_tpu.data import video_reader
+
+    def unavailable(*args, **kwargs):
+        raise OSError("native library not loaded")
+
+    monkeypatch.setattr(video_reader, "patchify_normalize", unavailable)
+    clips, got, want = _pack_both(rng)
+    _assert_packed_equal(got, want, clips)
+    vid = clips[1]
+    fallback = jpatch.patchify(vid.astype(np.float32).transpose(3, 0, 1, 2) / 255 * 2 - 1, PATCH)
+    np.testing.assert_allclose(tpack._video_rows(vid, PATCH), fallback, atol=_U8_ULP, rtol=0)
+
+
+def test_packer_and_disc_batch_equal_jax():
+    """The streaming packer and the discriminator layout, same seed: every
+    array bit for bit (float clips, as the synthetic stream makes)."""
+    from tests.util import tiny_config
+    from titok_tpu.training.trainer import synthetic_batches as j_synthetic_batches
+    from titok_tpu_torch.config import Config
+    from titok_tpu_torch.training.trainer import synthetic_batches
+
+    cfg = tiny_config()
+    got = list(itertools.islice(synthetic_batches(Config(cfg.to_dict()), seed=11), 4))
+    want = list(itertools.islice(j_synthetic_batches(cfg, seed=11), 4))
+    stream = [np.random.default_rng(2).uniform(-1, 1, (3, 2 * (i % 2 + 1), 8, 4 * (i % 3 + 1)))
+              .astype(np.float32) for i in range(20)]
+    kw = dict(seq_len=64, token_range=(1, 8), patch_size=PATCH, min_grid=(2, 8, 4))
+    got += list(tpack.Packer(**kw, rng=np.random.default_rng(5))(
+        {"video": v, "fps": 3.0} for v in stream))
+    want += list(jpack.Packer(**kw, rng=np.random.default_rng(5))(
+        {"video": v, "fps": 3.0} for v in stream))
+    assert len(got) == len(want) == 7  # 4 + 3: the partial final batch is dropped
+    for g, w in zip(got, want):
+        for field in _FIELDS:
+            np.testing.assert_array_equal(getattr(g, field), getattr(w, field), err_msg=field)
+        gd, wd = tpack.build_disc_batch(g, 4), jpack.build_disc_batch(w, 4)
+        for field, val in wd.device_arrays().items():
+            a = gd.device_arrays()[field]
+            assert a.dtype == val.dtype and a.shape == val.shape, field
+            np.testing.assert_array_equal(a, val, err_msg=field)
+    t = tpack.to_device(tpack.build_disc_batch(got[0], 4), "cpu")
+    assert t["segment_ids"].shape[0] == got[0].seq_len + 4 * got[0].sample_valid.shape[0]
+    assert t["is_patch"].dtype == torch.bool
+
+
+def test_bf16_training_stream_equals_jax():
+    """At 'bf16-mixed' the JAX packer stores the rows in bf16; the port
+    rounds them to bf16 and keeps them in f32: the same values."""
+    from tests.util import tiny_config
+    from titok_tpu.training.trainer import synthetic_batches as j_synthetic_batches
+    from titok_tpu_torch.config import Config
+    from titok_tpu_torch.training.trainer import synthetic_batches
+
+    cfg = tiny_config(**{"training.main.precision": "bf16-mixed"})
+    got = list(itertools.islice(synthetic_batches(Config(cfg.to_dict()), seed=4), 2))
+    want = list(itertools.islice(j_synthetic_batches(cfg, seed=4), 2))
+    exact = list(itertools.islice(synthetic_batches(Config(tiny_config().to_dict()), seed=4), 2))
+    for g, w, x in zip(got, want, exact):
+        assert g.patches.dtype == np.float32 and w.patches.dtype != np.float32
+        np.testing.assert_array_equal(g.patches, w.patches.astype(np.float32))
+        np.testing.assert_array_equal(g.segment_ids, w.segment_ids)
+        # rounded, not copied: within half a bf16 ulp of the f32 rows of '32'
+        assert not np.array_equal(g.patches, x.patches)
+        np.testing.assert_allclose(g.patches, x.patches, atol=0, rtol=2.0 ** -8)
 
 
 def test_pack_grid_only_and_unpack_match_jax(rng):

@@ -1,0 +1,504 @@
+// Segment-masked GQA flash-attention backward for Hopper (sm_90a).
+//
+// Replaces the TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel` reached
+// through `_mh_bwd` (titok_tpu/ops/flash_attention_mh.py), the custom_vjp
+// backward of `flash_segment_attention_mh`.
+//
+// Given the forward's q, k, v, ids and lse, the output gradient dO and
+// delta = rowsum(dO * O) per head (computed outside, in f32), for every q
+// row i, q head h (kv head hk = h / (Hq/Hkv)) and kv row j:
+//   p_ij  = seg_q[i] == seg_k[j] ? exp(s_ij - lse_i) : 0,  s_ij = (q_i . k_j) * scale
+//   dp_ij = dO_i . v_j
+//   ds_ij = p_ij * (dp_ij - delta_i) * scale
+//   dq_i  = sum_j bf16(ds_ij) k_j
+//   dk_j  = sum_{h in group} sum_i bf16(ds_ij) q_i,   dv_j = sum_{h in group} sum_i bf16(p_ij) dO_i
+// The bf16 roundings of p and ds are the JAX kernels' (`.astype` before the
+// products); in f32 nothing is rounded. Pad slots (segment 0) are remapped
+// to 2^30, as in the forward, so every row attends at least to itself and
+// lse is finite; ids need only be non-decreasing (the stacked
+// discriminator buffer has no id 0 at all).
+//
+// Inputs: q, dO [S, Hq*64], k/v [Sk, Hkv*64] row-major (the JAX [S,H,D]
+// layout), int32 ids [S]/[Sk], lse and delta [S, Hq] f32. Outputs: dq
+// [S, Hq*64], dk/dv [Sk, Hkv*64], in q's dtype.
+//
+// What bounds it on the H100: at the bench shape (S = 6144, ten 576-row
+// segments, Hq/Hkv = 4/2, D = 64, bf16) the five products (S, dP and dQ in
+// one kernel, S, dP, dV and dK in the other; S and dP are recomputed)
+// are 10 * D * Hq * sum(L_b^2) = 8.5 GFLOP of useful work, 8.6 us at
+// 989 TFLOP/s; the bytes (q, k, v, O, dO, lse, delta, dq, dk, dv, each once:
+// ~18 MB) take 5.5 us at 3.35 TB/s. Compute-bound, on the block-diagonal
+// part of S x Sk only.
+//
+// What the design does about it:
+// - dq: one CTA per (64-row q tile, q head), 4 warps of 16 q rows, as the
+//   forward. The CTA binary-searches seg_k for the exact kv interval of its
+//   tile and visits nothing else. Q and dO stay in registers as mma A
+//   fragments; K and V tiles are staged in shared memory.
+// - dk/dv: one CTA per (64-row kv tile, kv head). It binary-searches seg_q
+//   for the q interval of its tile (the JAX `_overlap_ranges(kmm, qmm)`) and
+//   loops over the Hq/Hkv q heads of its GQA group, so dk/dv sum over the
+//   group in registers, with no atomics and no second pass. K and V stay in
+//   registers; S^T and dP^T are computed directly with kv rows as the M
+//   dimension, so P^T and dS^T feed the next products from registers.
+// - bf16 on mma.sync m16n8k16 (bf16 in, fp32 accumulate). f32 on fp32 FMA
+//   (no TF32: the f32 path must hold tight tolerances against the plain
+//   version), 32-row tiles and 256 threads.
+// Not yet: wgmma, TMA, cp.async double buffering (later work; PERF.md has
+// the measured gap).
+
+#include "segment_attn_common.cuh"
+
+namespace {
+
+constexpr int BT = 64;  // rows per tile of the bf16 kernels (q and kv)
+
+// ---------------------------------------------------------------------------
+// bf16: mma.sync m16n8k16
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(NT_BF16)
+bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+            const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
+            const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            __nv_bfloat16* __restrict__ dq, int S, int Sk, int hq, int hkv, float scale) {
+  __shared__ __align__(16) __nv_bfloat16 k_s[BT * LDS];  // also stages the Q tile
+  __shared__ __align__(16) __nv_bfloat16 v_s[BT * LDS];  // also stages the dO tile
+  __shared__ int segq_s[BT];
+  __shared__ int segk_s[BT];
+  __shared__ int range_s[2];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int q0 = blockIdx.x * BT;
+  const int q1 = min(q0 + BT, S);
+  const int h = blockIdx.y;
+  const int hk = h / (hq / hkv);
+  const int ldq = hq * D, ldk = hkv * D;
+  const int r0 = warp * 16 + g;  // this thread's rows in the tile: r0 and r0 + 8
+
+  if (tid == 0) segment_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
+  if (tid < BT) segq_s[tid] = (q0 + tid < S) ? remap(seg_q[q0 + tid]) : NO_ROW_Q;
+  load_tiles_bf16(k_s, q, v_s, dout, q0, S, ldq, h * D);
+  __syncthreads();
+  uint32_t qa[4][4], doa[4][4];
+  load_a_frags(qa, k_s, r0, t2);
+  load_a_frags(doa, v_s, r0, t2);
+
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  const int sq0 = segq_s[r0], sq1 = segq_s[r0 + 8];
+  const float lse0 = row0 < S ? lse[(size_t)row0 * hq + h] : 0.f;
+  const float lse1 = row1 < S ? lse[(size_t)row1 * hq + h] : 0.f;
+  const float dl0 = row0 < S ? delta[(size_t)row0 * hq + h] : 0.f;
+  const float dl1 = row1 < S ? delta[(size_t)row1 * hq + h] : 0.f;
+  const int lo = range_s[0], hi = range_s[1];
+
+  float acc[8][4];
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+
+  for (int kv0 = lo; kv0 < hi; kv0 += BT) {
+    __syncthreads();  // the previous tile is consumed
+    load_tiles_bf16(k_s, k, v_s, v, kv0, hi, ldk, hk * D);
+    if (tid < BT) segk_s[tid] = (kv0 + tid < hi) ? remap(seg_k[kv0 + tid]) : NO_ROW_K;
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+    mma_abt(s, qa, k_s, g, t2);    // S = Q K^T
+    mma_abt(dp, doa, v_s, g, t2);  // dP = dO V^T
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int sk0 = segk_s[nt * 8 + t2], sk1 = segk_s[nt * 8 + t2 + 1];
+      const float p0 = sq0 == sk0 ? expf(s[nt][0] * scale - lse0) : 0.f;
+      const float p1 = sq0 == sk1 ? expf(s[nt][1] * scale - lse0) : 0.f;
+      const float p2 = sq1 == sk0 ? expf(s[nt][2] * scale - lse1) : 0.f;
+      const float p3 = sq1 == sk1 ? expf(s[nt][3] * scale - lse1) : 0.f;
+      s[nt][0] = p0 * (dp[nt][0] - dl0) * scale;  // dS, in place
+      s[nt][1] = p1 * (dp[nt][1] - dl0) * scale;
+      s[nt][2] = p2 * (dp[nt][2] - dl1) * scale;
+      s[nt][3] = p3 * (dp[nt][3] - dl1) * scale;
+    }
+    uint32_t dsa[4][4];
+    c_to_a(dsa, s);                // bf16(dS)
+    mma_ab(acc, dsa, k_s, g, t2);  // dQ += dS K
+  }
+
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) {
+    const int col = h * D + dt * 8 + t2;
+    if (row0 < S)
+      *reinterpret_cast<uint32_t*>(dq + (size_t)row0 * ldq + col) = pack_bf16(acc[dt][0], acc[dt][1]);
+    if (row1 < S)
+      *reinterpret_cast<uint32_t*>(dq + (size_t)row1 * ldq + col) = pack_bf16(acc[dt][2], acc[dt][3]);
+  }
+}
+
+__global__ void __launch_bounds__(NT_BF16)
+bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
+             const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int Sk,
+             int hq, int hkv, float scale) {
+  __shared__ __align__(16) __nv_bfloat16 q_s[BT * LDS];   // also stages the K tile
+  __shared__ __align__(16) __nv_bfloat16 do_s[BT * LDS];  // also stages the V tile
+  __shared__ float lse_s[BT];
+  __shared__ float delta_s[BT];
+  __shared__ int segq_s[BT];
+  __shared__ int segk_s[BT];
+  __shared__ int range_s[2];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int k0 = blockIdx.x * BT;
+  const int k1 = min(k0 + BT, Sk);
+  const int hk = blockIdx.y;
+  const int rep = hq / hkv;
+  const int ldq = hq * D, ldk = hkv * D;
+  const int r0 = warp * 16 + g;  // this thread's kv rows in the tile: r0 and r0 + 8
+
+  if (tid == 0) segment_interval(seg_k, seg_q, k0, k1, S, &range_s[0], &range_s[1]);
+  if (tid < BT) segk_s[tid] = (k0 + tid < Sk) ? remap(seg_k[k0 + tid]) : NO_ROW_K;
+  load_tiles_bf16(q_s, k, do_s, v, k0, Sk, ldk, hk * D);
+  __syncthreads();
+  uint32_t ka[4][4], va[4][4];
+  load_a_frags(ka, q_s, r0, t2);
+  load_a_frags(va, do_s, r0, t2);
+
+  const int sk0 = segk_s[r0], sk1 = segk_s[r0 + 8];
+  const int lo = range_s[0], hi = range_s[1];
+
+  float dka[8][4], dva[8][4];
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) {
+    dka[dt][0] = dka[dt][1] = dka[dt][2] = dka[dt][3] = 0.f;
+    dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
+  }
+
+  for (int hr = 0; hr < rep; ++hr) {
+    const int h = hk * rep + hr;
+    for (int qs0 = lo; qs0 < hi; qs0 += BT) {
+      __syncthreads();  // the previous tile (or the K/V staging) is consumed
+      load_tiles_bf16(q_s, q, do_s, dout, qs0, hi, ldq, h * D);
+      if (tid < BT) {
+        const bool ok = qs0 + tid < hi;
+        segq_s[tid] = ok ? remap(seg_q[qs0 + tid]) : NO_ROW_Q;
+        lse_s[tid] = ok ? lse[(size_t)(qs0 + tid) * hq + h] : 0.f;
+        delta_s[tid] = ok ? delta[(size_t)(qs0 + tid) * hq + h] : 0.f;
+      }
+      __syncthreads();
+
+      float p[8][4];
+      mma_abt(p, ka, q_s, g, t2);  // S^T = K Q^T: kv rows x q columns
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int c0 = nt * 8 + t2, c1 = c0 + 1;
+        const int sqa = segq_s[c0], sqb = segq_s[c1];
+        const float la = lse_s[c0], lb = lse_s[c1];
+        p[nt][0] = sk0 == sqa ? expf(p[nt][0] * scale - la) : 0.f;
+        p[nt][1] = sk0 == sqb ? expf(p[nt][1] * scale - lb) : 0.f;
+        p[nt][2] = sk1 == sqa ? expf(p[nt][2] * scale - la) : 0.f;
+        p[nt][3] = sk1 == sqb ? expf(p[nt][3] * scale - lb) : 0.f;
+      }
+      uint32_t fa[4][4];
+      c_to_a(fa, p);                // bf16(P^T)
+      mma_ab(dva, fa, do_s, g, t2);  // dV += P^T dO
+
+      float dpt[8][4];
+      mma_abt(dpt, va, do_s, g, t2);  // dP^T = V dO^T
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float da = delta_s[nt * 8 + t2], db = delta_s[nt * 8 + t2 + 1];
+        p[nt][0] = p[nt][0] * (dpt[nt][0] - da) * scale;  // dS^T, in place
+        p[nt][1] = p[nt][1] * (dpt[nt][1] - db) * scale;
+        p[nt][2] = p[nt][2] * (dpt[nt][2] - da) * scale;
+        p[nt][3] = p[nt][3] * (dpt[nt][3] - db) * scale;
+      }
+      c_to_a(fa, p);                // bf16(dS^T)
+      mma_ab(dka, fa, q_s, g, t2);  // dK += dS^T Q
+    }
+  }
+
+  const int row0 = k0 + r0, row1 = row0 + 8;
+#pragma unroll
+  for (int dt = 0; dt < 8; ++dt) {
+    const int col = hk * D + dt * 8 + t2;
+    if (row0 < Sk) {
+      *reinterpret_cast<uint32_t*>(dk + (size_t)row0 * ldk + col) = pack_bf16(dka[dt][0], dka[dt][1]);
+      *reinterpret_cast<uint32_t*>(dv + (size_t)row0 * ldk + col) = pack_bf16(dva[dt][0], dva[dt][1]);
+    }
+    if (row1 < Sk) {
+      *reinterpret_cast<uint32_t*>(dk + (size_t)row1 * ldk + col) = pack_bf16(dka[dt][2], dka[dt][3]);
+      *reinterpret_cast<uint32_t*>(dv + (size_t)row1 * ldk + col) = pack_bf16(dva[dt][2], dva[dt][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: fp32 FMA. 32-row tiles, 256 threads: thread (ty, tx) owns tile rows
+// ty + 16 i (i < 2), score columns tx + 16 j (j < 2) and output columns
+// tx + 16 j (j < 4). Padded strides keep each half-warp's column walks on
+// distinct banks; a row's 16 owners read the same address (broadcast).
+// ---------------------------------------------------------------------------
+
+constexpr int BF = 32;
+
+__device__ __forceinline__ void load_tile_f32(float (*dst)[D + 1], const float* src, int row0,
+                                              int valid, int ld, int col0) {
+  for (int e = threadIdx.x; e < BF * D; e += blockDim.x) {
+    const int r = e / D, c = e % D;
+    dst[r][c] = (row0 + r < valid) ? src[(size_t)(row0 + r) * ld + col0 + c] : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(256)
+bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const int* __restrict__ seg_q,
+           const int* __restrict__ seg_k, const float* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           float* __restrict__ dq, int S, int Sk, int hq, int hkv, float scale) {
+  __shared__ float q_s[BF][D + 1];
+  __shared__ float do_s[BF][D + 1];
+  __shared__ float k_s[BF][D + 1];
+  __shared__ float v_s[BF][D + 1];
+  __shared__ float ds_s[BF][BF + 1];
+  __shared__ int segq_s[BF];
+  __shared__ int segk_s[BF];
+  __shared__ int range_s[2];
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = blockIdx.x * BF;
+  const int q1 = min(q0 + BF, S);
+  const int h = blockIdx.y;
+  const int hk = h / (hq / hkv);
+  const int ldq = hq * D, ldk = hkv * D;
+
+  if (tid == 0) segment_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
+  load_tile_f32(q_s, q, q0, S, ldq, h * D);
+  load_tile_f32(do_s, dout, q0, S, ldq, h * D);
+  if (tid < BF) segq_s[tid] = (q0 + tid < S) ? remap(seg_q[q0 + tid]) : NO_ROW_Q;
+  __syncthreads();
+
+  int sq[2];
+  float ls[2], dl[2], acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + ty + 16 * i;
+    sq[i] = segq_s[ty + 16 * i];
+    ls[i] = row < S ? lse[(size_t)row * hq + h] : 0.f;
+    dl[i] = row < S ? delta[(size_t)row * hq + h] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+  const int lo = range_s[0], hi = range_s[1];
+
+  for (int kv0 = lo; kv0 < hi; kv0 += BF) {
+    __syncthreads();
+    load_tile_f32(k_s, k, kv0, hi, ldk, hk * D);
+    load_tile_f32(v_s, v, kv0, hi, ldk, hk * D);
+    if (tid < BF) segk_s[tid] = (kv0 + tid < hi) ? remap(seg_k[kv0 + tid]) : NO_ROW_K;
+    __syncthreads();
+
+    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      const float qv[2] = {q_s[ty][d], q_s[ty + 16][d]};
+      const float ov[2] = {do_s[ty][d], do_s[ty + 16][d]};
+      const float kv[2] = {k_s[tx][d], k_s[tx + 16][d]};
+      const float vv[2] = {v_s[tx][d], v_s[tx + 16][d]};
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float p = sq[i] == segk_s[tx + 16 * j] ? expf(s[i][j] * scale - ls[i]) : 0.f;
+        ds_s[ty + 16 * i][tx + 16 * j] = p * (dp[i][j] - dl[i]) * scale;
+      }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int r = 0; r < BF; ++r) {
+      const float dsv[2] = {ds_s[ty][r], ds_s[ty + 16][r]};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float kk = k_s[r][tx + 16 * j];
+        acc[0][j] = fmaf(dsv[0], kk, acc[0][j]);
+        acc[1][j] = fmaf(dsv[1], kk, acc[1][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dq[(size_t)row * ldq + h * D + tx + 16 * j] = acc[i][j];
+  }
+}
+
+__global__ void __launch_bounds__(256)
+bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const int* __restrict__ seg_q,
+            const int* __restrict__ seg_k, const float* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            float* __restrict__ dk, float* __restrict__ dv, int S, int Sk, int hq, int hkv,
+            float scale) {
+  __shared__ float k_s[BF][D + 1];
+  __shared__ float v_s[BF][D + 1];
+  __shared__ float q_s[BF][D + 1];
+  __shared__ float do_s[BF][D + 1];
+  __shared__ float p_s[BF][BF + 1];
+  __shared__ float ds_s[BF][BF + 1];
+  __shared__ float lse_s[BF];
+  __shared__ float delta_s[BF];
+  __shared__ int segq_s[BF];
+  __shared__ int segk_s[BF];
+  __shared__ int range_s[2];
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int k0 = blockIdx.x * BF;
+  const int k1 = min(k0 + BF, Sk);
+  const int hk = blockIdx.y;
+  const int rep = hq / hkv;
+  const int ldq = hq * D, ldk = hkv * D;
+
+  if (tid == 0) segment_interval(seg_k, seg_q, k0, k1, S, &range_s[0], &range_s[1]);
+  load_tile_f32(k_s, k, k0, Sk, ldk, hk * D);
+  load_tile_f32(v_s, v, k0, Sk, ldk, hk * D);
+  if (tid < BF) segk_s[tid] = (k0 + tid < Sk) ? remap(seg_k[k0 + tid]) : NO_ROW_K;
+  __syncthreads();
+
+  const int sk[2] = {segk_s[ty], segk_s[ty + 16]};
+  const int lo = range_s[0], hi = range_s[1];
+  float dka[2][4], dva[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dka[i][j] = dva[i][j] = 0.f;
+
+  for (int hr = 0; hr < rep; ++hr) {
+    const int h = hk * rep + hr;
+    for (int qs0 = lo; qs0 < hi; qs0 += BF) {
+      __syncthreads();
+      load_tile_f32(q_s, q, qs0, hi, ldq, h * D);
+      load_tile_f32(do_s, dout, qs0, hi, ldq, h * D);
+      if (tid < BF) {
+        const bool ok = qs0 + tid < hi;
+        segq_s[tid] = ok ? remap(seg_q[qs0 + tid]) : NO_ROW_Q;
+        lse_s[tid] = ok ? lse[(size_t)(qs0 + tid) * hq + h] : 0.f;
+        delta_s[tid] = ok ? delta[(size_t)(qs0 + tid) * hq + h] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T and dP^T: kv rows ty + 16 i, q columns tx + 16 j
+      float st[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dpt[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) {
+        const float kv[2] = {k_s[ty][d], k_s[ty + 16][d]};
+        const float vv[2] = {v_s[ty][d], v_s[ty + 16][d]};
+        const float qv[2] = {q_s[tx][d], q_s[tx + 16][d]};
+        const float ov[2] = {do_s[tx][d], do_s[tx + 16][d]};
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
+            dpt[i][j] = fmaf(vv[i], ov[j], dpt[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = tx + 16 * j;
+          const float p = sk[i] == segq_s[c] ? expf(st[i][j] * scale - lse_s[c]) : 0.f;
+          p_s[ty + 16 * i][c] = p;
+          ds_s[ty + 16 * i][c] = p * (dpt[i][j] - delta_s[c]) * scale;
+        }
+      __syncthreads();
+
+#pragma unroll 8
+      for (int c = 0; c < BF; ++c) {
+        const float pv[2] = {p_s[ty][c], p_s[ty + 16][c]};
+        const float dsv[2] = {ds_s[ty][c], ds_s[ty + 16][c]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float ov = do_s[c][tx + 16 * j], qv = q_s[c][tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            dva[i][j] = fmaf(pv[i], ov, dva[i][j]);
+            dka[i][j] = fmaf(dsv[i], qv, dka[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + ty + 16 * i;
+    if (row >= Sk) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      dk[(size_t)row * ldk + hk * D + tx + 16 * j] = dka[i][j];
+      dv[(size_t)row * ldk + hk * D + tx + 16 * j] = dva[i][j];
+    }
+  }
+}
+
+}  // namespace
+
+// dq [S, hq*64] from q, dO [S, hq*64], k/v [Sk, hkv*64], ids, lse and delta
+// [S, hq] f32. Launches on `stream` and returns cudaGetLastError().
+extern "C" int flash_segment_attn_bwd_dq(const void* q, const void* k, const void* v,
+                                         const int* seg_q, const int* seg_k, const void* dout,
+                                         const float* lse, const float* delta, void* dq, int S,
+                                         int Sk, int hq, int hkv, float scale, int is_bf16,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    bwd_dq_bf16<<<dim3((S + BT - 1) / BT, hq), NT_BF16, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
+        static_cast<const __nv_bfloat16*>(dout), lse, delta,
+        static_cast<__nv_bfloat16*>(dq), S, Sk, hq, hkv, scale);
+  } else {
+    bwd_dq_f32<<<dim3((S + BF - 1) / BF, hq), 256, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), seg_q, seg_k, static_cast<const float*>(dout), lse,
+        delta, static_cast<float*>(dq), S, Sk, hq, hkv, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dk, dv [Sk, hkv*64], summed over each kv head's group of q heads.
+extern "C" int flash_segment_attn_bwd_dkv(const void* q, const void* k, const void* v,
+                                          const int* seg_q, const int* seg_k, const void* dout,
+                                          const float* lse, const float* delta, void* dk,
+                                          void* dv, int S, int Sk, int hq, int hkv, float scale,
+                                          int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    bwd_dkv_bf16<<<dim3((Sk + BT - 1) / BT, hkv), NT_BF16, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
+        static_cast<const __nv_bfloat16*>(dout), lse, delta,
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, Sk, hq, hkv,
+        scale);
+  } else {
+    bwd_dkv_f32<<<dim3((Sk + BF - 1) / BF, hkv), 256, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), seg_q, seg_k, static_cast<const float*>(dout), lse,
+        delta, static_cast<float*>(dk), static_cast<float*>(dv), S, Sk, hq, hkv, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -36,73 +36,19 @@
 // Not yet: wgmma, TMA, cp.async double buffering, one CTA per GQA group
 // sharing the K/V tile (later work; PERF.md has the measured gap).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "segment_attn_common.cuh"
 
 namespace {
 
-constexpr int D = 64;         // head dim
-constexpr int BQ = 64;        // q rows per CTA
-constexpr float NEG_INF = -1e30f;
-constexpr int PAD_ID = 1 << 30;
-constexpr int NO_ROW_Q = -2;  // segment of q rows past S: matches nothing
-constexpr int NO_ROW_K = -1;  // segment of kv rows past the interval
-
-__device__ __forceinline__ int remap(int s) { return s == 0 ? PAD_ID : s; }
-
-// [lo, hi): the kv rows whose (remapped) segment lies in [first, last]
-__device__ void kv_interval(const int* __restrict__ seg_q, const int* __restrict__ seg_k,
-                            int q0, int q1, int Sk, int* lo_out, int* hi_out) {
-  const int first = remap(seg_q[q0]);
-  const int last = remap(seg_q[q1 - 1]);
-  int lo = 0, hi = Sk;
-  while (lo < hi) {  // first j with seg_k[j] >= first
-    const int mid = (lo + hi) >> 1;
-    if (remap(seg_k[mid]) < first) lo = mid + 1; else hi = mid;
-  }
-  *lo_out = lo;
-  hi = Sk;
-  while (lo < hi) {  // first j with seg_k[j] > last
-    const int mid = (lo + hi) >> 1;
-    if (remap(seg_k[mid]) <= last) lo = mid + 1; else hi = mid;
-  }
-  *hi_out = lo;
-}
+constexpr int BQ = 64;  // q rows per CTA
 
 // ---------------------------------------------------------------------------
 // bf16: mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
-constexpr int BK = 64;       // kv rows per tile
-constexpr int LDS = D + 8;   // smem row stride (bf16): 144 B, conflict-free fragment loads
+constexpr int BK = 64;  // kv rows per tile
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c[16x8] += a[16x16] (row) * b[16x8] (col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(NT_BF16)
 fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
              const int* __restrict__ seg_k, __nv_bfloat16* __restrict__ out,
@@ -123,26 +69,15 @@ fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   const int hk = h / (hq / hkv);
   const int ldq = hq * D, ldk = hkv * D;
 
-  if (tid == 0) kv_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
-  for (int e = tid; e < BQ * D / 8; e += blockDim.x) {
-    const int r = e >> 3, c = (e & 7) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < S) val = *reinterpret_cast<const uint4*>(q + (size_t)(q0 + r) * ldq + h * D + c);
-    *reinterpret_cast<uint4*>(&q_s[r * LDS + c]) = val;
-  }
+  if (tid == 0) segment_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
+  load_tile_bf16(q_s, q, q0, S, ldq, h * D);
   if (tid < BQ) segq_s[tid] = (q0 + tid < S) ? remap(seg_q[q0 + tid]) : NO_ROW_Q;
   __syncthreads();
 
   // this thread's rows in the tile: r0 and r0 + 8
   const int r0 = warp * 16 + g;
   uint32_t qa[4][4];  // A fragments of Q, one per 16-wide k step over D
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    qa[kk][0] = ld32(&q_s[r0 * LDS + kk * 16 + t2]);
-    qa[kk][1] = ld32(&q_s[(r0 + 8) * LDS + kk * 16 + t2]);
-    qa[kk][2] = ld32(&q_s[r0 * LDS + kk * 16 + t2 + 8]);
-    qa[kk][3] = ld32(&q_s[(r0 + 8) * LDS + kk * 16 + t2 + 8]);
-  }
+  load_a_frags(qa, q_s, r0, t2);
   const int sq0 = segq_s[r0], sq1 = segq_s[r0 + 8];
   const int lo = range_s[0], hi = range_s[1];
 
@@ -154,33 +89,13 @@ fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 
   for (int kv0 = lo; kv0 < hi; kv0 += BK) {
     __syncthreads();  // the previous tile is consumed
-    for (int e = tid; e < BK * D / 8; e += blockDim.x) {
-      const int r = e >> 3, c = (e & 7) * 8;
-      uint4 kval = make_uint4(0, 0, 0, 0), vval = make_uint4(0, 0, 0, 0);
-      if (kv0 + r < hi) {
-        const size_t off = (size_t)(kv0 + r) * ldk + hk * D + c;
-        kval = *reinterpret_cast<const uint4*>(k + off);
-        vval = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(&k_s[r * LDS + c]) = kval;
-      *reinterpret_cast<uint4*>(&v_s[r * LDS + c]) = vval;
-    }
+    load_tiles_bf16(k_s, k, v_s, v, kv0, hi, ldk, hk * D);
     if (tid < BK) segk_s[tid] = (kv0 + tid < hi) ? remap(seg_k[kv0 + tid]) : NO_ROW_K;
     __syncthreads();
 
     // S = Q K^T: 16 rows x 64 kv columns per warp, as 8 n-tiles of 8
     float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t b[2];
-        b[0] = ld32(&k_s[(nt * 8 + g) * LDS + kk * 16 + t2]);
-        b[1] = ld32(&k_s[(nt * 8 + g) * LDS + kk * 16 + t2 + 8]);
-        mma_bf16(s[nt], qa[kk], b);
-      }
-    }
+    mma_abt(s, qa, k_s, g, t2);
 
     // scale, mask, row max (rows are shared by the 4 lanes of a quad)
     float mx0 = NEG_INF, mx1 = NEG_INF;
@@ -231,18 +146,7 @@ fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
       o[dt][2] *= a1;
       o[dt][3] *= a1;
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kr = j * 16 + t2;
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        const int n = dt * 8 + g;
-        uint32_t b[2];
-        b[0] = pack_raw(v_s[kr * LDS + n], v_s[(kr + 1) * LDS + n]);
-        b[1] = pack_raw(v_s[(kr + 8) * LDS + n], v_s[(kr + 9) * LDS + n]);
-        mma_bf16(o[dt], pa[j], b);
-      }
-    }
+    mma_ab(o, pa, v_s, g, t2);
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -296,7 +200,7 @@ fwd_f32_fma(const float* __restrict__ q, const float* __restrict__ k,
   const int hk = h / (hq / hkv);
   const int ldq = hq * D, ldk = hkv * D;
 
-  if (tid == 0) kv_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
+  if (tid == 0) segment_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
   for (int e = tid; e < BQ * D; e += blockDim.x) {
     const int r = e / D, c = e % D;
     q_s[r][c] = (q0 + r < S) ? q[(size_t)(q0 + r) * ldq + h * D + c] : 0.f;
@@ -408,7 +312,7 @@ extern "C" int flash_segment_attn_fwd(const void* q, const void* k, const void* 
   const dim3 grid((S + BQ - 1) / BQ, hq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    fwd_bf16_mma<<<grid, 128, 0, st>>>(
+    fwd_bf16_mma<<<grid, NT_BF16, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
         static_cast<__nv_bfloat16*>(out), lse, S, Sk, hq, hkv, scale);

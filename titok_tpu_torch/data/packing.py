@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -33,7 +33,7 @@ from titok_tpu_torch.ops.patchify import decode_rows, patchify, patchify_thwc_u8
 class PackedBatch:
     """Host-side packed batch. All arrays are numpy with static shapes."""
 
-    patches: np.ndarray       # [S, P] f32
+    patches: np.ndarray       # [S, P] f32 (values of the packer's dtype)
     segment_ids: np.ndarray   # int32 [S]
     token_mask: np.ndarray    # bool  [S]
     rope_cos: np.ndarray      # f32   [S, R]
@@ -66,8 +66,9 @@ class PackedBatch:
         }
 
 
-def to_device(batch: PackedBatch, device) -> dict:
-    """``device_arrays()`` as a dict of tensors on ``device``."""
+def to_device(batch: "PackedBatch | DiscBatch", device) -> dict:
+    """``device_arrays()`` of a PackedBatch or a DiscBatch as a dict of
+    tensors on ``device``."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.device_arrays().items()}
 
@@ -128,9 +129,12 @@ def pack_samples(
     patch_size: Sequence[int],
     head_dim: int = 64,
     fps: Sequence[float] | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> PackedBatch:
     """Pack a list of CTHW (or uint8 THWC, or ``GridOnly``) clips into one
-    PackedBatch."""
+    PackedBatch. The patch rows are rounded to ``dtype``, as the JAX
+    package's packer stores them in its host dtype (bf16 at 'bf16-mixed'),
+    and kept in f32: numpy has no bf16."""
     n_dims = len(patch_size)
     B = len(videos)
     if B != len(token_counts) or B > max_samples:
@@ -179,6 +183,8 @@ def pack_samples(
         positions[offset:end] = positions_for_sample(grid, tc)
         offset = end
 
+    if dtype != torch.float32:
+        patches = torch.from_numpy(patches).to(dtype).to(torch.float32).numpy()
     cos, sin = rope_cos_sin(positions, head_dim, n_dims)
     # pad slots rotate by the identity: no position signal
     pad = segment_ids == 0
@@ -225,3 +231,128 @@ def unpack_indices(indices: np.ndarray, batch: PackedBatch) -> list[np.ndarray]:
         tc = int(batch.token_counts[b])
         out.append(np.asarray(indices[start : start + tc], dtype=np.int32))
     return out
+
+
+@dataclasses.dataclass
+class DiscBatch:
+    """Packed layout for the discriminator pass (reference
+    ``loss_module.py:42-48,96-101``): the same clips, but every sample gets
+    ``disc_tokens`` register tokens instead of its latent count. Patch
+    pixels are not shipped again: ``patch_gather`` maps disc patch slots
+    back to tokenizer slots, so the target buffer and the reconstruction
+    on the device are both regathered for the discriminator forwards."""
+
+    patch_gather: np.ndarray  # int32 [Sd] -> slot in [S] (0 at token/pad slots)
+    is_patch: np.ndarray      # bool [Sd]
+    segment_ids: np.ndarray   # int32 [Sd]
+    token_mask: np.ndarray    # bool [Sd]
+    rope_cos: np.ndarray      # f32 [Sd, R]
+    rope_sin: np.ndarray      # f32 [Sd, R]
+    sample_valid: np.ndarray  # bool [Bmax]
+
+    def device_arrays(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def build_disc_batch(batch: PackedBatch, disc_tokens: int = 4,
+                     head_dim: int = 64) -> DiscBatch:
+    """The discriminator's packing plan for a tokenizer PackedBatch."""
+    Bmax = batch.sample_valid.shape[0]
+    Sd = batch.seq_len + disc_tokens * Bmax
+    n_dims = batch.grids.shape[1]
+
+    patch_gather = np.zeros((Sd,), np.int32)
+    is_patch = np.zeros((Sd,), bool)
+    segment_ids = np.zeros((Sd,), np.int32)
+    token_mask = np.zeros((Sd,), bool)
+    positions = np.zeros((Sd, n_dims), np.float64)
+
+    offs = sample_offsets(batch.token_counts, batch.grid_sizes)
+    d_off = 0
+    for b in range(batch.num_samples):
+        gs = int(batch.grid_sizes[b])
+        tc = int(batch.token_counts[b])
+        end = d_off + disc_tokens + gs
+        segment_ids[d_off:end] = b + 1
+        token_mask[d_off : d_off + disc_tokens] = True
+        src_start = int(offs[b]) + tc
+        patch_gather[d_off + disc_tokens : end] = np.arange(src_start, src_start + gs)
+        is_patch[d_off + disc_tokens : end] = True
+        positions[d_off:end] = positions_for_sample(batch.grids[b], disc_tokens)
+        d_off = end
+
+    cos, sin = rope_cos_sin(positions, head_dim, n_dims)
+    pad = segment_ids == 0
+    cos[pad] = 1.0
+    sin[pad] = 0.0
+
+    return DiscBatch(
+        patch_gather=patch_gather,
+        is_patch=is_patch,
+        segment_ids=segment_ids,
+        token_mask=token_mask,
+        rope_cos=cos,
+        rope_sin=sin,
+        sample_valid=batch.sample_valid.copy(),
+    )
+
+
+class Packer:
+    """Streaming dynamic packer (reference ``_dynamic_batching``,
+    ``video_dataset.py:130-172``).
+
+    Pulls ``{'video', 'fps'}`` samples from an iterator, gives each a
+    random token count from ``token_range``, packs until the budget would
+    be exceeded, then emits a PackedBatch. The overflowing sample starts
+    the next batch; a partial final batch is dropped. Rows are rounded to
+    ``dtype`` (see :func:`pack_samples`).
+    """
+
+    def __init__(
+        self,
+        *,
+        seq_len: int,
+        token_range: Sequence[int],
+        patch_size: Sequence[int],
+        min_grid: Sequence[int],
+        head_dim: int = 64,
+        max_samples: int | None = None,
+        rng: np.random.Generator | None = None,
+        dtype: torch.dtype = torch.float32,
+    ):
+        self.seq_len = int(seq_len)
+        self.token_range = (int(token_range[0]), int(token_range[1]))
+        self.patch_size = list(patch_size)
+        self.head_dim = head_dim
+        self.max_samples = max_samples or max_samples_for(
+            seq_len, min_grid, patch_size, self.token_range[0]
+        )
+        self.rng = rng or np.random.default_rng()
+        self.dtype = dtype
+
+    def _pack(self, videos, tcs, fps) -> PackedBatch:
+        return pack_samples(videos, tcs, seq_len=self.seq_len,
+                            max_samples=self.max_samples, patch_size=self.patch_size,
+                            head_dim=self.head_dim, fps=fps, dtype=self.dtype)
+
+    def __call__(self, stream: Iterable[dict]) -> Iterator[PackedBatch]:
+        videos: list[np.ndarray] = []
+        tcs: list[int] = []
+        fps: list[float] = []
+        cur = 0
+        for sample in stream:
+            vid = sample["video"]
+            gs = math.prod(d // p for d, p in zip(video_dims(vid), self.patch_size))
+            tc = int(self.rng.integers(self.token_range[0], self.token_range[1] + 1))
+            if gs + tc > self.seq_len:  # can never fit; drop with a warning
+                print(f"packer: dropping oversized clip ({gs} grid + {tc} "
+                      f"tokens > budget {self.seq_len})")
+                continue
+            if cur + gs + tc > self.seq_len or len(videos) >= self.max_samples:
+                if videos:
+                    yield self._pack(videos, tcs, fps)
+                videos, tcs, fps, cur = [], [], [], 0
+            cur += gs + tc
+            videos.append(vid)
+            tcs.append(tc)
+            fps.append(float(sample.get("fps", 0.0)))

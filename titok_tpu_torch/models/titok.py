@@ -42,6 +42,12 @@ from titok_tpu_torch.ops.rmsnorm import RMSNorm
 _DTYPES = {"bf16": torch.bfloat16, "16": torch.float16, "32": torch.float32}
 
 
+def compute_dtype(config) -> torch.dtype:
+    """The compute dtype ``training.main.precision`` names ('bf16-mixed',
+    '32', ...)."""
+    return _DTYPES[str(config.training.main.get("precision", "bf16-mixed")).split("-")[0]]
+
+
 class TiTok(nn.Module):
     """Functional TiTok over packed buffers (FSQ family)."""
 
@@ -107,13 +113,12 @@ def make_titok(config, cp_mesh=None, tp_mesh=None) -> TiTok:
             "context and tensor parallelism are not ported yet (ROADMAP queue 1, "
             "parallel modes)")
     tm = config.tokenizer.model
-    precision = str(config.training.main.get("precision", "bf16-mixed"))
     return TiTok(
         patch_size=tuple(tm.patch_size),
         fsq_levels=tuple(tm.fsq_levels),
         encoder_size=tm.encoder_size,
         decoder_size=tm.decoder_size,
-        dtype=_DTYPES[precision.split("-")[0]],
+        dtype=compute_dtype(config),
         attn_impl=str(config.training.main.get("attn_impl", "auto")),
         quantizer=str(tm.get("quantizer", "fsq")),
     )

@@ -1,20 +1,29 @@
-"""Segment-masked GQA flash-attention forward: hand-written CUDA kernel and
-its plain PyTorch version.
+"""Segment-masked GQA flash attention: hand-written CUDA kernels (forward
+and backward) and their plain PyTorch versions.
 
-Port of the JAX package's multi-head Pallas kernel (``_mh_fwd`` →
-``_fwd_kernel`` in ``titok_tpu/ops/flash_attention_mh.py``). The kernel is
-``csrc/flash_segment_attn_fwd.cu``; its source note says what bounds it on
-the H100 and how it is laid out.
+Port of the JAX package's multi-head Pallas kernels in
+``titok_tpu/ops/flash_attention_mh.py``: the forward ``_mh_fwd`` →
+``_fwd_kernel`` becomes ``csrc/flash_segment_attn_fwd.cu``; the backward
+``_mh_bwd`` → ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (the
+``custom_vjp`` of ``_mh``) becomes ``csrc/flash_segment_attn_bwd.cu``. The
+source notes say what bounds each on the H100 and how it is laid out.
 
 - :func:`flash_segment_attention_mh` — the entry point the model calls.
-  For a CUDA tensor it launches the kernel or raises; for a CPU tensor it
-  takes the plain version. There is no fallback on the card.
-- :func:`_fwd` — the same, returning ``(out, lse)``.
-- :func:`flash_segment_attention_mh_reference` — the plain version,
-  computed densely with a logsumexp.
+  When grad is enabled and an input requires grad it goes through
+  :class:`_FlashSegmentAttn`, whose backward runs the backward kernels;
+  otherwise (serving, ``torch.inference_mode``) only the forward kernel.
+  For a CUDA tensor every wrapper launches its kernel or raises; for a CPU
+  tensor it takes the plain version. There is no fallback on the card.
+- :func:`_fwd` / :func:`_bwd` — the forward ``(out, lse)`` and the
+  backward ``(dq, dk, dv)``.
+- :func:`flash_segment_attention_mh_reference` and
+  :func:`flash_segment_attention_mh_bwd_reference` — the plain versions,
+  computed densely one head and one chunk of q rows at a time (the
+  stacked discriminator buffer has 24,752 rows: one dense f32 score matrix
+  for all heads would not fit).
 
-``launches`` counts kernel launches per instantiation; a run reads it to
-show that its path went through the kernel.
+``launches`` counts kernel launches per kernel and instantiation; a run
+reads it to show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -27,8 +36,12 @@ import torch
 NEG_INF = -1e30
 PAD_ID = 2**30  # pad slots (segment 0) sit after every sample
 
-# kernel launches per instantiation ("bf16": mma.sync kernel, "f32": FMA kernel)
-launches = {"bf16": 0, "f32": 0}
+# kernel launches per kernel and instantiation: "bf16"/"f32" are the forward
+# (mma.sync and FMA kernels), "bwd_dq_*"/"bwd_dkv_*" the two backward kernels
+launches = {"bf16": 0, "f32": 0, "bwd_dq_bf16": 0, "bwd_dkv_bf16": 0,
+            "bwd_dq_f32": 0, "bwd_dkv_f32": 0}
+# elements of one dense f32 [q rows, Sk] block in the plain versions (1 GiB)
+_DENSE_ELEMS = 2**28
 
 
 def reset_launches() -> None:
@@ -44,6 +57,29 @@ def _remap_pad(segment_ids: torch.Tensor) -> torch.Tensor:
                        segment_ids.to(torch.int32))
 
 
+def _dense_blocks(S: int, Sk: int, Hq: int):
+    """(head, first q row, end q row) blocks of at most ``_DENSE_ELEMS``
+    scores each."""
+    chunk = max(1, _DENSE_ELEMS // max(Sk, 1))
+    for h in range(Hq):
+        for a in range(0, S, chunk):
+            yield h, a, min(a + chunk, S)
+
+
+def _prepare(q, k, segment_ids, scale, k_segment_ids):
+    """What both plain versions set up: the GQA ratio, the scale and the
+    remapped ids."""
+    Hq, D = q.shape[1:]
+    Hkv = k.shape[1]
+    if Hq % Hkv:
+        raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hkv}")
+    if scale is None:
+        scale = D ** -0.5
+    seg_q = _remap_pad(segment_ids)
+    seg_k = seg_q if k_segment_ids is None else _remap_pad(k_segment_ids)
+    return Hq // Hkv, scale, seg_q, seg_k
+
+
 def flash_segment_attention_mh_reference(
     q: torch.Tensor,  # [S, Hq, D]
     k: torch.Tensor,  # [Sk, Hkv, D]
@@ -52,35 +88,76 @@ def flash_segment_attention_mh_reference(
     scale: float | None = None,
     k_segment_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function computed densely: ``(out [S,Hq,D] in q's
-    dtype, lse [S,Hq] f32)``.
+    """The forward kernel's function computed densely: ``(out [S,Hq,D] in
+    q's dtype, lse [S,Hq] f32)``.
 
     Same arithmetic as the kernel: fp32 logits, masked logits ``-1e30``,
     ``p = mask ? exp(s - m) : 0`` rounded to v's dtype before the PV
     product, ``out = acc / max(l, 1e-30)`` and ``lse = m + log(l)``."""
     S, Hq, D = q.shape
-    Hkv = k.shape[1]
-    if Hq % Hkv:
-        raise ValueError(f"q heads {Hq} not a multiple of kv heads {Hkv}")
-    rep = Hq // Hkv
-    if scale is None:
-        scale = D ** -0.5
-    seg_q = _remap_pad(segment_ids)
-    seg_k = seg_q if k_segment_ids is None else _remap_pad(k_segment_ids)
-    kr = k.repeat_interleave(rep, dim=1).to(torch.float32)
-    vr = v.repeat_interleave(rep, dim=1)
-
-    s = torch.einsum("qhd,khd->hqk", q.to(torch.float32), kr) * scale
-    mask = (seg_q[:, None] == seg_k[None, :])[None]  # [1, S, Sk]
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
-    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    acc = torch.einsum("hqk,khd->qhd", p.to(v.dtype).to(torch.float32),
-                       vr.to(torch.float32))
-    out = (acc / l.permute(1, 0, 2)).to(q.dtype)
-    lse = (m + torch.log(l))[..., 0].transpose(0, 1).contiguous()
+    rep, scale, seg_q, seg_k = _prepare(q, k, segment_ids, scale, k_segment_ids)
+    out = torch.empty_like(q)
+    lse = torch.empty((S, Hq), dtype=torch.float32, device=q.device)
+    for h, a, b in _dense_blocks(S, k.shape[0], Hq):
+        kf = k[:, h // rep].to(torch.float32)
+        s = (q[a:b, h].to(torch.float32) @ kf.T) * scale
+        mask = seg_q[a:b, None] == seg_k[None, :]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        acc = p.to(v.dtype).to(torch.float32) @ v[:, h // rep].to(torch.float32)
+        out[a:b, h] = (acc / l).to(q.dtype)
+        lse[a:b, h] = (m + torch.log(l))[:, 0]
     return out, lse
+
+
+def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) per head, f32 ``[S, Hq]`` (plain torch ops, as JAX
+    computes it outside Pallas)."""
+    return (dout.to(torch.float32) * out.to(torch.float32)).sum(-1)
+
+
+def flash_segment_attention_mh_bwd_reference(
+    q: torch.Tensor,  # [S, Hq, D]
+    k: torch.Tensor,  # [Sk, Hkv, D]
+    v: torch.Tensor,
+    segment_ids: torch.Tensor,  # int32 [S]
+    out: torch.Tensor,  # [S, Hq, D], the forward's output
+    lse: torch.Tensor,  # f32 [S, Hq], the forward's logsumexp
+    dout: torch.Tensor,  # [S, Hq, D], the output gradient
+    scale: float | None = None,
+    k_segment_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' function computed densely: ``(dq, dk, dv)`` in
+    q's dtype; dk/dv summed over each kv head's group of q heads.
+
+    Same arithmetic as the kernels (and ``_bwd_dq_kernel`` /
+    ``_bwd_dkv_kernel``): ``p = mask ? exp(s - lse) : 0``, ``ds = p * (dp -
+    delta) * scale`` with ``delta = rowsum(dO * O)``; p and ds are rounded
+    to q's dtype before the products ``dV = P^T dO``, ``dQ = dS K`` and
+    ``dK = dS^T Q``, which accumulate in f32."""
+    S, Hq, D = q.shape
+    rep, scale, seg_q, seg_k = _prepare(q, k, segment_ids, scale, k_segment_ids)
+    dt = q.dtype
+    delta = _delta(out, dout)
+    f32 = torch.float32
+    dq = torch.empty(q.shape, dtype=f32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=f32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=f32, device=q.device)
+    for h, a, b in _dense_blocks(S, k.shape[0], Hq):
+        hk = h // rep
+        qf, dof = q[a:b, h].to(f32), dout[a:b, h].to(f32)
+        kf, vf = k[:, hk].to(f32), v[:, hk].to(f32)
+        mask = seg_q[a:b, None] == seg_k[None, :]
+        s = (qf @ kf.T) * scale
+        p = torch.where(mask, torch.exp(s - lse[a:b, h, None]), torch.zeros_like(s))
+        dv[:, hk] += p.to(dt).to(f32).T @ dof
+        ds = p * (dof @ vf.T - delta[a:b, h, None]) * scale
+        ds = ds.to(dt).to(f32)
+        dq[a:b, h] = ds @ kf
+        dk[:, hk] += ds.T @ qf
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def _check(q, k, v, seg_q, seg_k) -> None:
@@ -125,6 +202,21 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _bwd_kernels():
+    """The two C entry points of ``csrc/flash_segment_attn_bwd.cu`` (dq,
+    dkv), built at first use."""
+    from titok_tpu_torch.ops import _build
+
+    lib = _build.load("flash_segment_attn_bwd")
+    fns = (lib.flash_segment_attn_bwd_dq, lib.flash_segment_attn_bwd_dkv)
+    for fn, n_ptr in zip(fns, (9, 10)):
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fns
+
+
 def _fwd(q, k, v, segment_ids, scale=None,
          k_segment_ids=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(out [S,Hq,D], lse [S,Hq] f32)``: the kernel for CUDA tensors, the
@@ -154,6 +246,70 @@ def _fwd(q, k, v, segment_ids, scale=None,
     return out, lse
 
 
+def _bwd(q, k, v, segment_ids, out, lse, dout, scale=None,
+         k_segment_ids=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``: the two backward kernels for CUDA tensors, the
+    plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_segment_attention_mh_bwd_reference(
+            q, k, v, segment_ids, out, lse, dout, scale, k_segment_ids)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    seg_k = segment_ids if k_segment_ids is None else k_segment_ids
+    _check(q, k, v, segment_ids, seg_k)
+    S, Hq, D = q.shape
+    Sk, Hkv, _ = k.shape
+    for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
+                                  ("dout", dout, q.shape, q.dtype),
+                                  ("lse", lse, (S, Hq), torch.float32)):
+        if t.shape != shape or t.dtype != dtype:
+            raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype}, want "
+                             f"{tuple(shape)} {dtype}")
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"tensor on {q.device}")
+    if scale is None:
+        scale = D ** -0.5
+    delta = _delta(out, dout)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    key = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    dq_fn, dkv_fn = _bwd_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
+                  seg_k.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
+        tail = (S, Sk, Hq, Hkv, float(scale), int(key == "bf16"), stream)
+        err = dq_fn(*common, dq.data_ptr(), *tail)
+        if err != 0:
+            raise RuntimeError(f"flash_segment_attn_bwd_dq launch failed: CUDA error {err}")
+        launches[f"bwd_dq_{key}"] += 1
+        err = dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *tail)
+        if err != 0:
+            raise RuntimeError(f"flash_segment_attn_bwd_dkv launch failed: CUDA error {err}")
+        launches[f"bwd_dkv_{key}"] += 1
+    return dq, dk, dv
+
+
+class _FlashSegmentAttn(torch.autograd.Function):
+    """Segment attention with the hand-written backward (the ``custom_vjp``
+    ``_mh`` of the JAX package): the forward saves ``out`` and ``lse``, the
+    backward runs the dq and dk/dv kernels (plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, k_segment_ids, scale):
+        out, lse = _fwd(q, k, v, segment_ids, scale, k_segment_ids)
+        ctx.save_for_backward(q, k, v, segment_ids, k_segment_ids, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, segment_ids, k_segment_ids, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, segment_ids, out, lse,
+                          dout.to(q.dtype).contiguous(), ctx.scale, k_segment_ids)
+        return dq, dk, dv, None, None, None
+
+
 def flash_segment_attention_mh(
     q: torch.Tensor,  # [S, Hq, D]
     k: torch.Tensor,  # [Sk, Hkv, D]
@@ -163,12 +319,19 @@ def flash_segment_attention_mh(
     k_segment_ids: torch.Tensor | None = None,  # int32 [Sk] (defaults to q's)
     max_seg_len: int | None = None,
 ) -> torch.Tensor:
-    """Segment-masked attention ``[S, Hq, D]`` in q's dtype.
+    """Segment-masked attention ``[S, Hq, D]`` in q's dtype, differentiable
+    in q, k and v.
 
     Segment ids must be non-decreasing once pad (0) is remapped above every
     real id, as the packer lays them out. ``max_seg_len`` is accepted for
     parity with the JAX entry point and not needed: each kernel block
-    visits exactly the kv rows its segments span, so nothing is ever
+    visits exactly the rows its segments span, so nothing is ever
     truncated."""
     del max_seg_len
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if scale is None:
+            scale = q.shape[-1] ** -0.5
+        return _FlashSegmentAttn.apply(q, k, v, segment_ids, k_segment_ids,
+                                       float(scale))
     return _fwd(q, k, v, segment_ids, scale, k_segment_ids)[0]

@@ -1,0 +1,221 @@
+"""The TiTok train step: generator update, then discriminator update
+(reference ``train.py:48-115``; the JAX package's
+``titok_tpu/training/train_step.py``).
+
+One step: the generator's forward, loss (L1 + GAN through the
+discriminator) and gradient with respect to the generator's parameters
+only; the non-finite guard, global-norm clipping and an AdamW update at the
+cosine schedule's lr; then the discriminator's loss on the detached
+reconstruction, its gradient, guard, clipping and AdamW update at
+``lr * disc_lr_ratio``.
+
+Optimizers mirror the JAX package's optax chain
+``clip_by_global_norm(max) -> adamw(sched, b1, b2, eps=1e-8, wd)``:
+
+- clipping in optax's form, ``g if norm < max else g / norm * max``
+  (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``);
+- ``torch.optim.AdamW``, whose decoupled decay ``p - lr*wd*p`` and bias
+  corrections equal optax's ``p - lr*(m̂/(√v̂+ε) + wd*p)``; its lr is set
+  to ``sched(step)`` before each update, as optax reads the schedule at
+  the update count;
+- the non-finite guard zeroes the grads and the optimizer still steps, so
+  the moments decay, the count advances and weight decay applies.
+
+Not ported yet (each raises, naming its ROADMAP entry): the adafactor
+optimizer, ``training.main.remat``, ``training.main.steps_per_call`` and
+the EMA-VQ quantizer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from titok_tpu_torch import resolve_device
+from titok_tpu_torch.models.titok import TiTok, init_params
+from titok_tpu_torch.train_utils.lr_schedulers import get_scheduler
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a step reads and updates: the modules (their parameters are
+    the generator's and the discriminator's params), the optimizers with
+    their moments, the step count and the generator of the R1/R2 noise."""
+
+    step: int
+    model: TiTok
+    disc_model: torch.nn.Module
+    gen_opt: torch.optim.Optimizer
+    disc_opt: torch.optim.Optimizer | None
+    noise_gen: torch.Generator
+
+
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """L2 norm of all grads together, f32 (``optax.global_norm``)."""
+    return torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2) for g in grads))
+
+
+def optimizer_step(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor], grads,
+                   lr: float, max_grad_norm: float | None = None, guard: bool = True):
+    """One update of ``params`` by ``opt`` at ``lr``: the global norm of
+    ``grads`` (None for an unused param counts as zeros); the non-finite
+    guard (all grads zeroed when the norm is not finite, without a host
+    sync); optax's ``clip_by_global_norm`` (unchanged below
+    ``max_grad_norm``, else ``g / norm * max_grad_norm``); ``opt.step()``.
+    Returns ``(norm, zeroed, grads)``: the norm before the guard, 1.0 for a
+    zeroed step else 0.0 (None without the guard), and the grads after the
+    guard."""
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    norm = global_norm(grads)
+    bad = None
+    if guard:
+        ok = torch.isfinite(norm)
+        grads = [torch.where(ok, g, torch.zeros_like(g)) for g in grads]
+        bad = 1.0 - ok.to(torch.float32)
+    clipped = grads
+    if max_grad_norm:
+        clip_norm = global_norm(grads)
+        keep = clip_norm < max_grad_norm
+        clipped = [torch.where(keep, g, g / clip_norm * max_grad_norm) for g in grads]
+    for p, g in zip(params, clipped):
+        p.grad = g
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return norm, bad, grads
+
+
+@dataclasses.dataclass
+class TrainStepBuilder:
+    """Builds the train step from config + modules."""
+
+    model: TiTok
+    loss_system: object  # losses.loss_module.LossSystem
+    config: object
+
+    def make_optimizers(self):
+        """The schedules of both optimizers; raises for options not ported."""
+        opt_c = self.config.optimizer
+        cm = self.config.training.main
+        name = str(opt_c.get("name", "adamw")).lower()
+        if name == "adafactor":
+            raise NotImplementedError(
+                "optimizer.name 'adafactor' is not ported yet (ROADMAP queue 1 "
+                "item 6, train-step options)")
+        if name != "adamw":
+            raise ValueError(f"optimizer.name={name!r}: expected 'adamw' or 'adafactor'")
+        if bool(cm.get("remat", False)):
+            raise NotImplementedError(
+                "training.main.remat is not ported yet (ROADMAP queue 1 item 6, "
+                "train-step options)")
+        if int(cm.get("steps_per_call", 1)) > 1:
+            raise NotImplementedError(
+                "training.main.steps_per_call > 1 is not ported yet (ROADMAP queue 1 "
+                "item 13, with the parallel modes)")
+        lr = float(opt_c.learning_rate)
+        elr = float(opt_c.end_lr)
+        dlr = float(opt_c.get("disc_lr_ratio", 1.0))
+        warm = int(opt_c.warmup_steps)
+        max_steps = int(cm.max_steps)
+        self.gen_sched = get_scheduler("cosine", warm, max_steps, lr, elr)
+        self.disc_sched = get_scheduler("cosine", warm, max_steps, lr * dlr, elr * dlr)
+        return self.gen_sched, self.disc_sched
+
+    def _adamw(self, params):
+        opt_c = self.config.optimizer
+        return torch.optim.AdamW(
+            params, lr=0.0, betas=(float(opt_c.beta1), float(opt_c.beta2)), eps=1e-8,
+            weight_decay=float(opt_c.weight_decay))
+
+    def init_state(self, seed: int | None = None, gen_params: dict | None = None,
+                   disc_params: dict | None = None, device=None) -> TrainState:
+        """Load the params (state dicts, e.g. from ``weights.
+        from_flax_train_state``; seeded init when None), move both modules
+        to ``device`` (``cuda`` when None) and make fresh optimizers."""
+        self.make_optimizers()
+        dev = resolve_device(device)
+        if seed is None:
+            seed = int(self.config.training.main.get("seed", 0))
+        ls = self.loss_system
+        if gen_params is None:
+            gen_params = init_params(self.model, seed)
+        self.model.load_state_dict({k: torch.as_tensor(np.array(v)) for k, v in gen_params.items()})
+        self.model.to(dev).train()
+        disc_opt = None
+        if ls.use_disc:
+            if disc_params is None:
+                disc_params = ls.init_disc_params(seed + 1)
+            ls.disc_model.load_state_dict(
+                {k: torch.as_tensor(np.array(v)) for k, v in disc_params.items()})
+            ls.disc_model.to(dev).train()
+            disc_opt = self._adamw(ls.disc_model.parameters())
+        noise_gen = torch.Generator(device=dev)
+        noise_gen.manual_seed(seed)
+        return TrainState(step=0, model=self.model, disc_model=ls.disc_model,
+                          gen_opt=self._adamw(self.model.parameters()), disc_opt=disc_opt,
+                          noise_gen=noise_gen)
+
+    def make_train_step(self) -> Callable:
+        """Returns ``train_step(state, batch, disc, noise=None) -> (state,
+        metrics, indices)``. ``batch``/``disc`` are ``to_device`` dicts;
+        ``noise`` is the standard-normal ``[Sd, P]`` draw of the R1/R2
+        penalty, taken from ``state.noise_gen`` when None. The state is
+        updated in place; metrics are detached 0-d tensors."""
+        ls = self.loss_system
+        cm = self.config.training.main
+        clip = cm.get("max_grad_norm", None)
+        guard = bool(cm.get("skip_nonfinite_grads", True))
+        log_param_norms = bool(self.config.training.eval.get("log_grad_norms", False))
+        gen_sched, disc_sched = self.gen_sched, self.disc_sched
+
+        def update(module, opt, loss, lr, prefix, metrics, tag):
+            params = list(module.parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            norm, bad, grads = optimizer_step(opt, params, grads, lr, clip, guard)
+            metrics[f"grad_norm/{tag}"] = norm.detach()
+            if guard:
+                metrics[f"nonfinite_grad/{tag}"] = bad
+            if log_param_norms:  # named as the JAX package names them
+                for (name, p), g in zip(module.named_parameters(), grads):
+                    if p.dim() == 2 and name.endswith(".weight"):  # a Dense kernel
+                        name = name[: -len("weight")] + "kernel"
+                    metrics[f"grad_2.0_norm/{prefix}{name.replace('.', '/')}"] = \
+                        torch.sqrt(torch.sum(g.to(torch.float32) ** 2))
+
+        def train_step(state: TrainState, batch, disc, noise=None):
+            metrics = {}
+            # -- generator update (ref train.py:64-84) ----------------------
+            recon, aux = state.model(batch)
+            loss, loss_dict = ls.generator_loss(recon, batch, disc)
+            metrics.update({k: v.detach() for k, v in loss_dict.items()})
+            update(state.model, state.gen_opt, loss, gen_sched(state.step), "model/",
+                   metrics, "generator")
+            metrics["g_lr"] = gen_sched(state.step)
+
+            # -- discriminator update (ref train.py:88-108) -----------------
+            if ls.use_disc:
+                d_loss, d_dict = ls.discriminator_loss(recon.detach(), batch, disc,
+                                                       noise=noise, generator=state.noise_gen)
+                metrics.update({k: v.detach() for k, v in d_dict.items()})
+                update(state.disc_model, state.disc_opt, d_loss, disc_sched(state.step),
+                       "disc/", metrics, "discriminator")
+                metrics["d_lr"] = disc_sched(state.step)
+            state.step += 1
+            return state, metrics, aux["indices"]
+
+        return train_step
+
+    def make_eval_step(self) -> Callable:
+        """``eval_step(batch) -> (recon, indices)`` without gradients."""
+        model = self.model
+
+        def eval_step(batch):
+            with torch.no_grad():
+                recon, aux = model(batch)
+            return recon, aux["indices"]
+
+        return eval_step

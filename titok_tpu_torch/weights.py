@@ -7,8 +7,9 @@ attn_0.to_qkv`` …), so the mapping is mechanical:
 - ``bias``, RMSNorm ``weight`` and ``mask_token [1, 1]`` are copied as
   they are.
 
-Takes a nested dict of numpy arrays (for a JAX tree:
-``jax.tree.map(np.asarray, params)``); imports no JAX.
+The same holds for the discriminator, a ``PackedEncoder`` under the same
+names. Takes a nested dict whose leaves convert with ``np.asarray`` (numpy
+arrays, or the arrays of a JAX tree); imports no JAX.
 """
 
 from __future__ import annotations
@@ -38,3 +39,10 @@ def from_flax_params(tree: Mapping) -> dict[str, np.ndarray]:
 
     walk(tree, "")
     return out
+
+
+def from_flax_train_state(state) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
+    """``(generator, discriminator)`` state dicts from a JAX ``TrainState``
+    (its ``gen_params`` and ``disc_params``), ready for
+    ``TrainStepBuilder.init_state(gen_params=..., disc_params=...)``."""
+    return from_flax_params(state.gen_params), from_flax_params(state.disc_params)
