@@ -29,11 +29,30 @@ toolkit. Phases, in order; any failure exits non-zero:
    params, index ranges, ms/step and a profile of one step; then 3 steps
    of the f32 kernel path against the f32 plain path at ``train_seq_len``
    2048 from the same weights, batches and noise;
-6. one JSON line listing every kernel with its numbers; ``launches`` is
-   the kernel's count on the training path of its dtype, and
-   ``launches_by_path`` its count on each path (serving bf16/f32, training
-   bf16/f32), each read from counters set to 0 just before that path;
-7. last line: ``{"ok": true, "device": {...}}``.
+6. the VQ nearest-neighbour kernel against its plain version: the base_vq
+   shape (S 4096, N 16384, D 8), a ragged S with small N, a separated
+   codebook, duplicated rows and exact ties, two planted faults (the last
+   codebook tile skipped, ties sent to the highest index) that the gate
+   must reject, and the four times at the base_vq shape;
+7. the EMA-VQ serving path, base_vq at full width (``configs/base_vq.yaml``,
+   width 768, 12+12 layers, heads 12/4, codebook 16384 x 8), seeded random
+   weights and codebook: encode, forward and decode_indices of 8- and
+   16-frame clips at 256x256 and 256x192 through ``TiTokModel``, with launch
+   counts, decode against forward, the kernel path against the plain path
+   in f32, and request times;
+8. the EMA-VQ training path: the base_vq GAN recipe at full width
+   (``perceptual_weight=0``, ``train_seq_len`` 4096, bf16-mixed, the
+   codebook drawn from the first batch, the config's lr warm-up), seeded
+   random weights and synthetic clips, 2 warm-up and 3 timed steps with
+   launch counts per step (the VQ kernel once, each attention kernel 48
+   times), finite metrics, a moving codebook, perplexity, ms/step and a
+   profile of one step;
+9. one JSON line listing every kernel with its numbers; ``launches`` is
+   the kernel's count on the training path of its dtype (the VQ kernel's:
+   the base_vq training path), and ``launches_by_path`` its count on each
+   path (serving and training, tiny bf16/f32 and base_vq), each read from
+   counters set to 0 just before that path;
+10. last line: ``{"ok": true, "device": {...}}``.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -55,6 +74,18 @@ KERNEL_REPLACES = "titok_tpu/ops/flash_attention_mh.py:58"  # _fwd_kernel, via _
 BWD_SRC = "titok_tpu_torch/csrc/flash_segment_attn_bwd.cu"
 BWD_REPLACES = {"dq": "titok_tpu/ops/flash_attention_mh.py:404",   # _bwd_dq_kernel
                 "dkv": "titok_tpu/ops/flash_attention_mh.py:450"}  # _bwd_dkv_kernel
+VQ_SRC = "titok_tpu_torch/csrc/vq_nearest.cu"
+VQ_REPLACES = "titok_tpu/ops/vq_distance.py:25"  # _vq_kernel, via vq_nearest_pallas
+# VQ kernel vs plain version (vq_distance.gate): every row's code within
+# VQ_EPS * (1 + |d*|) of the plain minimum d*, its partial distance as
+# close. The kernel's FMA-contracted dot product of 8 terms and the plain
+# version's rounded products differ by a few ulp: 3.7e-7 at the base_vq
+# shape on an H100 (PERF.md, Findings, PR 3)
+VQ_EPS = 1e-6
+# attention kernel launches per train step, per kernel: one per attention
+# layer of the generator's encoder and decoder, of the stacked disc pass in
+# the generator loss and of the one in the discriminator step
+TRAIN_LAUNCHES = {"tiny": 4 + 4 + 4 + 4, "base": 12 + 12 + 12 + 12}
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 FMA, HBM
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -97,6 +128,12 @@ def segments(lengths, S):
         off += n
     check(off <= S, f"segments {off} exceed S={S}")
     return seg
+
+
+# the packed layout of base_vq serving request (a) below, first group:
+# 8x256x256 @1, 16x256x256 @16, 8x256x192 @32, 16x256x192 @64, 8x256x256 @96
+# (patch (4,16,16): 512, 1024, 384, 768, 512 patch rows plus the tokens)
+BASE_SEG = segments([513, 1040, 416, 832, 608], 4096)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -152,9 +189,131 @@ def phase_build():
         for line in rec["ptxas"].splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"    {line.strip()}")
-    for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd"):
+    for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd", "vq_nearest"):
         check(name in info, f"no {name} build")
     return card
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from titok_tpu_torch.ops import flash_attention_mh as fa
+    from titok_tpu_torch.ops import vq_distance as vd
+
+    fa.reset_launches()
+    vd.reset_launches()
+
+
+def read_counts() -> dict:
+    """Every kernel's launch count: the attention kernels under their
+    ``flash_attention_mh.launches`` keys, the VQ kernel as ``vq_f32``."""
+    from titok_tpu_torch.ops import flash_attention_mh as fa
+    from titok_tpu_torch.ops import vq_distance as vd
+
+    return {**fa.launches, "vq_f32": vd.launches["f32"]}
+
+
+def _vq_inputs(kind, S, N, D, seed):
+    """z [S, D] and a codebook [N, D] on the card: "normal" (random normal
+    both), "separated" (codes 10x apart, z near a random code),
+    "duplicated" (the same with the codebook's second half repeating its
+    first) or "ties" (integer codes, z on the midpoint of two: exactly equal
+    distances)."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "normal":
+        return (torch.randn(S, D, generator=g, device=dev),
+                torch.randn(N, D, generator=g, device=dev))
+    if kind == "ties":
+        cb = torch.randint(-3, 4, (N, D), generator=g, device=dev).float()
+        a = torch.randint(0, N, (S,), generator=g, device=dev)
+        b = torch.randint(0, N, (S,), generator=g, device=dev)
+        return (cb[a] + cb[b]) / 2, cb
+    cb = torch.randn(N, D, generator=g, device=dev) * 10.0
+    if kind == "duplicated":
+        cb[N // 2:] = cb[: N - N // 2]
+    pick = torch.randint(0, N, (S,), generator=g, device=dev)
+    return cb[pick] + 0.05 * torch.randn(S, D, generator=g, device=dev), cb
+
+
+def _vq_line(g) -> str:
+    return (f"slack {g['slack']:.2e}, dist_err {g['dist_err']:.2e}, identical "
+            f"{g['same'] * 100:.3f} % (eps {g['eps']})")
+
+
+def phase_vq_kernel(card: str) -> dict:
+    """The VQ kernel vs its plain version; planted faults; times at the
+    base_vq shape."""
+    import torch
+
+    from titok_tpu_torch.ops import vq_distance as vd
+
+    cases = [  # (label, kind, S, N, D, exact)
+        ("base_vq 4096x16384x8, normal", "normal", 4096, 16384, 8, False),
+        ("ragged S 3299, N 1000", "normal", 3299, 1000, 8, False),
+        ("ragged S 777, N 37 (under one tile), D 4", "normal", 777, 37, 4, False),
+        ("separated, 4096x16384x8", "separated", 4096, 16384, 8, True),
+        ("duplicated rows across code ranges, 4096x16384x8", "duplicated", 4096, 16384, 8, True),
+        ("exact ties, 2000x500x8", "ties", 2000, 500, 8, True),
+    ]
+    err = 0.0
+    for label, kind, S, N, D, exact in cases:
+        z, cb = _vq_inputs(kind, S, N, D, seed=S + N)
+        idx, dist = vd.vq_nearest(z, cb)
+        torch.cuda.synchronize()
+        g = vd.gate(z, cb, idx, dist, eps=VQ_EPS, exact=exact)
+        ok = g["ok"] and g["same"] >= 0.999
+        if kind == "duplicated":
+            ok = ok and bool((idx < N // 2).all())
+        print(f"vq kernel {label} (P={vd.splits_for(S, N)} code ranges): {_vq_line(g)} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"the VQ kernel disagrees with its plain version: {label}")
+        err = max(err, g["abs_err"])
+
+    # planted faults: each made by the kernel itself on altered inputs
+    z, cb = _vq_inputs("normal", 4096, 16384, 8, seed=4096 + 16384)
+    zd, cbd = _vq_inputs("duplicated", 4096, 16384, 8, seed=1)
+    skip = vd.vq_nearest(z, cb[: -vd.TILE_N].contiguous())
+    hi_i, hi_d = vd.vq_nearest(zd, cbd.flip(0).contiguous())
+    faults = {
+        "the last codebook tile skipped": vd.gate(z, cb, *skip, eps=VQ_EPS),
+        "ties sent to the highest index": vd.gate(
+            zd, cbd, (cbd.shape[0] - 1 - hi_i).to(torch.int32), hi_d, eps=VQ_EPS, exact=True),
+    }
+    for name, g in faults.items():
+        print(f"  planted fault, {name}: {'PASSED' if g['ok'] else 'REJECTED'} ({_vq_line(g)})")
+        check(not g["ok"], f"the VQ gate passes a planted fault: {name}")
+
+    # times at the base_vq shape: the kernel at its C entry on fixed buffers
+    S, N, D = 4096, 16384, 8
+    cn = vd.code_norms(cb)
+    P = vd.splits_for(S, N)
+    part_d = torch.empty((P, S), device=z.device)
+    part_i = torch.empty((P, S), dtype=torch.int32, device=z.device)
+    idx = torch.empty(S, dtype=torch.int32, device=z.device)
+    dist = torch.empty(S, device=z.device)
+    args = (z.data_ptr(), cb.data_ptr(), cn.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
+            idx.data_ptr(), dist.data_ptr(), S, N, D, P, torch.cuda.current_stream().cuda_stream)
+    kernel_ms = cuda_ms(lambda: vd._kernel()(*args), reps=200)
+    wrapper_ms = cuda_ms(lambda: vd.vq_nearest(z, cb), reps=200)
+    plain_ms = cuda_ms(lambda: vd.vq_nearest_reference(z, cb), reps=5, warmup=1)
+    # yardstick only, never called by the port: the dense distance matrix
+    # and argmin in fp32 (TF32 is off), one [S, N] matrix in device memory
+    library_ms = cuda_ms(lambda: (cn[None, :] - 2.0 * (z @ cb.T)).argmin(1), reps=20)
+    flops = 2.0 * S * N * D
+    nbytes = S * D * 4 + N * D * 4 + N * 4 + S * 8
+    t_ops, t_bytes = flops / PEAK_FLOPS["f32"] * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    print(f"timing vq kernel base_vq S={S} N={N} D={D} [{card}]: kernel {kernel_ms:.4f} ms "
+          f"(through the wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, library (dense "
+          f"fp32 matmul + argmin) {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}; "
+          f"{flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.3f} MB), share of bound "
+          f"{bound_ms / kernel_ms:.4f}")
+    del part_d, part_i
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_kernels(card: str) -> dict:
@@ -171,6 +330,7 @@ def phase_kernels(card: str) -> dict:
     cases = [
         bench,
         ("large heads 10x576 16/4", segments([576] * 10, 6144), 6144, 16, 4),
+        ("base heads 12/4, base_vq serving layout", BASE_SEG, 4096, 12, 4),
         ("ragged 1..1892 4/2", segments([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299),
          3299, 4, 2),
     ]
@@ -198,40 +358,45 @@ def phase_kernels(card: str) -> dict:
             results[dname]["max_abs_err"] = max(results[dname]["max_abs_err"], err_out)
             del ref_out, ref_lse, o32, r32
 
-        # times at the bench shape
-        label, seg_np, S, hq, hkv = bench
-        q = torch.randn(S, hq, D, generator=gen, device=dev).to(dtype)
-        k = torch.randn(S, hkv, D, generator=gen, device=dev).to(dtype)
-        v = torch.randn(S, hkv, D, generator=gen, device=dev).to(dtype)
-        seg = torch.from_numpy(seg_np).to(dev)
-        # the kernel alone: its C entry on fixed buffers, so the wrapper's
-        # Python (checks, allocation) cannot starve the card; then the
-        # wrapper as the model calls it
-        out, lse = torch.empty_like(q), torch.empty(S, hq, device=dev)
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), seg.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), S, S, hq, hkv, float(D ** -0.5),
-                int(dname == "bf16"), torch.cuda.current_stream().cuda_stream)
-        kernel_ms = cuda_ms(lambda: fa._kernel()(*args), reps=200)
-        wrapper_ms = cuda_ms(lambda: fa._fwd(q, k, v, seg), reps=200)
-        plain_ms = cuda_ms(lambda: fa.flash_segment_attention_mh_reference(q, k, v, seg),
-                           reps=10, warmup=2)
-        # yardstick only, never called by the port: one SDPA call with the
-        # block-diagonal boolean mask (kv heads expanded beforehand)
-        qb = q.permute(1, 0, 2)[None]
-        kb = k.repeat_interleave(hq // hkv, dim=1).permute(1, 0, 2)[None]
-        vb = v.repeat_interleave(hq // hkv, dim=1).permute(1, 0, 2)[None]
-        rs = fa._remap_pad(seg)
-        mask = (rs[:, None] == rs[None, :])[None, None]
-        library_ms = cuda_ms(
-            lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask), reps=20)
-        bound_ms, bound_by, flops, nbytes = attn_bound_ms(seg_np, S, hq, hkv, D, dname)
-        print(f"timing {dname} {label} S={S} [{card}]: kernel {kernel_ms:.4f} ms "
-              f"(through the wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-              f"library (SDPA, bool mask) {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}; {flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB), share of bound {bound_ms / kernel_ms:.4f}")
-        results[dname].update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
-        del q, k, v, qb, kb, vb, mask, out, lse
+        # times at the bench shape (the numbers of the JSON line) and at the
+        # base_vq serving layout with base heads 12/4
+        for label, seg_np, S, hq, hkv in (bench, cases[2]):
+            q = torch.randn(S, hq, D, generator=gen, device=dev).to(dtype)
+            k = torch.randn(S, hkv, D, generator=gen, device=dev).to(dtype)
+            v = torch.randn(S, hkv, D, generator=gen, device=dev).to(dtype)
+            seg = torch.from_numpy(seg_np).to(dev)
+            # the kernel alone: its C entry on fixed buffers, so the wrapper's
+            # Python (checks, allocation) cannot starve the card; then the
+            # wrapper as the model calls it
+            out, lse = torch.empty_like(q), torch.empty(S, hq, device=dev)
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), seg.data_ptr(),
+                    out.data_ptr(), lse.data_ptr(), S, S, hq, hkv, float(D ** -0.5),
+                    int(dname == "bf16"), torch.cuda.current_stream().cuda_stream)
+            kernel_ms = cuda_ms(lambda: fa._kernel()(*args), reps=200)
+            wrapper_ms = cuda_ms(lambda: fa._fwd(q, k, v, seg), reps=200)
+            plain_ms = cuda_ms(lambda: fa.flash_segment_attention_mh_reference(q, k, v, seg),
+                               reps=10, warmup=2)
+            # yardstick only, never called by the port: one SDPA call with the
+            # block-diagonal boolean mask (kv heads expanded beforehand)
+            qb = q.permute(1, 0, 2)[None]
+            kb = k.repeat_interleave(hq // hkv, dim=1).permute(1, 0, 2)[None]
+            vb = v.repeat_interleave(hq // hkv, dim=1).permute(1, 0, 2)[None]
+            rs = fa._remap_pad(seg)
+            mask = (rs[:, None] == rs[None, :])[None, None]
+            library_ms = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask), reps=20)
+            bound_ms, bound_by, flops, nbytes = attn_bound_ms(seg_np, S, hq, hkv, D, dname)
+            print(f"timing {dname} {label} S={S} [{card}]: kernel {kernel_ms:.4f} ms "
+                  f"(through the wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                  f"library (SDPA, bool mask) {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}; {flops / 1e9:.3f} GFLOP, "
+                  f"{nbytes / 1e6:.2f} MB), share of bound {bound_ms / kernel_ms:.4f}")
+            timing = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+            if (label, S) == (bench[0], bench[2]):
+                results[dname].update(timing)
+            else:
+                results[dname]["at_base_12_4"] = timing
+            del q, k, v, qb, kb, vb, mask, out, lse
     torch.cuda.empty_cache()
     return results
 
@@ -370,6 +535,7 @@ def phase_bwd_kernels(card: str, train_cfg) -> dict:
     cases = [
         ("bench 10x576 4/2", bench_seg, None, 4, 2),
         ("large heads 10x576 16/4", bench_seg, None, 16, 4),
+        ("base heads 12/4, base_vq serving layout", BASE_SEG, None, 12, 4),
         ("ragged 1..1892 4/2", segments([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299),
          None, 4, 2),
         (f"stacked disc 4x{sd} 4/2", disc_seg, None, 4, 2),
@@ -409,7 +575,7 @@ def phase_bwd_kernels(card: str, train_cfg) -> dict:
             del q, k, v, do, out, lse, got, want
             torch.cuda.empty_cache()
 
-        # times at the bench shape
+        # planted faults at the bench shape
         S, hq, hkv = 6144, 4, 2
         gen.manual_seed(1)
         q, k, v, do = inputs(S, S, hq, hkv, dtype)
@@ -418,44 +584,58 @@ def phase_bwd_kernels(card: str, train_cfg) -> dict:
         _planted_faults(q, k, v, seg, out, lse, do,
                         fa.flash_segment_attention_mh_bwd_reference(q, k, v, seg, out, lse, do),
                         dname, hq, hkv)
-        delta = fa._delta(out, do)
-        dq_fn, dkv_fn = fa._bwd_kernels()
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        stream = torch.cuda.current_stream().cuda_stream
-        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), seg.data_ptr(),
-                  do.data_ptr(), lse.data_ptr(), delta.data_ptr())
-        tail = (S, S, hq, hkv, float(D ** -0.5), int(dname == "bf16"), stream)
-        dq_ms = cuda_ms(lambda: dq_fn(*common, dq.data_ptr(), *tail), reps=100)
-        dkv_ms = cuda_ms(lambda: dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *tail), reps=100)
-        both_ms = cuda_ms(lambda: fa._bwd(q, k, v, seg, out, lse, do), reps=100)
-        plain_ms = cuda_ms(lambda: fa.flash_segment_attention_mh_bwd_reference(
-            q, k, v, seg, out, lse, do), reps=10, warmup=2)
-        # yardstick only, never called by the port: the backward of one SDPA
-        # call with the block-diagonal boolean mask, on a retained graph
-        qb = q.permute(1, 0, 2)[None].detach().requires_grad_()
-        kb = k.repeat_interleave(hq // hkv, dim=1).permute(1, 0, 2)[None].detach().requires_grad_()
-        vb = v.repeat_interleave(hq // hkv, dim=1).permute(1, 0, 2)[None].detach().requires_grad_()
-        rs = fa._remap_pad(seg)
-        mask = (rs[:, None] == rs[None, :])[None, None]
-        ob = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
-        dob = do.permute(1, 0, 2)[None]
-        library_ms = cuda_ms(lambda: torch.autograd.grad(ob, (qb, kb, vb), dob,
-                                                         retain_graph=True), reps=20)
-        # 10 = the five products of the backward (S, dP, dV, dQ, dK) done once;
-        # each kernel alone: dq 3 products (S, dP, dQ), dk/dv 4 (S, dP, dV, dK)
-        tot_bound, tot_by, flops, nbytes = bwd_bound_ms(bench_seg, S, S, hq, hkv, D, dname,
-                                                        5, ("dq", "dkv"))
-        print(f"timing bwd {dname} bench S={S} [{card}]: dq kernel {dq_ms:.4f} ms, dk/dv kernel "
-              f"{dkv_ms:.4f} ms, sum {dq_ms + dkv_ms:.4f} ms, both through the wrapper (with "
-              f"delta) {both_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library (SDPA backward, bool mask) {library_ms:.4f} ms, "
-              f"bound {tot_bound * 1e3:.2f} us ({tot_by}; {flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB), share of bound {tot_bound / (dq_ms + dkv_ms):.4f}")
-        for kname, ms, products, outs in (("dq", dq_ms, 3, ("dq",)), ("dkv", dkv_ms, 4, ("dkv",))):
-            bound, by, _, _ = bwd_bound_ms(bench_seg, S, S, hq, hkv, D, dname, products, outs)
-            res[f"{kname}_{dname}"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                           bound_ms=bound, bound_by=by)
-        del q, k, v, do, out, lse, dq, dk, dv, qb, kb, vb, ob, mask
+        # times at the bench shape (the numbers of the JSON line) and at the
+        # base_vq serving layout with base heads 12/4
+        for label, seg_np, hq, hkv in (("bench", bench_seg, 4, 2),
+                                       ("base heads 12/4", BASE_SEG, 12, 4)):
+            S = seg_np.shape[0]
+            if label != "bench":
+                q, k, v, do = inputs(S, S, hq, hkv, dtype)
+                seg = torch.from_numpy(seg_np).to(dev)
+                out, lse = fa._fwd(q, k, v, seg)
+            delta = fa._delta(out, do)
+            dq_fn, dkv_fn = fa._bwd_kernels()
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            stream = torch.cuda.current_stream().cuda_stream
+            common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), seg.data_ptr(),
+                      do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+            tail = (S, S, hq, hkv, float(D ** -0.5), int(dname == "bf16"), stream)
+            dq_ms = cuda_ms(lambda: dq_fn(*common, dq.data_ptr(), *tail), reps=100)
+            dkv_ms = cuda_ms(lambda: dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *tail), reps=100)
+            both_ms = cuda_ms(lambda: fa._bwd(q, k, v, seg, out, lse, do), reps=100)
+            plain_ms = cuda_ms(lambda: fa.flash_segment_attention_mh_bwd_reference(
+                q, k, v, seg, out, lse, do), reps=10, warmup=2)
+            # yardstick only, never called by the port: the backward of one SDPA
+            # call with the block-diagonal boolean mask, on a retained graph
+            qb = q.permute(1, 0, 2)[None].detach().requires_grad_()
+            kb = k.repeat_interleave(hq // hkv, dim=1).permute(1, 0, 2)[None].detach().requires_grad_()
+            vb = v.repeat_interleave(hq // hkv, dim=1).permute(1, 0, 2)[None].detach().requires_grad_()
+            rs = fa._remap_pad(seg)
+            mask = (rs[:, None] == rs[None, :])[None, None]
+            ob = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
+            dob = do.permute(1, 0, 2)[None]
+            library_ms = cuda_ms(lambda: torch.autograd.grad(ob, (qb, kb, vb), dob,
+                                                             retain_graph=True), reps=20)
+            # 10 = the five products of the backward (S, dP, dV, dQ, dK) done once;
+            # each kernel alone: dq 3 products (S, dP, dQ), dk/dv 4 (S, dP, dV, dK)
+            tot_bound, tot_by, flops, nbytes = bwd_bound_ms(seg_np, S, S, hq, hkv, D, dname,
+                                                            5, ("dq", "dkv"))
+            print(f"timing bwd {dname} {label} S={S} [{card}]: dq kernel {dq_ms:.4f} ms, dk/dv kernel "
+                  f"{dkv_ms:.4f} ms, sum {dq_ms + dkv_ms:.4f} ms, both through the wrapper (with "
+                  f"delta) {both_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, library (SDPA backward, bool mask) {library_ms:.4f} ms, "
+                  f"bound {tot_bound * 1e3:.2f} us ({tot_by}; {flops / 1e9:.3f} GFLOP, "
+                  f"{nbytes / 1e6:.2f} MB), share of bound {tot_bound / (dq_ms + dkv_ms):.4f}")
+            for kname, ms, products, outs in (("dq", dq_ms, 3, ("dq",)), ("dkv", dkv_ms, 4, ("dkv",))):
+                bound, by, _, _ = bwd_bound_ms(seg_np, S, S, hq, hkv, D, dname, products, outs)
+                timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound, bound_by=by)
+                if label == "bench":
+                    res[f"{kname}_{dname}"].update(timing)
+                else:
+                    res[f"{kname}_{dname}"]["at_base_12_4"] = timing
+            del dq, dk, dv, qb, kb, vb, ob, mask
+        del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     return res
 
@@ -521,7 +701,7 @@ def phase_serving(card: str) -> dict:
 
     from titok_tpu_torch.config import load_config
     from titok_tpu_torch.models.titok import TiTokModel, init_params, make_titok
-    from titok_tpu_torch.ops.flash_attention_mh import launches, reset_launches
+    from titok_tpu_torch.ops.flash_attention_mh import launches
 
     cfg = load_config(os.path.join(REPO, "configs", "tiny.yaml"))
     seq_len = int(cfg.training.sampling.eval_seq_len)
@@ -547,10 +727,10 @@ def phase_serving(card: str) -> dict:
 
     # the main path: bf16 (bf16-mixed), attention through the kernel
     model = build()
-    reset_launches()
+    reset_counts()
     main = _serve(model, a, a_tc, b, b_tc, d, launches, "bf16")
     torch.cuda.synchronize()
-    paths = {"serving_bf16": dict(launches)}
+    paths = {"serving_bf16": read_counts()}
     main_launches = launches["bf16"]
     print(f"serving bf16 (kernel): launches encode/forward/decode/encode-u8 = "
           f"{main['launches']}, total {main_launches}; indices in [0, "
@@ -559,9 +739,9 @@ def phase_serving(card: str) -> dict:
 
     # f32 kernel path vs f32 plain path, same weights
     k32 = build(**{"training.main.precision": "32"})
-    reset_launches()
+    reset_counts()
     out_k32 = _serve(k32, a, a_tc, b, b_tc, d, launches, "f32")
-    paths["serving_f32"] = dict(launches)
+    paths["serving_f32"] = read_counts()
     f32_launches = launches["f32"]
     p32 = build(**{"training.main.precision": "32", "training.main.attn_impl": "reference"})
     out_p32 = _serve(p32, a, a_tc, b, b_tc, d, launches, "f32", check_counts=False)
@@ -600,7 +780,8 @@ def _breakdown(model, a, a_tc) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    model._pack(a, a_tc)
+    for group in model._groups(a, a_tc):
+        model._pack([a[i] for i in group], [a_tc[i] for i in group])
     pack_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -630,9 +811,11 @@ def print_breakdown(prof, title: str, wall_ms: float, top: int) -> None:
         print(f"breakdown of {title} the profiler recorded no device time (not measured)")
         return
     print(f"breakdown of {title} device busy {busy:.3f} ms ({busy / wall_ms * 100:.1f} % of "
-          f"wall); top device events:")
-    for key, dev_ms, count in rows[:top]:
-        print(f"    {dev_ms:8.4f} ms  x{count:<4d} {key[:90]}")
+          f"wall); top device events, then the port's own kernels below them:")
+    own = ("fwd_bf16_mma", "fwd_f32_fma", "bwd_dq_", "bwd_dkv_", "vq_partial", "vq_reduce")
+    for i, (key, dev_ms, count) in enumerate(rows):
+        if i < top or any(k in key for k in own):
+            print(f"    {dev_ms:8.4f} ms  x{count:<4d} {key[:90]}")
 
 
 def train_config(**over):
@@ -645,10 +828,11 @@ def train_config(**over):
                        [f"{k}={v}" for k, v in over.items()])
 
 
-def _trainer(cfg, f32_disc=False):
+def _trainer(cfg, f32_disc=False, batch=None):
     """Builder, state and step for ``cfg``. ``f32_disc``: the discriminator
     rebuilt to compute in f32 (the package builds it in bf16, as the JAX
-    package does), so that an f32 run is f32 throughout."""
+    package does), so that an f32 run is f32 throughout. ``batch``: the
+    first batch on the card, from which EMA-VQ draws its codebook."""
     import torch
 
     from titok_tpu_torch.losses.loss_module import LossSystem
@@ -663,7 +847,7 @@ def _trainer(cfg, f32_disc=False):
             in_channels=3, out_channels=1, dtype=torch.float32,
             attn_impl=str(cfg.training.main.get("attn_impl", "auto")))
     builder = TrainStepBuilder(make_titok(cfg), ls, cfg)
-    state = builder.init_state(device="cuda")
+    state = builder.init_state(device="cuda", batch=batch)
     return builder, state, builder.make_train_step()
 
 
@@ -686,7 +870,7 @@ def phase_training(card: str) -> dict:
     import torch
 
     from titok_tpu_torch.data.packing import to_device
-    from titok_tpu_torch.ops.flash_attention_mh import launches, reset_launches
+    from titok_tpu_torch.ops.flash_attention_mh import launches
 
     dev = torch.device("cuda")
     cfg = train_config()
@@ -700,7 +884,7 @@ def phase_training(card: str) -> dict:
     gen0 = [p.detach().clone() for p in state.model.parameters()]
     disc0 = [p.detach().clone() for p in state.disc_model.parameters()]
 
-    reset_launches()  # the main path: the 6 steps below, read right after them
+    reset_counts()  # the main path: the 6 steps below, read right after them
     per_step, metrics_all, times = [], [], []
     for i, (b, d) in enumerate(batches):
         before = dict(launches)
@@ -713,8 +897,9 @@ def phase_training(card: str) -> dict:
         metrics_all.append(metrics)
         tok = torch.from_numpy(b.token_mask).to(dev)
         check(bool(((idx[tok] >= 0) & (idx[tok] < cb)).all()), f"step {i}: index out of range")
-    paths = {"train_bf16": dict(launches)}
-    want = {"bf16": 16, "bwd_dq_bf16": 16, "bwd_dkv_bf16": 16,
+    paths = {"train_bf16": read_counts()}
+    n = TRAIN_LAUNCHES["tiny"]
+    want = {"bf16": n, "bwd_dq_bf16": n, "bwd_dkv_bf16": n,
             "f32": 0, "bwd_dq_f32": 0, "bwd_dkv_f32": 0}
     for i, got in enumerate(per_step):
         check(got == want, f"step {i}: launches {got}, want {want}")
@@ -752,7 +937,7 @@ def phase_training(card: str) -> dict:
         c = train_config(**{"training.main.precision": "32",
                             "training.sampling.train_seq_len": 2048, **over})
         builder, st, stp = _trainer(c, f32_disc=True)
-        reset_launches()
+        reset_counts()
         b0, d0 = batches32[0]
         bt, dt_ = to_device(b0, dev), to_device(d0, dev)
         recon, _ = st.model(bt)
@@ -763,7 +948,7 @@ def phase_training(card: str) -> dict:
             st, m, _ = stp(st, to_device(b, dev), to_device(d, dev), noise=noise)
             losses.append({k: float(v) for k, v in m.items() if "loss" in k or "penalty" in k})
         torch.cuda.synchronize()
-        runs[name] = (grads, losses, dict(launches))
+        runs[name] = (grads, losses, read_counts())
         del builder, st, stp, recon, loss
         torch.cuda.empty_cache()
     k_grads, k_losses, k_launch = runs["kernel"]
@@ -787,6 +972,193 @@ def phase_training(card: str) -> dict:
     check(lok, "f32 kernel path losses disagree with the plain path")
     check(gerr <= 1e-4 * gmax, "f32 kernel path grads disagree with the plain path")
     paths["train_f32"] = k_launch
+    return paths
+
+
+def _base_vq_clips(rng):
+    """Request (a): 8- and 16-frame clips at 256x256 and 256x192 with token
+    counts 1..128 (two packed groups at ``eval_seq_len`` 4096; the first
+    is ``BASE_SEG``)."""
+    dims = [(8, 256, 256), (16, 256, 256), (8, 256, 192), (16, 256, 192), (8, 256, 256),
+            (16, 256, 256)]
+    clips = [rng.uniform(-1, 1, (3, *d)).astype(np.float32) for d in dims]
+    return clips, [1, 16, 32, 64, 96, 128]
+
+
+def phase_serving_vq(card: str) -> dict:
+    """base_vq served at full width through the VQ and attention kernels."""
+    import torch
+
+    from titok_tpu_torch.config import load_config
+    from titok_tpu_torch.models.titok import TiTokModel, init_params, make_titok
+    from titok_tpu_torch.ops import flash_attention_mh as fa
+    from titok_tpu_torch.ops import vq_distance as vd
+
+    path = os.path.join(REPO, "configs", "base_vq.yaml")
+    cfg = load_config(path)
+    seq_len = int(cfg.training.sampling.eval_seq_len)
+    min_grid = cfg.training.sampling.min_grid
+    # seeded numpy weights with dense kernels at 4x the reference init (as
+    # the tiny serving phase: at 1x a random model's latent tokens all sit
+    # near one point) and the seeded random normal codebook TiTokModel draws
+    params = init_params(make_titok(cfg), seed=0)
+    for name, w in params.items():
+        if w.ndim == 2 and not name.endswith("mask_token"):
+            params[name] = w * np.float32(4.0)
+
+    def build(**over):
+        c = load_config(path, [f"{k}={v}" for k, v in over.items()])
+        return TiTokModel(make_titok(c), params=params, seq_len=seq_len, min_grid=min_grid,
+                          device="cuda", seed=0)
+
+    clips, tcs = _base_vq_clips(np.random.default_rng(0))
+    grids = [c.shape[1:] for c in clips]
+    model = build()
+    n_groups = len(model._groups(clips, tcs))
+    cb = model.module.codebook_size
+
+    def serve(m):
+        counts = []
+        before = read_counts()
+        idx = m.encode(clips, tcs)
+        counts.append({k: v - before[k] for k, v in read_counts().items()})
+        before = read_counts()
+        rec, aux = m.forward(clips, tcs)
+        counts.append({k: v - before[k] for k, v in read_counts().items()})
+        before = read_counts()
+        dec = m.decode_indices(idx, grids)
+        counts.append({k: v - before[k] for k, v in read_counts().items()})
+        return idx, rec, aux["indices"], dec, counts
+
+    # the main path: bf16 (bf16-mixed), through the kernels
+    reset_counts()
+    idx, rec, fidx, dec, counts = serve(model)
+    torch.cuda.synchronize()
+    paths = {"serving_base_vq": read_counts()}
+    dt = "bf16"
+    want = [{"vq_f32": n_groups, dt: 12 * n_groups}, {"vq_f32": n_groups, dt: 24 * n_groups},
+            {"vq_f32": 0, dt: 12 * n_groups}]
+    for name, got, w in zip(("encode", "forward", "decode_indices"), counts, want):
+        check(all(got[k] == v for k, v in w.items()),
+              f"base_vq {name}: launches {got}, want {w} ({n_groups} groups)")
+    for i, tc in enumerate(tcs):
+        check(idx[i].shape == (tc,), f"encode clip {i}: {idx[i].shape}")
+        check(np.array_equal(idx[i], fidx[i]), f"encode and forward disagree on clip {i}")
+    flat = np.concatenate(idx)
+    check(bool(((flat >= 0) & (flat < cb)).all()), f"index out of [0, {cb})")
+    for c, r, d in zip(clips, rec, dec):
+        check(r.shape == c.shape and np.isfinite(r).all(), "forward recon")
+        check(d.shape == c.shape and np.isfinite(d).all(), "decode_indices recon")
+    dec_diff = max(float(np.abs(r - d).max()) for r, d in zip(rec, dec))
+    print(f"serving base_vq bf16 (kernels), {len(clips)} clips in {n_groups} groups: launches "
+          f"per call encode/forward/decode {[(c['vq_f32'], c[dt]) for c in counts]} (vq, "
+          f"attention fwd); {len(np.unique(flat))} distinct of {flat.size} indices in [0, {cb}); "
+          f"decode_indices vs forward recon max|diff| {dec_diff:.3e}")
+    check(dec_diff <= 1e-5, "decode_indices does not reproduce forward's reconstruction")
+    check(len(np.unique(flat)) > 1, "every token landed on one code: nothing to compare")
+
+    # f32: kernel path vs plain path (dense attention, plain VQ search)
+    k32 = build(**{"training.main.precision": "32"})
+    reset_counts()
+    i32, r32, _, _, _ = serve(k32)
+    paths["serving_base_vq_f32"] = read_counts()
+    del k32
+    p32 = build(**{"training.main.precision": "32", "training.main.attn_impl": "reference"})
+    p32.module.quantize.impl = "reference"
+    reset_counts()
+    ip, rp, _, _, _ = serve(p32)
+    check(all(v == 0 for v in read_counts().values()), "the plain path launched a kernel")
+    del p32
+    torch.cuda.empty_cache()
+    same = float((np.concatenate(i32) == np.concatenate(ip)).mean())
+    rdiff = max(float(np.abs(a - b).max()) for a, b in zip(r32, rp))
+    print(f"base_vq f32 kernel path vs plain path: indices identical {same * 100:.3f} %, "
+          f"recon max|diff| {rdiff:.3e}")
+    check(same >= 0.999, "the f32 kernel path disagrees with the plain path on the indices")
+
+    # request time of (a) on the main path
+    for _ in range(2):
+        model.encode(clips, tcs)
+    torch.cuda.synchronize()
+    reps = 10
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        model.encode(clips, tcs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"encode (a) base_vq, {len(clips)} clips, bf16 [{card}]: {ms:.3f} ms/request, "
+          f"{len(clips) / ms * 1e3:.1f} clips/s (host clock, {reps} requests)")
+    _breakdown(model, clips, tcs)
+    del model
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_training_vq(card: str) -> dict:
+    """The base_vq GAN train step at full width through the kernels."""
+    import torch
+
+    from titok_tpu_torch.data.packing import to_device
+    from titok_tpu_torch.config import load_config
+
+    dev = torch.device("cuda")
+    # LPIPS is not ported; the config's own 1000-step warm-up: lr rises from
+    # 0 by 1e-7 a step (a 2-step warm-up jumps to 1e-4 at once, and a
+    # random model's latents, all near one point, then leave the codebook
+    # drawn from them for one edge code)
+    cfg = load_config(os.path.join(REPO, "configs", "base_vq.yaml"), [
+        "tokenizer.losses.perceptual_weight=0", "tokenizer.losses.gram_weight=0"])
+    batches, pack_ms = _host_batches(cfg, 5)
+    seq_len = int(cfg.training.sampling.train_seq_len)
+    builder, state, step = _trainer(cfg, batch=to_device(batches[0][0], dev))
+    vq = state.model.quantize
+    cb0 = vq.codebook.clone()
+    print(f"training: base_vq GAN, width 768, enc/dec 12+12 layers, heads 12/4, disc "
+          f"{cfg.discriminator.model.model_size}, codebook {vq.codebook_size} x {vq.codebook_dim}, "
+          f"train_seq_len {seq_len}, {cfg.training.main.precision}, samples per batch "
+          f"{[int(b.sample_valid.sum()) for b, _ in batches]}, host packing {pack_ms:.1f} ms/batch")
+    n = TRAIN_LAUNCHES["base"]
+    want = {"bf16": n, "bwd_dq_bf16": n, "bwd_dkv_bf16": n, "f32": 0, "bwd_dq_f32": 0,
+            "bwd_dkv_f32": 0, "vq_f32": 1}
+    reset_counts()  # the main path: the 5 steps below, read right after them
+    per_step, metrics_all, times = [], [], []
+    for i, (b, d) in enumerate(batches):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics, idx = step(state, to_device(b, dev), to_device(d, dev))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v - before[k] for k, v in read_counts().items()})
+        metrics_all.append(metrics)
+        tok = torch.from_numpy(b.token_mask).to(dev)
+        check(bool(((idx[tok] >= 0) & (idx[tok] < vq.codebook_size)).all()),
+              f"step {i}: index out of range")
+    paths = {"train_base_vq": read_counts()}
+    for i, got in enumerate(per_step):
+        check(got == want, f"base_vq step {i}: launches {got}, want {want}")
+    print(f"base_vq training launches per step (every one of {len(batches)}): {per_step[0]} -- "
+          f"the VQ kernel once (the generator's forward); per attention layer one forward and one "
+          f"of each backward kernel: generator pass encoder 12 + decoder 12 + stacked disc 12, "
+          f"discriminator pass 12 = {n}")
+    for i, m in enumerate(metrics_all):
+        vals = {k: float(v) for k, v in m.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"step {i}: non-finite metric {vals}")
+        check(vals["nonfinite_grad/generator"] == 0 and vals["nonfinite_grad/discriminator"] == 0,
+              f"step {i}: a non-finite grad was zeroed")
+        check(vals["gen/vq_perplexity"] > 1.0, f"step {i}: perplexity {vals['gen/vq_perplexity']}")
+        print(f"  step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in vals.items()))
+    moved = (vq.codebook - cb0).abs().max().item()
+    print(f"codebook moved: max|dc| {moved:.3e}")
+    check(moved > 0, "the codebook did not move")
+    timed = times[2:]
+    print(f"train step, base_vq GAN bf16 S={seq_len} [{card}]: {np.mean(timed):.3f} ms/step "
+          f"(host clock, mean of {len(timed)} after 2 warm-up; steps "
+          f"{', '.join(f'{t:.2f}' for t in times)} ms), {seq_len / np.mean(timed) * 1e3:.0f} "
+          f"tokens/s")
+    _train_breakdown(step, state, batches[0])
+    del builder, state, step
+    torch.cuda.empty_cache()
     return paths
 
 
@@ -817,8 +1189,8 @@ def main() -> int:
         print("FAIL: no CUDA device; this script measures the port on the card",
               file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(REPO, "titok_tpu_torch")) or not os.path.exists(
-            os.path.join(REPO, "configs", "tiny.yaml")):
+    if not os.path.isdir(os.path.join(REPO, "titok_tpu_torch")) or not all(
+            os.path.exists(os.path.join(REPO, "configs", c)) for c in ("tiny.yaml", "base_vq.yaml")):
         print("FAIL: run chip_smoke.py from the root of a checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
@@ -826,27 +1198,33 @@ def main() -> int:
         card = phase_build()
         kres = phase_kernels(card)
         bres = phase_bwd_kernels(card, train_config())
+        vres = phase_vq_kernel(card)
         paths = phase_serving(card)
         paths.update(phase_training(card))
+        paths.update(phase_serving_vq(card))
+        paths.update(phase_training_vq(card))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     # launches: each path's counts were set to 0 just before it ran and read
     # just after; a kernel's "launches" is its count on the training path of
-    # its dtype (bf16: the main path, 6 steps; f32: the f32 kernel path)
-    entries = [(f"flash_segment_attn_fwd_{d}", KERNEL_SRC, KERNEL_REPLACES, d, kres[d])
-               for d in ("bf16", "f32")]
+    # its dtype (bf16: the tiny main path, 6 steps; f32: the f32 kernel path;
+    # the VQ kernel: the base_vq training path, 5 steps)
+    entries = [(f"flash_segment_attn_fwd_{d}", KERNEL_SRC, KERNEL_REPLACES, d, kres[d],
+                f"train_{d}") for d in ("bf16", "f32")]
     entries += [(f"flash_segment_attn_bwd_{k}_{d}", BWD_SRC, BWD_REPLACES[k], f"bwd_{k}_{d}",
-                 bres[f"{k}_{d}"]) for k in ("dq", "dkv") for d in ("bf16", "f32")]
+                 bres[f"{k}_{d}"], f"train_{d}") for k in ("dq", "dkv") for d in ("bf16", "f32")]
+    entries.append(("vq_nearest_f32", VQ_SRC, VQ_REPLACES, "vq_f32", vres, "train_base_vq"))
     kernels = []
-    for name, src, replaces, key, r in entries:
-        dname = "f32" if key.endswith("f32") else "bf16"
+    for name, src, replaces, key, r, main_path in entries:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": paths[f"train_{dname}"][key],
+            "launches": paths[main_path][key],
             "launches_by_path": {p: c[key] for p, c in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            # the attention kernels' times at the base_vq layout, heads 12/4
+            **({"at_base_12_4": r["at_base_12_4"]} if "at_base_12_4" in r else {}),
         })
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

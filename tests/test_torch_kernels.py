@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the segment-attention forward and its backward (dq and dk/dv kernels), and
-one train step that goes through both.
+the segment-attention forward and its backward (dq and dk/dv kernels), the
+VQ nearest-neighbour kernel, and train steps (FSQ and EMA-VQ) that go
+through them.
 
 Every test here needs a CUDA card and the CUDA toolkit; without one it skips
 (the fixture decides, never the import). This file imports no JAX, so it
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from titok_tpu_torch.ops import flash_attention_mh as fa
+from titok_tpu_torch.ops import vq_distance as vd
 
 pytestmark = pytest.mark.gpu
 
@@ -58,6 +60,7 @@ def _assert_close(out, lse, ref_out, ref_lse, dtype):
 CASES = {
     "serving 10x576 4/2": ([576] * 10, 6144, 4, 2),
     "large heads 16/4": ([576] * 10, 6144, 16, 4),
+    "base heads 12/4": ([1152, 1088, 640, 576, 513], 4096, 12, 4),
     "ragged 1..1892, pad": ([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299, 4, 2),
     "one row": ([1], 1, 4, 2),
     "all pad": ([], 100, 4, 2),
@@ -160,6 +163,7 @@ def _stacked_ids(S1, lengths, copies):
 BWD_CASES = {
     "bench 10x576 4/2": (lambda: _segments([576] * 10, 6144), 4, 2),
     "large heads 16/4": (lambda: _segments([576] * 10, 6144), 16, 4),
+    "base heads 12/4": (lambda: _segments([1152, 1088, 640, 576, 513], 4096), 12, 4),
     "ragged 1..1892, pad": (lambda: _segments([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299),
                             4, 2),
     "stacked disc ids x4": (lambda: _stacked_ids(700, [300, 1, 250, 120], 4), 4, 2),
@@ -219,7 +223,7 @@ def test_bwd_raises_on_cuda_instead_of_falling_back(cuda):
         fa._bwd(q, k, v, seg.long(), out, lse, dout)
 
 
-def _small_train_config():
+def _small_train_config(*extra):
     import os
 
     from titok_tpu_torch.config import load_config
@@ -229,7 +233,7 @@ def _small_train_config():
         "tokenizer.model.patch_size=[2,4,4]", "discriminator.model.patch_size=[2,4,4]",
         "tokenizer.losses.perceptual_weight=0", "training.sampling.min_grid=[2,8,8]",
         "training.sampling.max_grid=[4,16,16]", "training.sampling.token_range=[1,8]",
-        "training.sampling.train_seq_len=256", "optimizer.warmup_steps=0"])
+        "training.sampling.train_seq_len=256", "optimizer.warmup_steps=0", *extra])
 
 
 def test_bf16_grads_reach_every_parameter(cuda):
@@ -287,3 +291,115 @@ def test_train_step_launches_both_backward_kernels(cuda):
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert float(metrics["nonfinite_grad/generator"]) == 0.0
     assert int(indices.max()) < 4375 and int(indices.min()) >= 0
+
+
+# VQ nearest-neighbour kernel against its plain version: vd.gate holds every
+# row's chosen code within eps * (1 + |d*|) of the plain minimum d* (the
+# kernel contracts the dot product into FMAs, the plain version rounds each
+# product), the partial distance as close, and with exact=True every index
+# equal to the plain version's: a codebook without near ties, duplicated
+# rows (the lower index wins) and exact ties.
+VQ_EPS = 1e-6
+
+
+def _vq_inputs(dev, kind, S, N, D, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "normal":
+        return (torch.randn(S, D, generator=g, device=dev),
+                torch.randn(N, D, generator=g, device=dev))
+    if kind == "ties":  # integer codes, z on midpoints: equal distances, exactly
+        cb = torch.randint(-3, 4, (N, D), generator=g, device=dev).float()
+        a = torch.randint(0, N, (S,), generator=g, device=dev)
+        b = torch.randint(0, N, (S,), generator=g, device=dev)
+        return (cb[a] + cb[b]) / 2, cb
+    cb = torch.randn(N, D, generator=g, device=dev) * 10.0
+    if kind == "duplicated":  # the second half repeats the first
+        cb[N // 2:] = cb[: N - N // 2]
+    pick = torch.randint(0, N, (S,), generator=g, device=dev)
+    return cb[pick] + 0.05 * torch.randn(S, D, generator=g, device=dev), cb
+
+
+VQ_CASES = {
+    "base_vq 4096x16384x8": ("normal", 4096, 16384, 8, False),
+    "ragged S 3299, N 1000": ("normal", 3299, 1000, 8, False),
+    "tiny N 1": ("normal", 300, 1, 8, True),
+    "N 37 under one tile, D 4": ("normal", 777, 37, 4, False),
+    "separated": ("separated", 4096, 16384, 8, True),
+    "duplicated rows": ("duplicated", 4096, 16384, 8, True),
+    "exact ties": ("ties", 2000, 500, 8, True),
+}
+
+
+@pytest.mark.parametrize("case", list(VQ_CASES))
+def test_vq_kernel_matches_plain(cuda, case):
+    kind, S, N, D, exact = VQ_CASES[case]
+    z, cb = _vq_inputs(cuda, kind, S, N, D)
+    before = vd.launches["f32"]
+    idx, dist = vd.vq_nearest(z, cb)
+    torch.cuda.synchronize()
+    assert vd.launches["f32"] == before + 1
+    assert idx.dtype == torch.int32 and dist.dtype == torch.float32 and idx.shape == (S,)
+    g = vd.gate(z, cb, idx, dist, eps=VQ_EPS, exact=exact)
+    assert g["ok"], g
+    assert g["same"] >= 0.999, g
+    if kind == "duplicated":
+        assert bool((idx < N // 2).all())
+
+
+def test_vq_gate_rejects_planted_faults(cuda):
+    """The kernel run with its last codebook tile skipped, and with ties
+    sent to the highest index (the kernel on the reversed codebook), fails
+    the gate."""
+    z, cb = _vq_inputs(cuda, "normal", 4096, 16384, 8)
+    skip = vd.vq_nearest(z, cb[: -vd.TILE_N].contiguous())
+    assert not vd.gate(z, cb, *skip, eps=VQ_EPS)["ok"]
+    zd, cbd = _vq_inputs(cuda, "duplicated", 4096, 16384, 8)
+    hi_i, hi_d = vd.vq_nearest(zd, cbd.flip(0).contiguous())
+    hi_i = (cbd.shape[0] - 1 - hi_i).to(torch.int32)
+    assert not vd.gate(zd, cbd, hi_i, hi_d, eps=VQ_EPS, exact=True)["ok"]
+
+
+def test_vq_wrapper_raises_on_cuda_instead_of_falling_back(cuda):
+    z, cb = _vq_inputs(cuda, "normal", 64, 128, 8)
+    with pytest.raises(ValueError, match="f32"):
+        vd.vq_nearest(z.half(), cb.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        vd.vq_nearest(z, cb.t().contiguous().t())
+    with pytest.raises(ValueError, match="D <= 16"):
+        vd.vq_nearest(torch.zeros(4, 17, device=cuda), torch.zeros(8, 17, device=cuda))
+    with pytest.raises(ValueError, match="is on"):
+        vd.vq_nearest(z, cb.cpu())
+
+
+def test_vq_train_step_launches_the_kernels(cuda):
+    """One GAN train step of a small EMA-VQ model on the card: the VQ
+    kernel once (the generator's forward), the attention kernels 16 times
+    each, and the codebook moves."""
+    import itertools
+
+    from titok_tpu_torch.data.packing import build_disc_batch, to_device
+    from titok_tpu_torch.losses.loss_module import LossSystem
+    from titok_tpu_torch.models.titok import make_titok
+    from titok_tpu_torch.training.train_step import TrainStepBuilder
+    from titok_tpu_torch.training.trainer import synthetic_batches
+
+    cfg = _small_train_config("tokenizer.model.quantizer=vq",
+                              "tokenizer.model.vq={codebook_size: 512, dim: 8}")
+    ls = LossSystem(cfg)
+    builder = TrainStepBuilder(make_titok(cfg), ls, cfg)
+    (batch,) = itertools.islice(synthetic_batches(cfg, seed=0), 1)
+    bt = to_device(batch, cuda)
+    state = builder.init_state(device=cuda, batch=bt)
+    step = builder.make_train_step()
+    cb0 = state.model.quantize.codebook.clone()
+    disc = build_disc_batch(batch, ls.disc_tokens)
+    fa.reset_launches()
+    vd.reset_launches()
+    state, metrics, indices = step(state, bt, to_device(disc, cuda))
+    torch.cuda.synchronize()
+    assert vd.launches["f32"] == 1
+    assert fa.launches["bf16"] == fa.launches["bwd_dq_bf16"] == fa.launches["bwd_dkv_bf16"] == 16
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert float(metrics["gen/vq_perplexity"]) > 1.0
+    assert int(indices.max()) < 512 and int(indices.min()) >= 0
+    assert not torch.equal(state.model.quantize.codebook, cb0)

@@ -116,8 +116,15 @@ def test_tiny_config_state_dict_matches_flax_tree():
 
 
 def test_unported_options_raise():
+    """EMA-VQ is ported; its context-parallel lookup (vq_nearest_cp) is
+    not, nor is any parallel mode."""
+    from titok_tpu_torch.models.vq import EMAVQ
+
+    assert TiTok(quantizer="vq").token_size == 8
     with pytest.raises(NotImplementedError, match="not ported"):
-        TiTok(quantizer="vq")
+        EMAVQ(16, 2, cp_mesh=object())
+    with pytest.raises(ValueError, match="quantizer"):
+        TiTok(quantizer="lfq")
     cfg = load_config(os.path.join(REPO, "configs", "tiny.yaml"))
     with pytest.raises(NotImplementedError, match="not ported"):
         make_titok(cfg, cp_mesh=object())

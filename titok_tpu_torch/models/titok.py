@@ -1,7 +1,9 @@
-"""TiTok: ViT encoder → FSQ → ViT decoder over packed video batches.
+"""TiTok: ViT encoder → quantizer → ViT decoder over packed video batches.
 
 Mirrors the reference model wiring (reference ``model/titok.py``):
-``token_size = len(fsq_levels)`` (``titok.py:29``).
+``token_size = len(fsq_levels)`` (``titok.py:29``) for FSQ; the EMA-VQ
+family (``quantizer: vq``, ``models/vq.py``) has ``token_size = vq.dim``
+and carries its codebook as buffers of ``TiTok.quantize``.
 
 Two API layers, as in the JAX package:
 
@@ -36,6 +38,7 @@ from titok_tpu_torch.data.packing import (
 )
 from titok_tpu_torch.models.blocks import HEAD_DIM, PackedDecoder, PackedEncoder, _PackedViT
 from titok_tpu_torch.models.quantizer import FSQ
+from titok_tpu_torch.models.vq import EMAVQ, STATE_NAMES, init_vq_state
 from titok_tpu_torch.models.transformer import Dense
 from titok_tpu_torch.ops.rmsnorm import RMSNorm
 
@@ -49,24 +52,36 @@ def compute_dtype(config) -> torch.dtype:
 
 
 class TiTok(nn.Module):
-    """Functional TiTok over packed buffers (FSQ family)."""
+    """Functional TiTok over packed buffers. ``quantizer``: 'fsq' (the
+    reference's) or 'vq' (EMA-VQ, whose state lives in ``quantize``'s
+    buffers)."""
 
     def __init__(self, patch_size: Sequence[int] = (4, 8, 8),
                  fsq_levels: Sequence[int] = (7, 5, 5, 5, 5),
                  encoder_size: str = "tiny", decoder_size: str = "tiny",
                  in_channels: int = 3, dtype=torch.bfloat16,
-                 attn_impl: str = "auto", quantizer: str = "fsq"):
+                 attn_impl: str = "auto", quantizer: str = "fsq",
+                 vq_codebook_size: int = 16384, vq_dim: int = 8,
+                 vq_commitment_weight: float = 0.25, vq_decay: float = 0.99,
+                 vq_dead_steps: int = 256, vq_entropy_weight: float = 0.0,
+                 vq_entropy_tau: float = 0.2):
         super().__init__()
-        if quantizer != "fsq":
-            raise NotImplementedError(
-                f"quantizer {quantizer!r} is not ported yet (EMA-VQ: ROADMAP "
-                "queue 1, with the VQ nearest-neighbour kernel of queue 2)")
+        if quantizer not in ("fsq", "vq"):
+            raise ValueError(f"quantizer {quantizer!r}: expected 'fsq' or 'vq'")
         self.patch_size = tuple(patch_size)
         self.fsq_levels = tuple(fsq_levels)
         self.in_channels = in_channels
         self.dtype = dtype
         self.quantizer = quantizer
-        self.quantize = FSQ(self.fsq_levels)
+        self.vq_codebook_size = int(vq_codebook_size)
+        self.vq_dim = int(vq_dim)
+        if quantizer == "fsq":
+            self.quantize = FSQ(self.fsq_levels)
+        else:
+            self.quantize = EMAVQ(
+                self.vq_codebook_size, self.vq_dim, commitment_weight=vq_commitment_weight,
+                decay=vq_decay, dead_steps=vq_dead_steps, entropy_weight=vq_entropy_weight,
+                entropy_tau=vq_entropy_tau)
         self.encoder = PackedEncoder(
             model_size=encoder_size, patch_size=self.patch_size,
             in_channels=in_channels, out_channels=self.token_size, dtype=dtype,
@@ -78,18 +93,25 @@ class TiTok(nn.Module):
 
     @property
     def token_size(self) -> int:
-        return len(self.fsq_levels)
+        return len(self.fsq_levels) if self.quantizer == "fsq" else self.vq_dim
 
     @property
     def codebook_size(self) -> int:
-        return int(np.prod(self.fsq_levels))
+        return (int(np.prod(self.fsq_levels)) if self.quantizer == "fsq"
+                else self.vq_codebook_size)
 
     def encode_packed(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """[S,P] patches -> ([S, token_size] codes, {'indices': [S]}), valid
-        at token slots (ref ``titok.py:47-52``)."""
+        at token slots (ref ``titok.py:47-52``). For EMA-VQ, aux also
+        carries ``commit_loss``, the batch statistics, ``perplexity`` and
+        ``z``, the detached f32 latents the EMA update reseeds from."""
         z = self.encoder(batch["patches"], batch["token_mask"], batch["segment_ids"],
                          batch["rope_cos"], batch["rope_sin"])
-        return self.quantize(z)
+        if self.quantizer == "fsq":
+            return self.quantize(z)
+        codes, aux = self.quantize(z, weights=batch["token_mask"])
+        aux["z"] = z.detach().to(torch.float32)
+        return codes, aux
 
     def decode_packed(self, codes: torch.Tensor, batch: dict) -> torch.Tensor:
         """[S, token_size] codes -> [S, C*prod(patch)] patch pixels."""
@@ -113,6 +135,7 @@ def make_titok(config, cp_mesh=None, tp_mesh=None) -> TiTok:
             "context and tensor parallelism are not ported yet (ROADMAP queue 1, "
             "parallel modes)")
     tm = config.tokenizer.model
+    vq = tm.get("vq", {}) or {}
     return TiTok(
         patch_size=tuple(tm.patch_size),
         fsq_levels=tuple(tm.fsq_levels),
@@ -121,6 +144,13 @@ def make_titok(config, cp_mesh=None, tp_mesh=None) -> TiTok:
         dtype=compute_dtype(config),
         attn_impl=str(config.training.main.get("attn_impl", "auto")),
         quantizer=str(tm.get("quantizer", "fsq")),
+        vq_codebook_size=int(vq.get("codebook_size", 16384)),
+        vq_dim=int(vq.get("dim", 8)),
+        vq_commitment_weight=float(vq.get("commitment_weight", 0.25)),
+        vq_decay=float(vq.get("decay", 0.99)),
+        vq_dead_steps=int(vq.get("dead_steps", 256)),
+        vq_entropy_weight=float(vq.get("entropy_weight", 0.0)),
+        vq_entropy_tau=float(vq.get("entropy_tau", 0.2)),
     )
 
 
@@ -149,21 +179,33 @@ class TiTokModel:
 
     ``params``: a state dict (numpy arrays or tensors) such as
     ``weights.from_flax_params`` returns; seeded random weights when None.
-    ``device``: where the model runs; ``cuda`` when None (raises if no card
-    is present; pass ``device="cpu"`` for the plain path on the CPU).
+    ``vq_state`` (EMA-VQ only): the codebook and EMA statistics under the
+    buffer names (``init_vq_state``, ``weights.from_vq_state(s, "")``);
+    taken from ``params``' ``quantize.*`` entries when it has them, else a
+    random normal codebook seeded from ``seed + 1``, as the JAX package
+    does. ``device``: where the model runs; ``cuda`` when None (raises if
+    no card is present; pass ``device="cpu"`` for the plain path on the
+    CPU).
     """
 
     def __init__(self, module: TiTok, params=None, seed: int = 0,
                  seq_len: int = 4096, min_grid: Sequence[int] = (8, 128, 128),
-                 device=None):
+                 device=None, vq_state=None):
         self.device = resolve_device(device)
         self.module = module
         self.seq_len = seq_len
         self.max_samples = max_samples_for(seq_len, min_grid, module.patch_size)
         if params is None:
             params = init_params(module, seed)
-        self.module.load_state_dict(
-            {k: torch.as_tensor(np.array(v)) for k, v in params.items()})
+        state = {k: torch.as_tensor(np.array(v)) for k, v in params.items()}
+        if module.quantizer == "vq":
+            if vq_state is None and "quantize.codebook" not in state:
+                vq_state = init_vq_state(torch.Generator().manual_seed(seed + 1),
+                                         module.vq_codebook_size, module.vq_dim)
+            if vq_state is not None:
+                state.update({f"quantize.{n}": torch.as_tensor(np.array(vq_state[n]))
+                              for n in STATE_NAMES})
+        self.module.load_state_dict(state)
         self.module.to(self.device).eval()
 
     def _pack(self, videos, token_counts) -> PackedBatch:

@@ -3,11 +3,13 @@
 ``titok_tpu/training/train_step.py``).
 
 One step: the generator's forward, loss (L1 + GAN through the
-discriminator) and gradient with respect to the generator's parameters
-only; the non-finite guard, global-norm clipping and an AdamW update at the
-cosine schedule's lr; then the discriminator's loss on the detached
-reconstruction, its gradient, guard, clipping and AdamW update at
-``lr * disc_lr_ratio``.
+discriminator, plus the commitment and entropy terms of EMA-VQ) and
+gradient with respect to the generator's parameters only; the non-finite
+guard, global-norm clipping and an AdamW update at the cosine schedule's
+lr; for EMA-VQ the codebook's EMA update from the forward's statistics
+(kept as it was after a non-finite generator step); then the
+discriminator's loss on the detached reconstruction, its gradient, guard,
+clipping and AdamW update at ``lr * disc_lr_ratio``.
 
 Optimizers mirror the JAX package's optax chain
 ``clip_by_global_norm(max) -> adamw(sched, b1, b2, eps=1e-8, wd)``:
@@ -22,8 +24,7 @@ Optimizers mirror the JAX package's optax chain
   the moments decay, the count advances and weight decay applies.
 
 Not ported yet (each raises, naming its ROADMAP entry): the adafactor
-optimizer, ``training.main.remat``, ``training.main.steps_per_call`` and
-the EMA-VQ quantizer.
+optimizer, ``training.main.remat`` and ``training.main.steps_per_call``.
 """
 
 from __future__ import annotations
@@ -36,14 +37,17 @@ import torch
 
 from titok_tpu_torch import resolve_device
 from titok_tpu_torch.models.titok import TiTok, init_params
+from titok_tpu_torch.models.vq import init_vq_state, init_vq_state_from_latents
 from titok_tpu_torch.train_utils.lr_schedulers import get_scheduler
 
 
 @dataclasses.dataclass
 class TrainState:
     """What a step reads and updates: the modules (their parameters are
-    the generator's and the discriminator's params), the optimizers with
-    their moments, the step count and the generator of the R1/R2 noise."""
+    the generator's and the discriminator's params; EMA-VQ's codebook and
+    statistics are buffers of ``model.quantize``), the optimizers with
+    their moments, the step count and the random generator of the R1/R2
+    noise and of EMA-VQ's dead-code draws."""
 
     step: int
     model: TiTok
@@ -132,10 +136,17 @@ class TrainStepBuilder:
             weight_decay=float(opt_c.weight_decay))
 
     def init_state(self, seed: int | None = None, gen_params: dict | None = None,
-                   disc_params: dict | None = None, device=None) -> TrainState:
+                   disc_params: dict | None = None, device=None,
+                   batch: dict | None = None) -> TrainState:
         """Load the params (state dicts, e.g. from ``weights.
         from_flax_train_state``; seeded init when None), move both modules
-        to ``device`` (``cuda`` when None) and make fresh optimizers."""
+        to ``device`` (``cuda`` when None) and make fresh optimizers.
+
+        EMA-VQ: the codebook and its statistics come from ``gen_params``'
+        ``quantize.*`` entries when it has them; else the codebook is drawn
+        from the valid latents of ``batch`` (a ``to_device`` dict, the
+        first training batch) under a random one, as the JAX package's
+        ``init_state`` does."""
         self.make_optimizers()
         dev = resolve_device(device)
         if seed is None:
@@ -143,8 +154,25 @@ class TrainStepBuilder:
         ls = self.loss_system
         if gen_params is None:
             gen_params = init_params(self.model, seed)
-        self.model.load_state_dict({k: torch.as_tensor(np.array(v)) for k, v in gen_params.items()})
+        sd = {k: torch.as_tensor(np.array(v)) for k, v in gen_params.items()}
+        vq = self.model.quantizer == "vq"
+        data_init = vq and "quantize.codebook" not in sd
+        if data_init:
+            if batch is None:
+                raise ValueError("EMA-VQ without a codebook in gen_params needs the first "
+                                 "batch for its data-dependent codebook init")
+            q = self.model.quantize
+            sd.update({f"quantize.{k}": v for k, v in init_vq_state(
+                torch.Generator().manual_seed(seed + 2), q.codebook_size,
+                q.codebook_dim).items()})
+        self.model.load_state_dict(sd)
         self.model.to(dev).train()
+        if data_init:
+            with torch.no_grad():
+                _, aux = self.model.encode_packed(batch)
+            gen = torch.Generator(device=dev).manual_seed(seed + 2)
+            self.model.quantize.set_state(init_vq_state_from_latents(
+                gen, aux["z"], batch["token_mask"], self.model.quantize.codebook_size))
         disc_opt = None
         if ls.use_disc:
             if disc_params is None:
@@ -173,6 +201,8 @@ class TrainStepBuilder:
         gen_sched, disc_sched = self.gen_sched, self.disc_sched
 
         def update(module, opt, loss, lr, prefix, metrics, tag):
+            """The optimizer step of ``module``; returns the guard's
+            0-d bool "grads were finite" (None without the guard)."""
             params = list(module.parameters())
             grads = torch.autograd.grad(loss, params, allow_unused=True)
             norm, bad, grads = optimizer_step(opt, params, grads, lr, clip, guard)
@@ -185,16 +215,31 @@ class TrainStepBuilder:
                         name = name[: -len("weight")] + "kernel"
                     metrics[f"grad_2.0_norm/{prefix}{name.replace('.', '/')}"] = \
                         torch.sqrt(torch.sum(g.to(torch.float32) ** 2))
+            return None if bad is None else bad == 0
 
         def train_step(state: TrainState, batch, disc, noise=None):
             metrics = {}
             # -- generator update (ref train.py:64-84) ----------------------
             recon, aux = state.model(batch)
             loss, loss_dict = ls.generator_loss(recon, batch, disc)
+            if "commit_loss" in aux:  # EMA-VQ commitment term
+                loss = loss + aux["commit_loss"]
+                loss_dict["gen/commit_loss"] = aux["commit_loss"]
+                loss_dict["gen/vq_perplexity"] = aux["perplexity"]
+            if "entropy_loss" in aux:  # EMA-VQ entropy regulariser
+                loss = loss + aux["entropy_loss"]
+                loss_dict["gen/vq_entropy_loss"] = aux["entropy_loss"]
             metrics.update({k: v.detach() for k, v in loss_dict.items()})
-            update(state.model, state.gen_opt, loss, gen_sched(state.step), "model/",
-                   metrics, "generator")
+            gen_ok = update(state.model, state.gen_opt, loss, gen_sched(state.step), "model/",
+                            metrics, "generator")
             metrics["g_lr"] = gen_sched(state.step)
+
+            # -- EMA codebook update (EMA-VQ only), before the disc update --
+            if state.model.quantizer == "vq":
+                vq = state.model.quantize
+                vq.ema_update(aux["vq_counts"], aux["vq_sums"], generator=state.noise_gen,
+                              batch_z=aux["z"], batch_w=batch["token_mask"], ok=gen_ok)
+                metrics["vq/dead_code_fraction"] = vq.dead_code_fraction()
 
             # -- discriminator update (ref train.py:88-108) -----------------
             if ls.use_disc:

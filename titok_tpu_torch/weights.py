@@ -8,8 +8,11 @@ attn_0.to_qkv`` …), so the mapping is mechanical:
   they are.
 
 The same holds for the discriminator, a ``PackedEncoder`` under the same
-names. Takes a nested dict whose leaves convert with ``np.asarray`` (numpy
-arrays, or the arrays of a JAX tree); imports no JAX.
+names. The EMA-VQ state (the JAX ``VQState``: codebook, ema_counts,
+ema_sums, ages) maps onto the buffers of ``TiTok.quantize`` under the same
+field names. Takes a nested dict (or a ``VQState``) whose leaves convert
+with ``np.asarray`` (numpy arrays, or the arrays of a JAX tree); imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from __future__ import annotations
 from typing import Mapping
 
 import numpy as np
+
+from titok_tpu_torch.models.vq import STATE_NAMES
 
 
 def from_flax_params(tree: Mapping) -> dict[str, np.ndarray]:
@@ -41,8 +46,23 @@ def from_flax_params(tree: Mapping) -> dict[str, np.ndarray]:
     return out
 
 
+def from_vq_state(vq_state, prefix: str = "quantize.") -> dict[str, np.ndarray]:
+    """A JAX ``VQState`` (numpy leaves) as the port's EMA-VQ buffers, f32,
+    named ``prefix + field`` (``quantize.codebook`` ... in the TiTok state
+    dict; ``prefix=""`` for ``TiTokModel(vq_state=...)`` or
+    ``EMAVQ.set_state``)."""
+    return {prefix + name: np.asarray(getattr(vq_state, name), np.float32)
+            for name in STATE_NAMES}
+
+
 def from_flax_train_state(state) -> tuple[dict[str, np.ndarray], dict[str, np.ndarray]]:
     """``(generator, discriminator)`` state dicts from a JAX ``TrainState``
     (its ``gen_params`` and ``disc_params``), ready for
-    ``TrainStepBuilder.init_state(gen_params=..., disc_params=...)``."""
-    return from_flax_params(state.gen_params), from_flax_params(state.disc_params)
+    ``TrainStepBuilder.init_state(gen_params=..., disc_params=...)``. When
+    the state has a ``VQState`` the generator's dict also holds its
+    ``quantize.*`` buffers."""
+    gen = from_flax_params(state.gen_params)
+    vq_state = getattr(state, "vq_state", ())
+    if hasattr(vq_state, "codebook"):
+        gen.update(from_vq_state(vq_state))
+    return gen, from_flax_params(state.disc_params)
