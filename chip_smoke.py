@@ -47,12 +47,35 @@ toolkit. Phases, in order; any failure exits non-zero:
    launch counts per step (the VQ kernel once, each attention kernel 48
    times), finite metrics, a moving codebook, perplexity, ms/step and a
    profile of one step;
-9. one JSON line listing every kernel with its numbers; ``launches`` is
+9. the three RoPE-fused attention kernels (``attn_impl: flash_rope``)
+   against their plain versions, bf16 and f32: the large serving layout
+   (heads 16/4) with the packer's tables (P 30) and with random angles at
+   P 16, the bench shape, a ragged packing, the stacked discriminator
+   buffer of a large train batch (33,008 rows) with its concatenated
+   tables, and separate k ids and k tables; the fused forward against
+   ``apply_rotary_emb`` + the unfused kernel bit for bit; planted faults
+   (k left unrotated, the forward rotation applied to dq, all 32 pairs
+   rotated, q's tables used for k) that the gate must reject; the four
+   times at the large serving layout and the bench shape;
+10. the large serving path (``configs/large.yaml``, ``flash_rope``, width
+   1024, 24+24 layers, heads 16/4, FSQ [8, 8, 8, 6, 5]), seeded weights
+   drawn on the card: encode, forward and decode_indices of the base_vq
+   request, with launch counts (the rope forward only), decode against
+   forward, the f32 kernel path against the plain path, request times;
+11. the large training path at full width and depth (remat on, as the
+   config has it; ``perceptual_weight=0``, ``train_seq_len`` 8192,
+   bf16-mixed): 2 warm-up and 3 timed steps with launch counts per step
+   derived from the layer counts (remat replays each attention forward in
+   the backward), finite metrics, moved params, peak device memory,
+   ms/step and a profile of one step; then the same model in f32 at
+   ``train_seq_len`` 2048 with remat on and off from the same weights,
+   batches and noise: losses and grads must agree;
+12. one JSON line listing every kernel with its numbers; ``launches`` is
    the kernel's count on the training path of its dtype (the VQ kernel's:
-   the base_vq training path), and ``launches_by_path`` its count on each
-   path (serving and training, tiny bf16/f32 and base_vq), each read from
-   counters set to 0 just before that path;
-10. last line: ``{"ok": true, "device": {...}}``.
+   the base_vq training path; the rope kernels': the large training path,
+   f32 its remat run), and ``launches_by_path`` its count on each path,
+   each read from counters set to 0 just before that path;
+13. last line: ``{"ok": true, "device": {...}}``.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -74,6 +97,11 @@ KERNEL_REPLACES = "titok_tpu/ops/flash_attention_mh.py:58"  # _fwd_kernel, via _
 BWD_SRC = "titok_tpu_torch/csrc/flash_segment_attn_bwd.cu"
 BWD_REPLACES = {"dq": "titok_tpu/ops/flash_attention_mh.py:404",   # _bwd_dq_kernel
                 "dkv": "titok_tpu/ops/flash_attention_mh.py:450"}  # _bwd_dkv_kernel
+# the rope instantiations of the same sources (attn_impl: flash_rope)
+ROPE_REPLACES = {"fwd": "titok_tpu/ops/flash_attention_mh.py:165",   # _fwd_kernel_rope
+                 "dq": "titok_tpu/ops/flash_attention_mh.py:229",    # _bwd_dq_kernel_rope
+                 "dkv": "titok_tpu/ops/flash_attention_mh.py:289"}   # _bwd_dkv_kernel_rope
+LARGE = os.path.join(REPO, "configs", "large.yaml")
 VQ_SRC = "titok_tpu_torch/csrc/vq_nearest.cu"
 VQ_REPLACES = "titok_tpu/ops/vq_distance.py:25"  # _vq_kernel, via vq_nearest_pallas
 # VQ kernel vs plain version (vq_distance.gate): every row's code within
@@ -85,7 +113,7 @@ VQ_EPS = 1e-6
 # attention kernel launches per train step, per kernel: one per attention
 # layer of the generator's encoder and decoder, of the stacked disc pass in
 # the generator loss and of the one in the discriminator step
-TRAIN_LAUNCHES = {"tiny": 4 + 4 + 4 + 4, "base": 12 + 12 + 12 + 12}
+TRAIN_LAUNCHES = {"tiny": 4 + 4 + 4 + 4, "base": 12 + 12 + 12 + 12, "large": 24 + 24 + 24 + 24}
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 FMA, HBM
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -828,11 +856,16 @@ def train_config(**over):
                        [f"{k}={v}" for k, v in over.items()])
 
 
-def _trainer(cfg, f32_disc=False, batch=None):
+def _trainer(cfg, f32_disc=False, batch=None, card_seed=None):
     """Builder, state and step for ``cfg``. ``f32_disc``: the discriminator
     rebuilt to compute in f32 (the package builds it in bf16, as the JAX
     package does), so that an f32 run is f32 throughout. ``batch``: the
-    first batch on the card, from which EMA-VQ draws its codebook."""
+    first batch on the card, from which EMA-VQ draws its codebook.
+    ``card_seed``: build the modules on the card and draw their weights
+    there (:func:`card_params`, the reference init's std) instead of the
+    package's numpy init, which takes tens of seconds at large width."""
+    import contextlib
+
     import torch
 
     from titok_tpu_torch.losses.loss_module import LossSystem
@@ -840,15 +873,48 @@ def _trainer(cfg, f32_disc=False, batch=None):
     from titok_tpu_torch.models.titok import make_titok
     from titok_tpu_torch.training.train_step import TrainStepBuilder
 
-    ls = LossSystem(cfg)
-    if f32_disc:
-        ls.disc_model = PackedEncoder(
-            model_size=cfg.discriminator.model.model_size, patch_size=ls.patch_size,
-            in_channels=3, out_channels=1, dtype=torch.float32,
-            attn_impl=str(cfg.training.main.get("attn_impl", "auto")))
-    builder = TrainStepBuilder(make_titok(cfg), ls, cfg)
-    state = builder.init_state(device="cuda", batch=batch)
+    with torch.device("cuda") if card_seed is not None else contextlib.nullcontext():
+        ls = LossSystem(cfg)
+        if f32_disc:
+            ls.disc_model = PackedEncoder(
+                model_size=cfg.discriminator.model.model_size, patch_size=ls.patch_size,
+                in_channels=3, out_channels=1, dtype=torch.float32,
+                attn_impl=str(cfg.training.main.get("attn_impl", "auto")),
+                remat=bool(cfg.training.main.get("remat", False)))
+        builder = TrainStepBuilder(make_titok(cfg), ls, cfg)
+    params = {}
+    if card_seed is not None:
+        params = {"gen_params": card_params(builder.model, card_seed),
+                  "disc_params": card_params(ls.disc_model, card_seed + 1)}
+    state = builder.init_state(device="cuda", batch=batch, **params)
     return builder, state, builder.make_train_step()
+
+
+def card_params(module, seed: int, dense_std: float = 0.02) -> dict:
+    """Seeded weights for every parameter of ``module``, drawn on the card
+    from an explicit generator, as the reference inits them (dense kernels
+    N(0, ``dense_std``), biases 0, norms 1, mask token N(0, width^-1/2))."""
+    import torch
+
+    from titok_tpu_torch.models.blocks import _PackedViT
+    from titok_tpu_torch.models.transformer import Dense
+    from titok_tpu_torch.ops.rmsnorm import RMSNorm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, mod in module.named_modules():
+        pre = f"{name}." if name else ""
+        if isinstance(mod, Dense):
+            out[pre + "weight"] = torch.randn(mod.weight.shape, generator=g,
+                                              device="cuda") * dense_std
+            if mod.bias is not None:
+                out[pre + "bias"] = torch.zeros(mod.bias.shape, device="cuda")
+        elif isinstance(mod, RMSNorm):
+            out[pre + "weight"] = torch.ones(mod.weight.shape, device="cuda")
+        elif isinstance(mod, _PackedViT):
+            out[pre + "mask_token"] = torch.randn((1, 1), generator=g,
+                                                  device="cuda") * mod.width ** -0.5
+    return out
 
 
 def _host_batches(cfg, n, seed=0):
@@ -899,8 +965,7 @@ def phase_training(card: str) -> dict:
         check(bool(((idx[tok] >= 0) & (idx[tok] < cb)).all()), f"step {i}: index out of range")
     paths = {"train_bf16": read_counts()}
     n = TRAIN_LAUNCHES["tiny"]
-    want = {"bf16": n, "bwd_dq_bf16": n, "bwd_dkv_bf16": n,
-            "f32": 0, "bwd_dq_f32": 0, "bwd_dkv_f32": 0}
+    want = {**{k: 0 for k in launches}, "bf16": n, "bwd_dq_bf16": n, "bwd_dkv_bf16": n}
     for i, got in enumerate(per_step):
         check(got == want, f"step {i}: launches {got}, want {want}")
     print(f"training launches per step (every one of 6): {per_step[0]} -- per attention layer "
@@ -1118,8 +1183,8 @@ def phase_training_vq(card: str) -> dict:
           f"train_seq_len {seq_len}, {cfg.training.main.precision}, samples per batch "
           f"{[int(b.sample_valid.sum()) for b, _ in batches]}, host packing {pack_ms:.1f} ms/batch")
     n = TRAIN_LAUNCHES["base"]
-    want = {"bf16": n, "bwd_dq_bf16": n, "bwd_dkv_bf16": n, "f32": 0, "bwd_dq_f32": 0,
-            "bwd_dkv_f32": 0, "vq_f32": 1}
+    want = {**{k: 0 for k in read_counts()}, "bf16": n, "bwd_dq_bf16": n, "bwd_dkv_bf16": n,
+            "vq_f32": 1}
     reset_counts()  # the main path: the 5 steps below, read right after them
     per_step, metrics_all, times = [], [], []
     for i, (b, d) in enumerate(batches):
@@ -1179,6 +1244,585 @@ def _train_breakdown(step, state, batch_disc) -> None:
     print_breakdown(prof, f"one train step (profiled, wall {wall_ms:.3f} ms):", wall_ms, 12)
 
 
+# ---------------------------------------------------------------------------
+# RoPE fused into the attention kernels (attn_impl: flash_rope) and the
+# large tokenizer (configs/large.yaml) that runs on them
+# ---------------------------------------------------------------------------
+
+
+def _large_serving_request():
+    """The large serving request: base_vq request (a)'s clips (large has
+    base_vq's patch size (4, 16, 16), so the same layout)."""
+    return _base_vq_clips(np.random.default_rng(0))
+
+
+def _large_serving_layout():
+    """ids and the packer's RoPE tables (P = 30) of the large serving
+    request's first group (``BASE_SEG``)."""
+    from titok_tpu_torch.data.packing import GridOnly, max_samples_for, pack_samples
+
+    clips, tcs = _large_serving_request()
+    grids = [c.shape[1:] for c in clips[:5]]
+    batch = pack_samples([GridOnly(g, 3) for g in grids], tcs[:5], seq_len=4096,
+                         max_samples=max_samples_for(4096, (8, 256, 256), (4, 16, 16)),
+                         patch_size=[4, 16, 16], head_dim=64)
+    check(np.array_equal(batch.segment_ids, BASE_SEG), "the large serving layout moved")
+    return batch.segment_ids, batch.rope_cos, batch.rope_sin
+
+
+def _stacked_large_disc(cfg):
+    """The discriminator's stacked buffer of the large training path's
+    first batch: ids of 4 copies and the per-copy tables concatenated in
+    the same order, as ``LossSystem.disc_logits_stacked`` lays them out."""
+    import torch
+
+    from titok_tpu_torch.data.packing import build_disc_batch
+    from titok_tpu_torch.losses.loss_module import DISC_TOKENS, stacked_segment_ids
+    from titok_tpu_torch.training.trainer import synthetic_batches
+
+    batch = next(iter(synthetic_batches(cfg, seed=0)))
+    disc = build_disc_batch(batch, DISC_TOKENS)
+    B1 = disc.sample_valid.shape[0] + 1
+    seg = stacked_segment_ids(torch.from_numpy(disc.segment_ids), 4, B1).numpy()
+    return seg, np.tile(disc.rope_cos, (4, 1)), np.tile(disc.rope_sin, (4, 1))
+
+
+def _rand_tables(S, P, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ang = torch.rand(S, P, generator=g, device="cuda") * (2 * np.pi)
+    return ang.cos(), ang.sin()
+
+
+def rope_bound_ms(seg_np, kseg_np, hq, hkv, d, dtype, kind, P, own_k_tables):
+    """Least time for one rope kernel on these inputs: the products
+    (forward 2, dq 3, dk/dv 4 of S x Sk x D, live segments only) at the
+    type's peak plus the rotations (6 fp32 FLOP a pair: q and k once each,
+    and the inverse of dq or dk) at the fp32 peak; or the bytes (q, k, v,
+    ids and the tables read once, the outputs written once; the backward
+    also reads dO, lse and delta) over HBM; the larger one."""
+    S, Sk = len(seg_np), len(kseg_np)
+    e = 2 if dtype == "bf16" else 4
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+    flops = 2.0 * products * d * hq * live_pairs(seg_np, kseg_np)
+    rot_flops = 6.0 * P * (S * hq + Sk * hkv + {"fwd": 0, "dq": S * hq, "dkv": Sk * hkv}[kind])
+    qb, kb = S * hq * d * e, Sk * hkv * d * e
+    nbytes = qb + 2 * kb + (S + Sk) * 4 + S * P * 8 + (Sk * P * 8 if own_k_tables else 0)
+    if kind == "fwd":
+        nbytes += qb + S * hq * 4
+    else:
+        nbytes += qb + 2 * S * hq * 4 + (qb if kind == "dq" else 2 * kb)
+    t_ops = (flops / PEAK_FLOPS[dtype] + rot_flops / PEAK_FLOPS["f32"]) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), \
+        flops + rot_flops, nbytes
+
+
+def rope_gate(got, want, dname):
+    """A rope run ``(out, lse, (dq, dk, dv))`` against the plain versions
+    ``(out, lse, grads)``: the forward under TOL, the grads under BWD_TOL
+    (the limits of the unfused kernels). Returns (ok, line)."""
+    import torch
+
+    out, lse, grads = got
+    r_out, r_lse, r_grads = want
+    atol, rtol, lse_atol = TOL[dname]
+    o32, r32 = out.float(), r_out.float()
+    err_out = (o32 - r32).abs().max().item()
+    err_lse = (lse - r_lse).abs().max().item()
+    ok_f = bool(((o32 - r32).abs() <= atol + rtol * r32.abs()).all()) and \
+        err_lse <= lse_atol and bool(torch.isfinite(o32).all())
+    ok_b, rows = bwd_gate(grads, r_grads, dname)
+    return ok_f and ok_b, (f"out max|d| {err_out:.3e}, lse {err_lse:.3e} "
+                           f"{'ok' if ok_f else 'FAIL'}; {_gate_line(rows)} "
+                           f"{'ok' if ok_b else 'FAIL'}")
+
+
+def phase_rope_kernels(card: str, large_train_cfg) -> dict:
+    """The three rope kernels against their plain versions, bf16 and f32,
+    at the large shapes and beside them; the fused forward against the
+    unfused path bit for bit; planted faults; times."""
+    import torch
+    import torch.nn.functional as F
+
+    from titok_tpu_torch.models.rope import apply_rotary_emb
+    from titok_tpu_torch.ops import flash_attention_mh as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    D = 64
+    serve_seg, serve_cos, serve_sin = _large_serving_layout()
+    disc_seg, disc_cos, disc_sin = _stacked_large_disc(large_train_cfg)
+    print(f"stacked large disc layout: {disc_seg.shape[0]} rows (4 copies), ids non-decreasing "
+          f"{bool((np.diff(disc_seg) >= 0).all())}, tables [{disc_cos.shape[0]}, "
+          f"{disc_cos.shape[1]}]")
+    check(bool((np.diff(disc_seg) >= 0).all()), "stacked disc ids must be non-decreasing")
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    bench_seg = segments([576] * 10, 6144)
+    ragged = segments([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299)
+    sep_q, sep_k = segments([500, 1, 450], 1100), segments([300, 250, 100], 700)
+    # (label, q ids, k ids or None, hq, hkv, tables () -> (cos, sin, k_cos, k_sin))
+    cases = [
+        ("large serving layout 16/4, packer tables P30", serve_seg, None, 16, 4,
+         lambda: (on(serve_cos), on(serve_sin), None, None)),
+        ("large serving layout 16/4, random angles P16", serve_seg, None, 16, 4,
+         lambda: _rand_tables(4096, 16, 1) + (None, None)),
+        ("bench 10x576 4/2, random angles P30", bench_seg, None, 4, 2,
+         lambda: _rand_tables(6144, 30, 2) + (None, None)),
+        ("ragged 1..1892 4/2, random angles P30", ragged, None, 4, 2,
+         lambda: _rand_tables(3299, 30, 3) + (None, None)),
+        (f"stacked large disc 4x{disc_seg.shape[0] // 4} 16/4, concatenated packer tables P30",
+         disc_seg, None, 16, 4, lambda: (on(disc_cos), on(disc_sin), None, None)),
+        ("separate k ids and k tables 16/4, S 1100 vs Sk 700, P30", sep_q, sep_k, 16, 4,
+         lambda: _rand_tables(1100, 30, 4) + _rand_tables(700, 30, 5)),
+    ]
+    res = {f"{k}_{d}": {"max_abs_err": 0.0} for k in ("fwd", "dq", "dkv") for d in ("bf16", "f32")}
+
+    def inputs(S, Sk, hq, hkv, dtype):
+        q = torch.randn(S, hq, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(Sk, hkv, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(Sk, hkv, D, generator=gen, device=dev).to(dtype)
+        do = torch.randn(S, hq, D, generator=gen, device=dev).to(dtype)
+        return q, k, v, do
+
+    def kernels(q, k, v, seg, cos, sin, do, kseg=None, kc=None, ks=None):
+        out, lse = fa._rope_fwd(q, k, v, seg, cos, sin, None, kseg, kc, ks)
+        return out, lse, fa._rope_bwd(q, k, v, seg, cos, sin, out, lse, do, None, kseg, kc, ks)
+
+    def plain(q, k, v, seg, cos, sin, do, out, lse, kseg=None, kc=None, ks=None):
+        r_out, r_lse = fa.flash_segment_attention_mh_rope_reference(
+            q, k, v, seg, cos, sin, None, kseg, kc, ks)
+        grads = fa.flash_segment_attention_mh_rope_bwd_reference(
+            q, k, v, seg, cos, sin, out, lse, do, None, kseg, kc, ks)
+        return r_out, r_lse, grads
+
+    for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for label, seg_np, kseg_np, hq, hkv, tables in cases:
+            S = seg_np.shape[0]
+            Sk = S if kseg_np is None else kseg_np.shape[0]
+            gen.manual_seed(S * 100 + hq + 11)
+            q, k, v, do = inputs(S, Sk, hq, hkv, dtype)
+            seg = on(seg_np)
+            kseg = None if kseg_np is None else on(kseg_np)
+            cos, sin, kc, ks = tables()
+            got = kernels(q, k, v, seg, cos, sin, do, kseg, kc, ks)
+            torch.cuda.synchronize()
+            want = plain(q, k, v, seg, cos, sin, do, got[0], got[1], kseg, kc, ks)
+            ok, line = rope_gate(got, want, dname)
+            # the stricter check: apply_rotary_emb + the unfused forward kernel
+            kr = apply_rotary_emb(k, cos if kc is None else kc, sin if ks is None else ks)
+            u_out, u_lse = fa._fwd(apply_rotary_emb(q, cos, sin), kr, v, seg,
+                                   k_segment_ids=kseg)
+            bit = torch.equal(got[0], u_out) and torch.equal(got[1], u_lse)
+            print(f"rope kernels {dname} {label} S={S} Sk={Sk}: {line}; fused forward == "
+                  f"apply_rotary_emb + unfused kernel bit for bit: {bit} "
+                  f"{'ok' if ok and bit else 'FAIL'}")
+            check(ok, f"rope kernels disagree with their plain versions: {dname} {label}")
+            check(bit, f"the fused forward is not the unfused path bit for bit: {dname} {label}")
+            errs = [(got[0].float() - want[0].float()).abs().max().item()] + [
+                (a.float() - b.float()).abs().max().item() for a, b in zip(got[2], want[2])]
+            for key, e in (("fwd", errs[0]), ("dq", errs[1]), ("dkv", max(errs[2:]))):
+                res[f"{key}_{dname}"]["max_abs_err"] = max(res[f"{key}_{dname}"]["max_abs_err"], e)
+            del q, k, v, do, got, want, u_out, u_lse, kr
+            torch.cuda.empty_cache()
+
+        # planted faults: each made by the kernel itself on altered inputs, or
+        # on its outputs, so it looks as a faulty kernel's output would
+        gen.manual_seed(17)
+        q, k, v, do = inputs(4096, 4096, 16, 4, dtype)
+        seg, cos, sin = on(serve_seg), on(serve_cos), on(serve_sin)
+        good = kernels(q, k, v, seg, cos, sin, do)
+        want = plain(q, k, v, seg, cos, sin, do, good[0], good[1])
+        P = cos.shape[1]
+        faults = {"k left unrotated": kernels(q, k, v, seg, cos, sin, do, None,
+                                              torch.ones_like(cos), torch.zeros_like(sin))}
+        # R R dq_raw = R dq_rot: the forward rotation where the inverse belongs
+        twice = apply_rotary_emb(apply_rotary_emb(good[2][0].float(), cos, sin), cos, sin)
+        faults["forward rotation applied to dq instead of the inverse"] = (
+            good[0], good[1], (twice.to(dtype), good[2][1], good[2][2]))
+        # a kernel that loops over all 32 pairs reads row r's tables at
+        # r * P + p for p < 32: the next row's first pairs
+        rows = torch.arange(4096, device=dev)[:, None] * P + torch.arange(32, device=dev)
+        rows = rows.clamp(max=cos.numel() - 1)
+        ec, es = cos.flatten()[rows].contiguous(), sin.flatten()[rows].contiguous()
+        faults["all 32 pairs rotated instead of P"] = kernels(q, k, v, seg, ec, es, do)
+        for name, got in faults.items():
+            ok, line = rope_gate(got, want, dname)
+            print(f"  planted fault {dname}, {name}: {'PASSED' if ok else 'REJECTED'} ({line})")
+            check(not ok, f"the {dname} rope gate passes a planted fault: {name}")
+        gen.manual_seed(19)
+        q, k, v, do = inputs(1100, 700, 16, 4, dtype)
+        seg, kseg = on(sep_q), on(sep_k)
+        cos, sin = _rand_tables(1100, 30, 4)
+        kc, ks = _rand_tables(700, 30, 5)
+        good = kernels(q, k, v, seg, cos, sin, do, kseg, kc, ks)
+        want = plain(q, k, v, seg, cos, sin, do, good[0], good[1], kseg, kc, ks)
+        got = kernels(q, k, v, seg, cos, sin, do, kseg, cos[:700].contiguous(),
+                      sin[:700].contiguous())
+        ok, line = rope_gate(got, want, dname)
+        print(f"  planted fault {dname}, q's tables used for k (separate k tables given): "
+              f"{'PASSED' if ok else 'REJECTED'} ({line})")
+        check(not ok, f"the {dname} rope gate passes a planted fault: q's tables for k")
+        del q, k, v, do, good, want, faults, got
+
+        # times at the large serving layout (the numbers of the JSON line) and
+        # at the bench shape with P 30 tables: each kernel at its C entry on
+        # fixed buffers, the plain versions, the library chain, the bound
+        fwd_fn, dq_fn, dkv_fn = fa._rope_kernels()
+        for label, seg_np, hq, hkv, key in (
+                ("large serving layout 16/4", serve_seg, 16, 4, None),
+                ("bench 10x576 4/2", bench_seg, 4, 2, "at_bench_4_2")):
+            S = seg_np.shape[0]
+            q, k, v, do = inputs(S, S, hq, hkv, dtype)
+            seg = on(seg_np)
+            cos, sin = (on(serve_cos), on(serve_sin)) if key is None else _rand_tables(S, 30, 6)
+            P = cos.shape[1]
+            out, lse = fa._rope_fwd(q, k, v, seg, cos, sin)
+            delta = fa._delta(out, do)
+            o2, l2 = torch.empty_like(q), torch.empty_like(lse)
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            stream = torch.cuda.current_stream().cuda_stream
+            head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), seg.data_ptr(),
+                    cos.data_ptr(), sin.data_ptr(), cos.data_ptr(), sin.data_ptr(), P)
+            tail = (S, S, hq, hkv, float(D ** -0.5), int(dname == "bf16"), stream)
+            bwd_in = (do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+            ms = {"fwd": cuda_ms(lambda: fwd_fn(*head, o2.data_ptr(), l2.data_ptr(), *tail),
+                                 reps=100),
+                  "dq": cuda_ms(lambda: dq_fn(*head, *bwd_in, dq.data_ptr(), *tail), reps=100),
+                  "dkv": cuda_ms(lambda: dkv_fn(*head, *bwd_in, dk.data_ptr(), dv.data_ptr(),
+                                                *tail), reps=100)}
+            plain_fwd = cuda_ms(lambda: fa.flash_segment_attention_mh_rope_reference(
+                q, k, v, seg, cos, sin), reps=5, warmup=1)
+            plain_bwd = cuda_ms(lambda: fa.flash_segment_attention_mh_rope_bwd_reference(
+                q, k, v, seg, cos, sin, out, lse, do), reps=5, warmup=1)
+            # yardstick only, never called by the port: apply_rotary_emb and one
+            # SDPA call with the block-diagonal bool mask; and that chain's backward
+            rs = fa._remap_pad(seg)
+            mask = (rs[:, None] == rs[None, :])[None, None]
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+            def chain():
+                qr = apply_rotary_emb(leaves[0], cos, sin).permute(1, 0, 2)[None]
+                kr = apply_rotary_emb(leaves[1], cos, sin).repeat_interleave(hq // hkv, dim=1)
+                vr = leaves[2].repeat_interleave(hq // hkv, dim=1)
+                return F.scaled_dot_product_attention(
+                    qr, kr.permute(1, 0, 2)[None], vr.permute(1, 0, 2)[None], attn_mask=mask)
+
+            with torch.no_grad():
+                lib_fwd = cuda_ms(chain, reps=20)
+            ob = chain()
+            dob = do.permute(1, 0, 2)[None]
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(ob, leaves, dob, retain_graph=True),
+                              reps=20)
+            # the path the model took unfused: apply_rotary_emb, then the
+            # row 1-2 kernels through their autograd.Function; forward alone,
+            # and the backward of that chain
+            def unfused():
+                return fa.flash_segment_attention_mh(
+                    apply_rotary_emb(leaves[0], cos, sin), apply_rotary_emb(leaves[1], cos, sin),
+                    leaves[2], seg)
+
+            with torch.no_grad():
+                unf_fwd = cuda_ms(unfused, reps=20)
+            ou = unfused()
+            unf_bwd = cuda_ms(lambda: torch.autograd.grad(ou, leaves, do, retain_graph=True),
+                              reps=20)
+            with torch.no_grad():
+                fused_fwd = cuda_ms(lambda: fa.flash_segment_attention_mh(
+                    q, k, v, seg, rope_cos=cos, rope_sin=sin), reps=20)
+            of = fa.flash_segment_attention_mh(*leaves, seg, rope_cos=cos, rope_sin=sin)
+            fused_bwd = cuda_ms(lambda: torch.autograd.grad(of, leaves, do, retain_graph=True),
+                                reps=20)
+            parts = []
+            for kind in ("fwd", "dq", "dkv"):
+                bound, by, flops, nbytes = rope_bound_ms(seg_np, seg_np, hq, hkv, D, dname, kind,
+                                                         P, False)
+                timing = dict(ms=ms[kind], plain_ms=plain_fwd if kind == "fwd" else plain_bwd,
+                              library_ms=lib_fwd if kind == "fwd" else lib_bwd,
+                              bound_ms=bound, bound_by=by)
+                parts.append(f"{kind} {ms[kind]:.4f} ms (bound {bound * 1e3:.2f} us, {by}; "
+                             f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; share "
+                             f"{bound / ms[kind]:.4f})")
+                if key is None:
+                    res[f"{kind}_{dname}"].update(timing)
+                else:
+                    res[f"{kind}_{dname}"][key] = timing
+            print(f"timing rope {dname} {label} S={S} P={P} [{card}]: " + ", ".join(parts) +
+                  f"; plain forward {plain_fwd:.4f} ms, plain backward {plain_bwd:.4f} ms; library "
+                  f"(apply_rotary_emb + SDPA, bool mask) forward {lib_fwd:.4f} ms, backward "
+                  f"{lib_bwd:.4f} ms; through the wrappers, fused forward {fused_fwd:.4f} ms, "
+                  f"backward {fused_bwd:.4f} ms, against the unfused path (apply_rotary_emb + the "
+                  f"unfused kernels) forward {unf_fwd:.4f} ms, backward {unf_bwd:.4f} ms")
+            for kind in ("fwd", "dq", "dkv"):
+                entry = res[f"{kind}_{dname}"] if key is None else res[f"{kind}_{dname}"][key]
+                entry["wrapper_vs_unfused_ms"] = {
+                    "fused": fused_fwd if kind == "fwd" else fused_bwd,
+                    "unfused": unf_fwd if kind == "fwd" else unf_bwd}
+            del q, k, v, do, out, lse, delta, o2, l2, dq, dk, dv, mask, leaves, ob, ou, of
+        torch.cuda.empty_cache()
+    return res
+
+
+def large_config(*over):
+    """configs/large.yaml with RoPE fused into the attention kernels."""
+    from titok_tpu_torch.config import load_config
+
+    return load_config(LARGE, ["training.main.attn_impl=flash_rope", *over])
+
+
+def phase_serving_large(card: str) -> dict:
+    """configs/large.yaml (flash_rope) served at full width through the rope
+    forward kernel."""
+    import torch
+
+    from titok_tpu_torch.models.titok import TiTokModel, make_titok
+
+    cfg = large_config()
+    seq_len = int(cfg.training.sampling.eval_seq_len)
+    min_grid = cfg.training.sampling.min_grid
+    with torch.device("cuda"):
+        module = make_titok(cfg)
+    # seeded weights drawn on the card, dense kernels at std 0.08 as the
+    # base_vq phase (at 0.02 a random model's latent tokens sit near one code)
+    params = card_params(module, seed=0, dense_std=0.08)
+    n_params = sum(p.numel() for p in module.parameters())
+
+    def build(**over):
+        c = large_config(*[f"{k}={v}" for k, v in over.items()])
+        with torch.device("cuda"):
+            m = make_titok(c)
+        return TiTokModel(m, params=params, seq_len=seq_len, min_grid=min_grid, device="cuda")
+
+    clips, tcs = _large_serving_request()
+    grids = [c.shape[1:] for c in clips]
+    model = TiTokModel(module, params=params, seq_len=seq_len, min_grid=min_grid, device="cuda")
+    n_groups = len(model._groups(clips, tcs))
+    cb = model.module.codebook_size
+    layers = model.module.encoder.model_layers.num_layer
+
+    def serve(m):
+        counts = []
+        before = read_counts()
+        idx = m.encode(clips, tcs)
+        counts.append({k: v - before[k] for k, v in read_counts().items()})
+        before = read_counts()
+        rec, aux = m.forward(clips, tcs)
+        counts.append({k: v - before[k] for k, v in read_counts().items()})
+        before = read_counts()
+        dec = m.decode_indices(idx, grids)
+        counts.append({k: v - before[k] for k, v in read_counts().items()})
+        return idx, rec, aux["indices"], dec, counts
+
+    reset_counts()  # the main path: bf16 (bf16-mixed), through the rope kernel
+    idx, rec, fidx, dec, counts = serve(model)
+    torch.cuda.synchronize()
+    paths = {"serving_large": read_counts()}
+    for name, got, per in zip(("encode", "forward", "decode_indices"), counts,
+                              (layers, 2 * layers, layers)):
+        want = {**{k: 0 for k in got}, "rope_bf16": per * n_groups}
+        check(got == want, f"large {name}: launches {got}, want {want} ({n_groups} groups)")
+    for i, tc in enumerate(tcs):
+        check(idx[i].shape == (tc,), f"encode clip {i}: {idx[i].shape}")
+        check(np.array_equal(idx[i], fidx[i]), f"encode and forward disagree on clip {i}")
+    flat = np.concatenate(idx)
+    check(bool(((flat >= 0) & (flat < cb)).all()), f"index out of [0, {cb})")
+    for c, r, d in zip(clips, rec, dec):
+        check(r.shape == c.shape and np.isfinite(r).all(), "forward recon")
+        check(d.shape == c.shape and np.isfinite(d).all(), "decode_indices recon")
+    dec_diff = max(float(np.abs(r - d).max()) for r, d in zip(rec, dec))
+    print(f"serving large (flash_rope) bf16, width {model.module.encoder.width}, "
+          f"{layers}+{layers} layers, {n_params / 1e6:.1f} M params, {len(clips)} clips in "
+          f"{n_groups} groups: rope forward launches per call encode/forward/decode "
+          f"{[c['rope_bf16'] for c in counts]} (unfused forward: "
+          f"{[c['bf16'] for c in counts]}); {len(np.unique(flat))} distinct of {flat.size} indices "
+          f"in [0, {cb}); decode_indices vs forward recon max|diff| {dec_diff:.3e}")
+    check(dec_diff == 0.0, "decode_indices does not reproduce forward's reconstruction")
+    check(len(np.unique(flat)) > 1, "every token landed on one code: nothing to compare")
+
+    # f32: the rope kernel path against the plain path (dense attention on
+    # rotated q, k), same weights
+    k32 = build(**{"training.main.precision": "32"})
+    reset_counts()
+    i32, r32, _, _, _ = serve(k32)
+    paths["serving_large_f32"] = read_counts()
+    check(paths["serving_large_f32"]["rope_f32"] > 0, "the f32 path launched no rope kernel")
+    del k32
+    torch.cuda.empty_cache()
+    p32 = build(**{"training.main.precision": "32", "training.main.attn_impl": "reference"})
+    reset_counts()
+    ip, rp, _, _, _ = serve(p32)
+    check(all(v == 0 for v in read_counts().values()), "the plain path launched a kernel")
+    del p32
+    torch.cuda.empty_cache()
+    same = float((np.concatenate(i32) == np.concatenate(ip)).mean())
+    rdiff = max(float(np.abs(a - b).max()) for a, b in zip(r32, rp))
+    print(f"large f32 rope kernel path vs plain path: indices identical {same * 100:.3f} %, "
+          f"recon max|diff| {rdiff:.3e}")
+    check(same >= 0.999, "the f32 kernel path disagrees with the plain path on the indices")
+
+    for _ in range(2):
+        model.encode(clips, tcs)
+    torch.cuda.synchronize()
+    reps = 10
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        model.encode(clips, tcs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    print(f"encode (a) large, {len(clips)} clips, bf16 [{card}]: {ms:.3f} ms/request, "
+          f"{len(clips) / ms * 1e3:.1f} clips/s (host clock, {reps} requests)")
+    _breakdown(model, clips, tcs)
+    del model, module, params
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_training_large(card: str) -> dict:
+    """configs/large.yaml (flash_rope, remat on) trained at full width and
+    depth through the rope kernels."""
+    import torch
+
+    from titok_tpu_torch.data.packing import to_device
+
+    dev = torch.device("cuda")
+    # LPIPS is not ported; a 2-step warm-up so the timed steps move the params
+    cfg = large_config("tokenizer.losses.perceptual_weight=0", "tokenizer.losses.gram_weight=0",
+                       "optimizer.warmup_steps=2")
+    check(bool(cfg.training.main.remat), "configs/large.yaml sets remat")
+    batches, pack_ms = _host_batches(cfg, 5)
+    seq_len = int(cfg.training.sampling.train_seq_len)
+    t0 = time.perf_counter()
+    builder, state, step = _trainer(cfg, card_seed=0)
+    init_s = time.perf_counter() - t0
+    n_gen = sum(p.numel() for p in state.model.parameters())
+    n_disc = sum(p.numel() for p in state.disc_model.parameters())
+    print(f"training: large GAN (flash_rope, remat on), width {state.model.encoder.width}, enc/dec "
+          f"24+24 layers, heads 16/4, disc {cfg.discriminator.model.model_size}, FSQ "
+          f"{list(cfg.tokenizer.model.fsq_levels)}, {n_gen / 1e6:.1f} M + {n_disc / 1e6:.1f} M "
+          f"params, train_seq_len {seq_len}, {cfg.training.main.precision}, samples per batch "
+          f"{[int(b.sample_valid.sum()) for b, _ in batches]}, host packing {pack_ms:.1f} "
+          f"ms/batch, init on the card {init_s:.2f} s")
+    # a sample of the params (the first and last of each module) to see them move
+    watch = [p for m in (state.model, state.disc_model)
+             for p in (list(m.parameters())[:4] + list(m.parameters())[-4:])]
+    before_p = [p.detach().clone() for p in watch]
+    n = TRAIN_LAUNCHES["large"]
+    # remat replays each checkpointed Attn forward once in the backward: two
+    # rope forwards per attention layer and step, one of each backward kernel
+    want = {**{k: 0 for k in read_counts()}, "rope_bf16": 2 * n, "rope_bwd_dq_bf16": n,
+            "rope_bwd_dkv_bf16": n}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the main path: the 5 steps below, read right after them
+    per_step, metrics_all, times = [], [], []
+    for i, (b, d) in enumerate(batches):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics, idx = step(state, to_device(b, dev), to_device(d, dev))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v - before[k] for k, v in read_counts().items()})
+        metrics_all.append(metrics)
+        tok = torch.from_numpy(b.token_mask).to(dev)
+        check(bool(((idx[tok] >= 0) & (idx[tok] < 15360)).all()), f"step {i}: index out of range")
+    paths = {"train_large": read_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    for i, got in enumerate(per_step):
+        check(got == want, f"large step {i}: launches {got}, want {want}")
+    print(f"large training launches per step (every one of {len(batches)}): "
+          f"{ {k: v for k, v in per_step[0].items() if v} } -- per attention layer (encoder 24 + "
+          f"decoder 24 + stacked disc 24 in the generator pass, disc 24 in the discriminator "
+          f"pass = {n}) one of each rope backward kernel and two rope forwards (the forward and "
+          f"its remat replay in the backward); unfused kernels 0")
+    for i, m in enumerate(metrics_all):
+        vals = {k: float(v) for k, v in m.items()}
+        check(all(np.isfinite(v) for v in vals.values()), f"step {i}: non-finite metric {vals}")
+        check(vals["nonfinite_grad/generator"] == 0 and vals["nonfinite_grad/discriminator"] == 0,
+              f"step {i}: a non-finite grad was zeroed")
+        print(f"  step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in vals.items()))
+    moved = max((p.detach() - p0).abs().max().item() for p, p0 in zip(watch, before_p))
+    print(f"params moved (the first and last 4 tensors of each module): max|dp| {moved:.3e}")
+    check(moved > 0, "the params did not move")
+    timed = times[2:]
+    print(f"train step, large GAN bf16 S={seq_len}, remat [{card}]: {np.mean(timed):.3f} ms/step "
+          f"(host clock, mean of {len(timed)} after 2 warm-up; steps "
+          f"{', '.join(f'{t:.2f}' for t in times)} ms), {seq_len / np.mean(timed) * 1e3:.0f} "
+          f"tokens/s; peak device memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated over the 5 steps)")
+    _train_breakdown(step, state, batches[0])
+    del builder, state, step, watch, before_p
+    torch.cuda.empty_cache()
+    return paths
+
+
+def phase_remat_large_f32(card: str) -> dict:
+    """configs/large.yaml at full width and depth in f32 (discriminator in
+    f32 too) at train_seq_len 2048: the same weights, batches and noise
+    through the rope kernels with remat on and off. Losses and the first
+    generator grads must agree within the f32 limits."""
+    import torch
+
+    from titok_tpu_torch.data.packing import to_device
+
+    dev = torch.device("cuda")
+    over = ["tokenizer.losses.perceptual_weight=0", "tokenizer.losses.gram_weight=0",
+            "optimizer.warmup_steps=1", "training.main.precision=32",
+            "training.sampling.train_seq_len=2048"]
+    batches, _ = _host_batches(large_config(*over), 2, seed=1)
+    noise_gen = torch.Generator(device=dev).manual_seed(3)
+    noises = [torch.randn(d.segment_ids.shape[0], b.patches.shape[1], generator=noise_gen,
+                          device=dev) for b, d in batches]
+    runs, paths = {}, {}
+    for remat in (True, False):
+        cfg = large_config(*over, f"training.main.remat={remat}")
+        builder, st, stp = _trainer(cfg, f32_disc=True, card_seed=10)
+        reset_counts()
+        b0, d0 = batches[0]
+        bt, dt_ = to_device(b0, dev), to_device(d0, dev)
+        recon, _ = st.model(bt)
+        loss, _ = builder.loss_system.generator_loss(recon, bt, dt_)
+        grads = [g.detach().clone() for g in torch.autograd.grad(loss, list(st.model.parameters()))]
+        del recon, loss
+        losses = []
+        for (b, d), noise in zip(batches, noises):
+            st, m, _ = stp(st, to_device(b, dev), to_device(d, dev), noise=noise)
+            losses.append({k: float(v) for k, v in m.items() if "loss" in k or "penalty" in k})
+        torch.cuda.synchronize()
+        counts = read_counts()
+        runs[remat] = (grads, losses)
+        paths["train_large_f32" if remat else "train_large_f32_no_remat"] = counts
+        del builder, st, stp
+        torch.cuda.empty_cache()
+    # launches: one generator grad pass (encoder 24 + decoder 24 + stacked
+    # disc 24) and 2 steps of 96 attention layers; remat doubles the forwards
+    n_attn = 72 + 2 * TRAIN_LAUNCHES["large"]
+    for remat, fwd in ((True, 2 * n_attn), (False, n_attn)):
+        got = paths["train_large_f32" if remat else "train_large_f32_no_remat"]
+        want = {**{k: 0 for k in got}, "rope_f32": fwd, "rope_bwd_dq_f32": n_attn,
+                "rope_bwd_dkv_f32": n_attn}
+        check(got == want, f"large f32 remat={remat}: launches {got}, want {want}")
+    (g1, l1), (g0, l0) = runs[True], runs[False]
+    gmax = max(g.abs().max().item() for g in g0)
+    gerr = max((a - b).abs().max().item() for a, b in zip(g1, g0))
+    pairs = [(l1[i][key], l0[i][key]) for i in range(len(l0)) for key in l0[i]]
+    labs = max(abs(a - b) for a, b in pairs)
+    lok = all(abs(a - b) <= 1e-6 + 1e-4 * abs(b) for a, b in pairs)
+    same = labs == 0 and gerr == 0
+    print(f"large f32 S=2048 (flash_rope), remat on vs off, same weights, batches and noise: "
+          f"first generator grads max|diff| {gerr:.3e} of max|g| {gmax:.3e} (gate 1e-4 x max|g|), "
+          f"losses over 2 steps max|diff| {labs:.3e} (gate 1e-6 + 1e-4 relative); "
+          f"bit-identical: {same}; rope launches with remat "
+          f"{ {k: v for k, v in paths['train_large_f32'].items() if v} }, without "
+          f"{ {k: v for k, v in paths['train_large_f32_no_remat'].items() if v} }")
+    for i in range(len(l0)):
+        print(f"  step {i}: remat {l1[i]}")
+        print(f"          no remat {l0[i]}")
+    check(lok, "remat and non-remat losses disagree")
+    check(gerr <= 1e-4 * gmax, "remat and non-remat grads disagree")
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -1190,7 +1834,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if not os.path.isdir(os.path.join(REPO, "titok_tpu_torch")) or not all(
-            os.path.exists(os.path.join(REPO, "configs", c)) for c in ("tiny.yaml", "base_vq.yaml")):
+            os.path.exists(os.path.join(REPO, "configs", c))
+            for c in ("tiny.yaml", "base_vq.yaml", "large.yaml")):
         print("FAIL: run chip_smoke.py from the root of a checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
@@ -1203,18 +1848,31 @@ def main() -> int:
         paths.update(phase_training(card))
         paths.update(phase_serving_vq(card))
         paths.update(phase_training_vq(card))
+        large_train = large_config("tokenizer.losses.perceptual_weight=0",
+                                   "tokenizer.losses.gram_weight=0")
+        rres = phase_rope_kernels(card, large_train)
+        paths.update(phase_serving_large(card))
+        paths.update(phase_training_large(card))
+        paths.update(phase_remat_large_f32(card))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
     # launches: each path's counts were set to 0 just before it ran and read
     # just after; a kernel's "launches" is its count on the training path of
     # its dtype (bf16: the tiny main path, 6 steps; f32: the f32 kernel path;
-    # the VQ kernel: the base_vq training path, 5 steps)
+    # the VQ kernel: the base_vq training path, 5 steps; the rope kernels:
+    # the large training path, bf16 5 steps, f32 the remat run of the f32
+    # check, one grad pass and 2 steps)
     entries = [(f"flash_segment_attn_fwd_{d}", KERNEL_SRC, KERNEL_REPLACES, d, kres[d],
                 f"train_{d}") for d in ("bf16", "f32")]
     entries += [(f"flash_segment_attn_bwd_{k}_{d}", BWD_SRC, BWD_REPLACES[k], f"bwd_{k}_{d}",
                  bres[f"{k}_{d}"], f"train_{d}") for k in ("dq", "dkv") for d in ("bf16", "f32")]
     entries.append(("vq_nearest_f32", VQ_SRC, VQ_REPLACES, "vq_f32", vres, "train_base_vq"))
+    for k, src in (("fwd", KERNEL_SRC), ("dq", BWD_SRC), ("dkv", BWD_SRC)):
+        for d, main_path in (("bf16", "train_large"), ("f32", "train_large_f32")):
+            key = f"rope_{d}" if k == "fwd" else f"rope_bwd_{k}_{d}"
+            name = f"flash_segment_attn_rope_{'fwd' if k == 'fwd' else 'bwd_' + k}_{d}"
+            entries.append((name, src, ROPE_REPLACES[k], key, rres[f"{k}_{d}"], main_path))
     kernels = []
     for name, src, replaces, key, r, main_path in entries:
         kernels.append({
@@ -1223,8 +1881,10 @@ def main() -> int:
             "launches_by_path": {p: c[key] for p, c in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            # the attention kernels' times at the base_vq layout, heads 12/4
-            **({"at_base_12_4": r["at_base_12_4"]} if "at_base_12_4" in r else {}),
+            # the attention kernels' times at the base_vq layout, heads 12/4;
+            # the rope kernels' (timed at the large layout) at the bench shape
+            **{k: r[k] for k in ("at_base_12_4", "at_bench_4_2", "wrapper_vs_unfused_ms")
+               if k in r},
         })
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

@@ -123,10 +123,13 @@ def test_dispatcher_on_cpu(rng):
     for impl in ("auto", "flash"):
         out = segment_attention(q, k, v, seg, impl=impl)
         torch.testing.assert_close(out, dense, atol=1e-5, rtol=0)
+    # flash_rope on unrotated q, k with identity tables is plain attention
+    ones, zeros = torch.ones(q.shape[0], 30), torch.zeros(q.shape[0], 30)
+    out = segment_attention(q, k, v, seg, impl="flash_rope", rope_cos=ones, rope_sin=zeros)
+    torch.testing.assert_close(out, dense, atol=1e-5, rtol=0)
     assert fa.launches == before  # CPU tensors take the plain version
-    for impl in ("flash_rope", "flash_v1"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            segment_attention(q, k, v, seg, impl=impl)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        segment_attention(q, k, v, seg, impl="flash_v1")
     with pytest.raises(ValueError):
         segment_attention(q, k, v, seg, impl="nope")
 

@@ -403,3 +403,139 @@ def test_vq_train_step_launches_the_kernels(cuda):
     assert float(metrics["gen/vq_perplexity"]) > 1.0
     assert int(indices.max()) < 512 and int(indices.min()) >= 0
     assert not torch.equal(state.model.quantize.codebook, cb0)
+
+
+# RoPE fused into the attention kernels (attn_impl: flash_rope): each rope
+# kernel against its plain version (apply_rotary_emb, then the plain
+# forward; the plain backward on the rotated q and k with dq and dk
+# inverse-rotated in f32 and rounded once), under the limits of the unfused
+# kernels (TOL, BWD_TOL).
+
+
+def _rope_tables(dev, S, P, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ang = torch.rand(S, P, generator=g, device=dev) * (2 * np.pi)
+    return ang.cos(), ang.sin()
+
+
+ROPE_CASES = {
+    "4/2 P30 ragged, pad": ([1, 2, 63, 64, 65, 127, 300, 5], 700, 4, 2, 30),
+    "16/4 P30": ([513, 1040, 416], 2100, 16, 4, 30),
+    "12/4 P16 (pass-through pairs)": ([200, 333, 64], 640, 12, 4, 16),
+    "stacked disc ids x4 4/2 P30": (None, None, 4, 2, 30),
+}
+
+
+def _rope_case(dev, dtype, case, seed=3):
+    lengths, S, hq, hkv, P = ROPE_CASES[case]
+    if lengths is None:
+        seg = _stacked_ids(400, [200, 1, 150, 40], 4).to(dev)
+    else:
+        seg = _segments(lengths, S).to(dev)
+    S = seg.shape[0]
+    q, k, v = _inputs(dev, dtype, S, hq, hkv, seed=seed)
+    cos, sin = _rope_tables(dev, S, P, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dout = torch.randn(S, hq, 64, generator=g, device=dev).to(dtype)
+    return q, k, v, seg, cos, sin, dout
+
+
+def _check_rope(dev, dtype, q, k, v, seg, cos, sin, dout, k_seg=None, k_cos=None, k_sin=None):
+    key = "bf16" if dtype == torch.bfloat16 else "f32"
+    names = (f"rope_{key}", f"rope_bwd_dq_{key}", f"rope_bwd_dkv_{key}")
+    before = [fa.launches[n] for n in names]
+    out, lse = fa._rope_fwd(q, k, v, seg, cos, sin, None, k_seg, k_cos, k_sin)
+    got = fa._rope_bwd(q, k, v, seg, cos, sin, out, lse, dout, None, k_seg, k_cos, k_sin)
+    torch.cuda.synchronize()
+    assert [fa.launches[n] for n in names] == [b + 1 for b in before]
+    ref_out, ref_lse = fa.flash_segment_attention_mh_rope_reference(
+        q, k, v, seg, cos, sin, None, k_seg, k_cos, k_sin)
+    _assert_close(out, lse, ref_out, ref_lse, dtype)
+    # the backward from the kernel's own out and lse, as autograd runs it
+    want = fa.flash_segment_attention_mh_rope_bwd_reference(
+        q, k, v, seg, cos, sin, out, lse, dout, None, k_seg, k_cos, k_sin)
+    for name, a, x in zip(("dq", "dk", "dv"), got, (q, k, v)):
+        assert a.dtype == dtype and a.shape == x.shape, name
+        assert bool(torch.isfinite(a.float()).all()), name
+    _assert_bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(ROPE_CASES))
+def test_rope_kernels_match_plain(cuda, dtype, case):
+    _check_rope(cuda, dtype, *_rope_case(cuda, dtype, case))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_rope_kernels_separate_k_ids_and_tables(cuda, dtype):
+    seg_q = _segments([90, 110], 200).to(cuda)
+    seg_k = _segments([60, 140, 100], 333).to(cuda)
+    q, _, _ = _inputs(cuda, dtype, 200, 4, 2, seed=5)
+    _, k, v = _inputs(cuda, dtype, 333, 4, 2, seed=6)
+    cos, sin = _rope_tables(cuda, 200, 30, 7)
+    k_cos, k_sin = _rope_tables(cuda, 333, 30, 8)
+    dout = torch.randn(200, 4, 64, device=cuda).to(dtype)
+    _check_rope(cuda, dtype, q, k, v, seg_q, cos, sin, dout, seg_k, k_cos, k_sin)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_rope_forward_equals_unfused_bit_for_bit(cuda, dtype):
+    """The rope forward kernel on raw q, k equals apply_rotary_emb (one
+    rounding per product and sum, as the kernel rotates) followed by the
+    unfused forward kernel, bit for bit."""
+    from titok_tpu_torch.models.rope import apply_rotary_emb
+
+    q, k, v, seg, cos, sin, _ = _rope_case(cuda, dtype, "16/4 P30")
+    out, lse = fa._rope_fwd(q, k, v, seg, cos, sin)
+    ref_out, ref_lse = fa._fwd(apply_rotary_emb(q, cos, sin), apply_rotary_emb(k, cos, sin),
+                               v, seg)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+
+
+def test_rope_wrapper_raises_on_cuda_instead_of_falling_back(cuda):
+    q, k, v, seg, cos, sin, _ = _rope_case(cuda, torch.float32, "4/2 P30 ragged, pad")
+    with pytest.raises(ValueError, match="f32"):
+        fa.flash_segment_attention_mh(q, k, v, seg, rope_cos=cos.double(), rope_sin=sin.double())
+    with pytest.raises(ValueError, match="P"):
+        fa.flash_segment_attention_mh(q, k, v, seg, rope_cos=cos[:, :20].contiguous(),
+                                      rope_sin=sin[:, :21].contiguous())
+    with pytest.raises(ValueError, match="1..32"):
+        wide = torch.zeros(q.shape[0], 33, device=cuda)
+        fa.flash_segment_attention_mh(q, k, v, seg, rope_cos=wide, rope_sin=wide)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_segment_attention_mh(q, k, v, seg, rope_cos=cos.t().contiguous().t(),
+                                      rope_sin=sin)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_segment_attention_mh(q, k, v, seg, rope_cos=cos.cpu(), rope_sin=sin.cpu())
+
+
+def test_flash_rope_remat_train_step_launches(cuda):
+    """One GAN step of a small tiny model with attn_impl flash_rope and
+    remat on: the rope kernels only, each dq and dk/dv kernel once per
+    attention layer (encoder 4 + decoder 4 + stacked disc 4 in the
+    generator pass, disc 4 in the discriminator pass) and the rope forward
+    twice per layer (the forward, and its replay in the backward)."""
+    import itertools
+
+    from titok_tpu_torch.data.packing import build_disc_batch, to_device
+    from titok_tpu_torch.losses.loss_module import LossSystem
+    from titok_tpu_torch.models.titok import make_titok
+    from titok_tpu_torch.training.train_step import TrainStepBuilder
+    from titok_tpu_torch.training.trainer import synthetic_batches
+
+    cfg = _small_train_config("training.main.attn_impl=flash_rope", "training.main.remat=true")
+    ls = LossSystem(cfg)
+    builder = TrainStepBuilder(make_titok(cfg), ls, cfg)
+    state = builder.init_state(device=cuda)
+    step = builder.make_train_step()
+    (batch,) = itertools.islice(synthetic_batches(cfg, seed=0), 1)
+    disc = build_disc_batch(batch, ls.disc_tokens)
+    fa.reset_launches()
+    state, metrics, indices = step(state, to_device(batch, cuda), to_device(disc, cuda))
+    torch.cuda.synchronize()
+    n = 4 + 4 + 4 + 4
+    assert fa.launches == {**{k: 0 for k in fa.launches}, "rope_bf16": 2 * n,
+                           "rope_bwd_dq_bf16": n, "rope_bwd_dkv_bf16": n}
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert float(metrics["nonfinite_grad/generator"]) == 0.0
+    assert int(indices.max()) < 4375 and int(indices.min()) >= 0

@@ -223,13 +223,19 @@ def test_three_gan_steps_match_jax(disc_dtype):
 
 @pytest.mark.parametrize("key,value,match", [
     ("optimizer.name", "adafactor", "adafactor"),
-    ("training.main.remat", True, "remat"),
+    # ported: remat is accepted and reaches every transformer stack
+    pytest.param("training.main.remat", True, None, id="training.main.remat-True-remat"),
     ("training.main.steps_per_call", 4, "steps_per_call"),
 ])
 def test_unported_options_raise(key, value, match):
     _, pcfg = _configs()
     pcfg.set_dotted(key, value)
     pb = TrainStepBuilder(make_titok(pcfg), LossSystem(pcfg), pcfg)
+    if match is None:
+        pb.make_optimizers()
+        stacks = [pb.model.encoder, pb.model.decoder, pb.loss_system.disc_model]
+        assert all(m.model_layers.remat for m in stacks)
+        return
     with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP"):
         pb.make_optimizers()
 

@@ -46,6 +46,21 @@
 //   version), 32-row tiles and 256 threads.
 // Not yet: wgmma, TMA, cp.async double buffering (later work; PERF.md has
 // the measured gap).
+//
+// RoPE fused (kRope = true; entries `flash_segment_attn_rope_bwd_dq` and
+// `..._rope_bwd_dkv`): replaces `_bwd_dq_kernel_rope` and
+// `_bwd_dkv_kernel_rope`, reached through `_rope_bwd`, the custom_vjp
+// backward `_mh_rope` of attn_impl 'flash_rope'. q and k come in unrotated
+// with their tables, as in the forward: the kernels rotate q and k tiles as
+// they are staged (dq: q once per CTA, each visited k tile; dk/dv: k once
+// per CTA, each visited q tile), so p and ds are those of the rotated q
+// and k. The rotation is orthogonal, so the grads of the raw q and k are
+// the grads of the rotated ones rotated back: the f32 dq and dk
+// accumulators get the inverse rotation (sin negated) before their one
+// rounding to the output dtype. dv is unrotated. In the bf16 kernels a
+// thread's m16n8 accumulator fragment holds both columns of a pair; in the
+// f32 kernels the pair is split over lanes tx and tx ^ 1 and meets by a
+// shuffle.
 
 #include "segment_attn_common.cuh"
 
@@ -57,12 +72,14 @@ constexpr int BT = 64;  // rows per tile of the bf16 kernels (q and kv)
 // bf16: mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 
+template <bool kRope>
 __global__ void __launch_bounds__(NT_BF16)
 bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
             const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
             const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            __nv_bfloat16* __restrict__ dq, int S, int Sk, int hq, int hkv, float scale) {
+            __nv_bfloat16* __restrict__ dq, int S, int Sk, int hq, int hkv, float scale,
+            Rope rq, Rope rk) {
   __shared__ __align__(16) __nv_bfloat16 k_s[BT * LDS];  // also stages the Q tile
   __shared__ __align__(16) __nv_bfloat16 v_s[BT * LDS];  // also stages the dO tile
   __shared__ int segq_s[BT];
@@ -80,7 +97,7 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
 
   if (tid == 0) segment_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
   if (tid < BT) segq_s[tid] = (q0 + tid < S) ? remap(seg_q[q0 + tid]) : NO_ROW_Q;
-  load_tiles_bf16(k_s, q, v_s, dout, q0, S, ldq, h * D);
+  load_tiles_bf16<kRope>(k_s, q, v_s, dout, q0, S, ldq, h * D, rq);
   __syncthreads();
   uint32_t qa[4][4], doa[4][4];
   load_a_frags(qa, k_s, r0, t2);
@@ -100,7 +117,7 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
 
   for (int kv0 = lo; kv0 < hi; kv0 += BT) {
     __syncthreads();  // the previous tile is consumed
-    load_tiles_bf16(k_s, k, v_s, v, kv0, hi, ldk, hk * D);
+    load_tiles_bf16<kRope>(k_s, k, v_s, v, kv0, hi, ldk, hk * D, rk);
     if (tid < BT) segk_s[tid] = (kv0 + tid < hi) ? remap(seg_k[kv0 + tid]) : NO_ROW_K;
     __syncthreads();
 
@@ -124,6 +141,13 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
     mma_ab(acc, dsa, k_s, g, t2);  // dQ += dS K
   }
 
+  if constexpr (kRope) {  // back to the raw q: pair dt * 4 + t2 / 2 of each row
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) {
+      if (row0 < S) inv_rot_acc(acc[dt][0], acc[dt][1], rq, row0, dt * 4 + (t2 >> 1));
+      if (row1 < S) inv_rot_acc(acc[dt][2], acc[dt][3], rq, row1, dt * 4 + (t2 >> 1));
+    }
+  }
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
     const int col = h * D + dt * 8 + t2;
@@ -134,13 +158,14 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
   }
 }
 
+template <bool kRope>
 __global__ void __launch_bounds__(NT_BF16)
 bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
              const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int Sk,
-             int hq, int hkv, float scale) {
+             int hq, int hkv, float scale, Rope rq, Rope rk) {
   __shared__ __align__(16) __nv_bfloat16 q_s[BT * LDS];   // also stages the K tile
   __shared__ __align__(16) __nv_bfloat16 do_s[BT * LDS];  // also stages the V tile
   __shared__ float lse_s[BT];
@@ -160,7 +185,7 @@ bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 
   if (tid == 0) segment_interval(seg_k, seg_q, k0, k1, S, &range_s[0], &range_s[1]);
   if (tid < BT) segk_s[tid] = (k0 + tid < Sk) ? remap(seg_k[k0 + tid]) : NO_ROW_K;
-  load_tiles_bf16(q_s, k, do_s, v, k0, Sk, ldk, hk * D);
+  load_tiles_bf16<kRope>(q_s, k, do_s, v, k0, Sk, ldk, hk * D, rk);
   __syncthreads();
   uint32_t ka[4][4], va[4][4];
   load_a_frags(ka, q_s, r0, t2);
@@ -180,7 +205,7 @@ bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     const int h = hk * rep + hr;
     for (int qs0 = lo; qs0 < hi; qs0 += BT) {
       __syncthreads();  // the previous tile (or the K/V staging) is consumed
-      load_tiles_bf16(q_s, q, do_s, dout, qs0, hi, ldq, h * D);
+      load_tiles_bf16<kRope>(q_s, q, do_s, dout, qs0, hi, ldq, h * D, rq);
       if (tid < BT) {
         const bool ok = qs0 + tid < hi;
         segq_s[tid] = ok ? remap(seg_q[qs0 + tid]) : NO_ROW_Q;
@@ -221,6 +246,13 @@ bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   }
 
   const int row0 = k0 + r0, row1 = row0 + 8;
+  if constexpr (kRope) {  // back to the raw k; dv is unrotated
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) {
+      if (row0 < Sk) inv_rot_acc(dka[dt][0], dka[dt][1], rk, row0, dt * 4 + (t2 >> 1));
+      if (row1 < Sk) inv_rot_acc(dka[dt][2], dka[dt][3], rk, row1, dt * 4 + (t2 >> 1));
+    }
+  }
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
     const int col = hk * D + dt * 8 + t2;
@@ -252,12 +284,14 @@ __device__ __forceinline__ void load_tile_f32(float (*dst)[D + 1], const float* 
   }
 }
 
+template <bool kRope>
 __global__ void __launch_bounds__(256)
 bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const int* __restrict__ seg_q,
            const int* __restrict__ seg_k, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           float* __restrict__ dq, int S, int Sk, int hq, int hkv, float scale) {
+           float* __restrict__ dq, int S, int Sk, int hq, int hkv, float scale,
+           Rope rq, Rope rk) {
   __shared__ float q_s[BF][D + 1];
   __shared__ float do_s[BF][D + 1];
   __shared__ float k_s[BF][D + 1];
@@ -275,7 +309,11 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int ldq = hq * D, ldk = hkv * D;
 
   if (tid == 0) segment_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
-  load_tile_f32(q_s, q, q0, S, ldq, h * D);
+  if constexpr (kRope) {
+    load_rot_tile_f32<BF>(q_s, q, q0, S, ldq, h * D, rq);
+  } else {
+    load_tile_f32(q_s, q, q0, S, ldq, h * D);
+  }
   load_tile_f32(do_s, dout, q0, S, ldq, h * D);
   if (tid < BF) segq_s[tid] = (q0 + tid < S) ? remap(seg_q[q0 + tid]) : NO_ROW_Q;
   __syncthreads();
@@ -295,7 +333,11 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kv0 = lo; kv0 < hi; kv0 += BF) {
     __syncthreads();
-    load_tile_f32(k_s, k, kv0, hi, ldk, hk * D);
+    if constexpr (kRope) {
+      load_rot_tile_f32<BF>(k_s, k, kv0, hi, ldk, hk * D, rk);
+    } else {
+      load_tile_f32(k_s, k, kv0, hi, ldk, hk * D);
+    }
     load_tile_f32(v_s, v, kv0, hi, ldk, hk * D);
     if (tid < BF) segk_s[tid] = (kv0 + tid < hi) ? remap(seg_k[kv0 + tid]) : NO_ROW_K;
     __syncthreads();
@@ -336,6 +378,14 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
+  if constexpr (kRope) {  // back to the raw q, before any lane leaves
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = inv_rot_split(acc[i][j], tx + 16 * j, rq, row, row < S);
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + ty + 16 * i;
@@ -345,13 +395,14 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <bool kRope>
 __global__ void __launch_bounds__(256)
 bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const int* __restrict__ seg_q,
             const int* __restrict__ seg_k, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             float* __restrict__ dk, float* __restrict__ dv, int S, int Sk, int hq, int hkv,
-            float scale) {
+            float scale, Rope rq, Rope rk) {
   __shared__ float k_s[BF][D + 1];
   __shared__ float v_s[BF][D + 1];
   __shared__ float q_s[BF][D + 1];
@@ -372,7 +423,11 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int ldq = hq * D, ldk = hkv * D;
 
   if (tid == 0) segment_interval(seg_k, seg_q, k0, k1, S, &range_s[0], &range_s[1]);
-  load_tile_f32(k_s, k, k0, Sk, ldk, hk * D);
+  if constexpr (kRope) {
+    load_rot_tile_f32<BF>(k_s, k, k0, Sk, ldk, hk * D, rk);
+  } else {
+    load_tile_f32(k_s, k, k0, Sk, ldk, hk * D);
+  }
   load_tile_f32(v_s, v, k0, Sk, ldk, hk * D);
   if (tid < BF) segk_s[tid] = (k0 + tid < Sk) ? remap(seg_k[k0 + tid]) : NO_ROW_K;
   __syncthreads();
@@ -389,7 +444,11 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int h = hk * rep + hr;
     for (int qs0 = lo; qs0 < hi; qs0 += BF) {
       __syncthreads();
-      load_tile_f32(q_s, q, qs0, hi, ldq, h * D);
+      if constexpr (kRope) {
+        load_rot_tile_f32<BF>(q_s, q, qs0, hi, ldq, h * D, rq);
+      } else {
+        load_tile_f32(q_s, q, qs0, hi, ldq, h * D);
+      }
       load_tile_f32(do_s, dout, qs0, hi, ldq, h * D);
       if (tid < BF) {
         const bool ok = qs0 + tid < hi;
@@ -443,6 +502,15 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
+  if constexpr (kRope) {  // back to the raw k (dv is unrotated), before any lane leaves
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = k0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dka[i][j] = inv_rot_split(dka[i][j], tx + 16 * j, rk, row, row < Sk);
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = k0 + ty + 16 * i;
@@ -455,6 +523,49 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <bool kRope>
+int launch_dq(const void* q, const void* k, const void* v, const int* seg_q, const int* seg_k,
+              const void* dout, const float* lse, const float* delta, void* dq, int S, int Sk,
+              int hq, int hkv, float scale, int is_bf16, Rope rq, Rope rk, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    bwd_dq_bf16<kRope><<<dim3((S + BT - 1) / BT, hq), NT_BF16, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
+        static_cast<const __nv_bfloat16*>(dout), lse, delta,
+        static_cast<__nv_bfloat16*>(dq), S, Sk, hq, hkv, scale, rq, rk);
+  } else {
+    bwd_dq_f32<kRope><<<dim3((S + BF - 1) / BF, hq), 256, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), seg_q, seg_k, static_cast<const float*>(dout), lse,
+        delta, static_cast<float*>(dq), S, Sk, hq, hkv, scale, rq, rk);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRope>
+int launch_dkv(const void* q, const void* k, const void* v, const int* seg_q, const int* seg_k,
+               const void* dout, const float* lse, const float* delta, void* dk, void* dv,
+               int S, int Sk, int hq, int hkv, float scale, int is_bf16, Rope rq, Rope rk,
+               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    bwd_dkv_bf16<kRope><<<dim3((Sk + BT - 1) / BT, hkv), NT_BF16, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
+        static_cast<const __nv_bfloat16*>(dout), lse, delta,
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, Sk, hq, hkv,
+        scale, rq, rk);
+  } else {
+    bwd_dkv_f32<kRope><<<dim3((Sk + BF - 1) / BF, hkv), 256, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), seg_q, seg_k, static_cast<const float*>(dout), lse,
+        delta, static_cast<float*>(dk), static_cast<float*>(dv), S, Sk, hq, hkv, scale, rq,
+        rk);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dq [S, hq*64] from q, dO [S, hq*64], k/v [Sk, hkv*64], ids, lse and delta
@@ -464,20 +575,8 @@ extern "C" int flash_segment_attn_bwd_dq(const void* q, const void* k, const voi
                                          const float* lse, const float* delta, void* dq, int S,
                                          int Sk, int hq, int hkv, float scale, int is_bf16,
                                          void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    bwd_dq_bf16<<<dim3((S + BT - 1) / BT, hq), NT_BF16, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
-        static_cast<const __nv_bfloat16*>(dout), lse, delta,
-        static_cast<__nv_bfloat16*>(dq), S, Sk, hq, hkv, scale);
-  } else {
-    bwd_dq_f32<<<dim3((S + BF - 1) / BF, hq), 256, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), seg_q, seg_k, static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), S, Sk, hq, hkv, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_dq<false>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq, hkv, scale,
+                          is_bf16, Rope{}, Rope{}, stream);
 }
 
 // dk, dv [Sk, hkv*64], summed over each kv head's group of q heads.
@@ -486,19 +585,33 @@ extern "C" int flash_segment_attn_bwd_dkv(const void* q, const void* k, const vo
                                           const float* lse, const float* delta, void* dk,
                                           void* dv, int S, int Sk, int hq, int hkv, float scale,
                                           int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    bwd_dkv_bf16<<<dim3((Sk + BT - 1) / BT, hkv), NT_BF16, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
-        static_cast<const __nv_bfloat16*>(dout), lse, delta,
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, Sk, hq, hkv,
-        scale);
-  } else {
-    bwd_dkv_f32<<<dim3((Sk + BF - 1) / BF, hkv), 256, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), seg_q, seg_k, static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dk), static_cast<float*>(dv), S, Sk, hq, hkv, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_dkv<false>(q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq, hkv,
+                           scale, is_bf16, Rope{}, Rope{}, stream);
+}
+
+// RoPE fused: q and k unrotated, cos_q/sin_q [S, P] and cos_k/sin_k [Sk, P]
+// f32 (q's again when k has none), 1 <= P <= 32; lse and delta those of the
+// rope forward. dq and dk are the grads of the unrotated q and k.
+extern "C" int flash_segment_attn_rope_bwd_dq(const void* q, const void* k, const void* v,
+                                              const int* seg_q, const int* seg_k,
+                                              const float* cos_q, const float* sin_q,
+                                              const float* cos_k, const float* sin_k, int P,
+                                              const void* dout, const float* lse,
+                                              const float* delta, void* dq, int S, int Sk,
+                                              int hq, int hkv, float scale, int is_bf16,
+                                              void* stream) {
+  return launch_dq<true>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq, hkv, scale,
+                         is_bf16, Rope{cos_q, sin_q, P}, Rope{cos_k, sin_k, P}, stream);
+}
+
+extern "C" int flash_segment_attn_rope_bwd_dkv(const void* q, const void* k, const void* v,
+                                               const int* seg_q, const int* seg_k,
+                                               const float* cos_q, const float* sin_q,
+                                               const float* cos_k, const float* sin_k, int P,
+                                               const void* dout, const float* lse,
+                                               const float* delta, void* dk, void* dv, int S,
+                                               int Sk, int hq, int hkv, float scale,
+                                               int is_bf16, void* stream) {
+  return launch_dkv<true>(q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq, hkv,
+                          scale, is_bf16, Rope{cos_q, sin_q, P}, Rope{cos_k, sin_k, P}, stream);
 }

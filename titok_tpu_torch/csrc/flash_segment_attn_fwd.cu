@@ -35,6 +35,18 @@
 //   1e-5 against the plain version), 256 threads per 64-row q tile.
 // Not yet: wgmma, TMA, cp.async double buffering, one CTA per GQA group
 // sharing the K/V tile (later work; PERF.md has the measured gap).
+//
+// RoPE fused (kRope = true; entry `flash_segment_attn_rope_fwd`): replaces
+// `_fwd_kernel_rope` reached through `_rope_fwd` (attn_impl 'flash_rope').
+// q and k come in unrotated with per-row tables cos/sin [rows, P] f32 (k
+// may have its own); each interleaved pair (x[2p], x[2p+1]), p < P, is
+// rotated in fp32 as its tile is staged in shared memory (q once per CTA,
+// every k tile on each visit, as the JAX kernel does), rounded to the input
+// dtype, and the rest of the kernel is the kRope = false code unchanged.
+// The rotation rounds each product and sum on its own (no FMA), as the
+// port's elementwise apply_rotary_emb does, so the fused forward equals
+// apply_rotary_emb + this kernel bit for bit. The tables add (S + Sk) * P *
+// 8 bytes of reads; the bound is that of the unfused kernel.
 
 #include "segment_attn_common.cuh"
 
@@ -48,11 +60,13 @@ constexpr int BQ = 64;  // q rows per CTA
 
 constexpr int BK = 64;  // kv rows per tile
 
+template <bool kRope>
 __global__ void __launch_bounds__(NT_BF16)
 fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
              const int* __restrict__ seg_k, __nv_bfloat16* __restrict__ out,
-             float* __restrict__ lse, int S, int Sk, int hq, int hkv, float scale) {
+             float* __restrict__ lse, int S, int Sk, int hq, int hkv, float scale,
+             Rope rq, Rope rk) {
   __shared__ __align__(16) __nv_bfloat16 q_s[BQ * LDS];
   __shared__ __align__(16) __nv_bfloat16 k_s[BK * LDS];
   __shared__ __align__(16) __nv_bfloat16 v_s[BK * LDS];
@@ -70,7 +84,7 @@ fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   const int ldq = hq * D, ldk = hkv * D;
 
   if (tid == 0) segment_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
-  load_tile_bf16(q_s, q, q0, S, ldq, h * D);
+  load_tile_bf16<kRope>(q_s, q, q0, S, ldq, h * D, rq);
   if (tid < BQ) segq_s[tid] = (q0 + tid < S) ? remap(seg_q[q0 + tid]) : NO_ROW_Q;
   __syncthreads();
 
@@ -89,7 +103,7 @@ fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 
   for (int kv0 = lo; kv0 < hi; kv0 += BK) {
     __syncthreads();  // the previous tile is consumed
-    load_tiles_bf16(k_s, k, v_s, v, kv0, hi, ldk, hk * D);
+    load_tiles_bf16<kRope>(k_s, k, v_s, v, kv0, hi, ldk, hk * D, rk);
     if (tid < BK) segk_s[tid] = (kv0 + tid < hi) ? remap(seg_k[kv0 + tid]) : NO_ROW_K;
     __syncthreads();
 
@@ -177,11 +191,13 @@ fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 
 constexpr int BKF = 32;  // kv rows per tile
 
+template <bool kRope>
 __global__ void __launch_bounds__(256)
 fwd_f32_fma(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const int* __restrict__ seg_q,
             const int* __restrict__ seg_k, float* __restrict__ out,
-            float* __restrict__ lse, int S, int Sk, int hq, int hkv, float scale) {
+            float* __restrict__ lse, int S, int Sk, int hq, int hkv, float scale,
+            Rope rq, Rope rk) {
   // padded strides keep the column walks of each half-warp on distinct banks
   __shared__ float q_s[BQ][D + 1];
   __shared__ float k_s[BKF][D + 1];
@@ -201,9 +217,13 @@ fwd_f32_fma(const float* __restrict__ q, const float* __restrict__ k,
   const int ldq = hq * D, ldk = hkv * D;
 
   if (tid == 0) segment_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
-  for (int e = tid; e < BQ * D; e += blockDim.x) {
-    const int r = e / D, c = e % D;
-    q_s[r][c] = (q0 + r < S) ? q[(size_t)(q0 + r) * ldq + h * D + c] : 0.f;
+  if constexpr (kRope) {
+    load_rot_tile_f32<BQ>(q_s, q, q0, S, ldq, h * D, rq);
+  } else {
+    for (int e = tid; e < BQ * D; e += blockDim.x) {
+      const int r = e / D, c = e % D;
+      q_s[r][c] = (q0 + r < S) ? q[(size_t)(q0 + r) * ldq + h * D + c] : 0.f;
+    }
   }
   if (tid < BQ) segq_s[tid] = (q0 + tid < S) ? remap(seg_q[q0 + tid]) : NO_ROW_Q;
   __syncthreads();
@@ -222,12 +242,20 @@ fwd_f32_fma(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kv0 = lo; kv0 < hi; kv0 += BKF) {
     __syncthreads();
-    for (int e = tid; e < BKF * D; e += blockDim.x) {
-      const int r = e / D, c = e % D;
-      const bool ok = kv0 + r < hi;
-      const size_t off = (size_t)(kv0 + r) * ldk + hk * D + c;
-      k_s[r][c] = ok ? k[off] : 0.f;
-      v_s[r][c] = ok ? v[off] : 0.f;
+    if constexpr (kRope) {
+      load_rot_tile_f32<BKF>(k_s, k, kv0, hi, ldk, hk * D, rk);
+      for (int e = tid; e < BKF * D; e += blockDim.x) {
+        const int r = e / D, c = e % D;
+        v_s[r][c] = kv0 + r < hi ? v[(size_t)(kv0 + r) * ldk + hk * D + c] : 0.f;
+      }
+    } else {
+      for (int e = tid; e < BKF * D; e += blockDim.x) {
+        const int r = e / D, c = e % D;
+        const bool ok = kv0 + r < hi;
+        const size_t off = (size_t)(kv0 + r) * ldk + hk * D + c;
+        k_s[r][c] = ok ? k[off] : 0.f;
+        v_s[r][c] = ok ? v[off] : 0.f;
+      }
     }
     if (tid < BKF) segk_s[tid] = (kv0 + tid < hi) ? remap(seg_k[kv0 + tid]) : NO_ROW_K;
     __syncthreads();
@@ -300,6 +328,26 @@ fwd_f32_fma(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <bool kRope>
+int launch_fwd(const void* q, const void* k, const void* v, const int* seg_q, const int* seg_k,
+               void* out, float* lse, int S, int Sk, int hq, int hkv, float scale, int is_bf16,
+               Rope rq, Rope rk, void* stream) {
+  const dim3 grid((S + BQ - 1) / BQ, hq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    fwd_bf16_mma<kRope><<<grid, NT_BF16, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
+        static_cast<__nv_bfloat16*>(out), lse, S, Sk, hq, hkv, scale, rq, rk);
+  } else {
+    fwd_f32_fma<kRope><<<grid, 256, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), seg_q, seg_k, static_cast<float*>(out), lse,
+        S, Sk, hq, hkv, scale, rq, rk);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q [S, hq*64], k/v [Sk, hkv*64], seg_q [S], seg_k [Sk] int32 (non-decreasing
@@ -309,18 +357,18 @@ extern "C" int flash_segment_attn_fwd(const void* q, const void* k, const void* 
                                       const int* seg_q, const int* seg_k, void* out,
                                       float* lse, int S, int Sk, int hq, int hkv,
                                       float scale, int is_bf16, void* stream) {
-  const dim3 grid((S + BQ - 1) / BQ, hq);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    fwd_bf16_mma<<<grid, NT_BF16, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
-        static_cast<__nv_bfloat16*>(out), lse, S, Sk, hq, hkv, scale);
-  } else {
-    fwd_f32_fma<<<grid, 256, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), seg_q, seg_k, static_cast<float*>(out), lse,
-        S, Sk, hq, hkv, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<false>(q, k, v, seg_q, seg_k, out, lse, S, Sk, hq, hkv, scale, is_bf16,
+                           Rope{}, Rope{}, stream);
+}
+
+// The same with RoPE fused: q and k unrotated, cos_q/sin_q [S, P] and
+// cos_k/sin_k [Sk, P] f32 (pass q's for k when k has none), 1 <= P <= 32.
+extern "C" int flash_segment_attn_rope_fwd(const void* q, const void* k, const void* v,
+                                           const int* seg_q, const int* seg_k,
+                                           const float* cos_q, const float* sin_q,
+                                           const float* cos_k, const float* sin_k, int P,
+                                           void* out, float* lse, int S, int Sk, int hq,
+                                           int hkv, float scale, int is_bf16, void* stream) {
+  return launch_fwd<true>(q, k, v, seg_q, seg_k, out, lse, S, Sk, hq, hkv, scale, is_bf16,
+                          Rope{cos_q, sin_q, P}, Rope{cos_k, sin_k, P}, stream);
 }

@@ -100,6 +100,9 @@ class LossSystem:
             out_channels=1,
             dtype=torch.bfloat16,
             attn_impl=str(config.training.main.get("attn_impl", "auto")),
+            # the stacked disc pass holds the most activations of a step
+            # (n copies of the batch): the config's remat applies here too
+            remat=bool(config.training.main.get("remat", False)),
         )
 
     # -- discriminator plumbing -------------------------------------------

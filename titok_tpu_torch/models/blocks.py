@@ -49,7 +49,7 @@ class _PackedViT(nn.Module):
     """What the encoder and the decoder share: mask token, split pre-norms,
     transformer and ``ln_post``."""
 
-    def __init__(self, model_size: str, dtype, attn_impl: str):
+    def __init__(self, model_size: str, dtype, attn_impl: str, remat: bool = False):
         super().__init__()
         width, num_layers, heads, mlp_ratio = get_model_dims(model_size)
         self.width = width
@@ -59,7 +59,7 @@ class _PackedViT(nn.Module):
         self.ln_pre_p = RMSNorm(width)
         self.model_layers = ResidualAttentionBlock(
             embed_dim=width, heads=heads, mlp_ratio=mlp_ratio,
-            num_layer=num_layers, dtype=dtype, attn_impl=attn_impl)
+            num_layer=num_layers, dtype=dtype, attn_impl=attn_impl, remat=remat)
         self.ln_post = RMSNorm(width)
 
 
@@ -69,8 +69,8 @@ class PackedEncoder(_PackedViT):
 
     def __init__(self, model_size: str = "tiny", patch_size: Sequence[int] = (4, 8, 8),
                  in_channels: int = 3, out_channels: int = 5, dtype=torch.bfloat16,
-                 attn_impl: str = "auto"):
-        super().__init__(model_size, dtype, attn_impl)
+                 attn_impl: str = "auto", remat: bool = False):
+        super().__init__(model_size, dtype, attn_impl, remat)
         self.proj_in = Dense(in_channels * math.prod(patch_size), self.width,
                              bias=True, dtype=dtype)
         self.proj_out = Dense(self.width, out_channels, bias=True, dtype=dtype)
@@ -93,8 +93,8 @@ class PackedDecoder(_PackedViT):
 
     def __init__(self, model_size: str = "tiny", patch_size: Sequence[int] = (4, 8, 8),
                  in_channels: int = 5, out_channels: int = 3, dtype=torch.bfloat16,
-                 attn_impl: str = "auto"):
-        super().__init__(model_size, dtype, attn_impl)
+                 attn_impl: str = "auto", remat: bool = False):
+        super().__init__(model_size, dtype, attn_impl, remat)
         self.proj_in = Dense(in_channels, self.width, bias=True, dtype=dtype)
         self.proj_out = Dense(self.width, out_channels * math.prod(patch_size),
                               bias=True, dtype=dtype)

@@ -64,7 +64,7 @@ class TiTok(nn.Module):
                  vq_codebook_size: int = 16384, vq_dim: int = 8,
                  vq_commitment_weight: float = 0.25, vq_decay: float = 0.99,
                  vq_dead_steps: int = 256, vq_entropy_weight: float = 0.0,
-                 vq_entropy_tau: float = 0.2):
+                 vq_entropy_tau: float = 0.2, remat: bool = False):
         super().__init__()
         if quantizer not in ("fsq", "vq"):
             raise ValueError(f"quantizer {quantizer!r}: expected 'fsq' or 'vq'")
@@ -85,11 +85,11 @@ class TiTok(nn.Module):
         self.encoder = PackedEncoder(
             model_size=encoder_size, patch_size=self.patch_size,
             in_channels=in_channels, out_channels=self.token_size, dtype=dtype,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, remat=remat)
         self.decoder = PackedDecoder(
             model_size=decoder_size, patch_size=self.patch_size,
             in_channels=self.token_size, out_channels=in_channels, dtype=dtype,
-            attn_impl=attn_impl)
+            attn_impl=attn_impl, remat=remat)
 
     @property
     def token_size(self) -> int:
@@ -151,7 +151,16 @@ def make_titok(config, cp_mesh=None, tp_mesh=None) -> TiTok:
         vq_dead_steps=int(vq.get("dead_steps", 256)),
         vq_entropy_weight=float(vq.get("entropy_weight", 0.0)),
         vq_entropy_tau=float(vq.get("entropy_tau", 0.2)),
+        remat=bool(config.training.main.get("remat", False)),
     )
+
+
+def state_tensors(params) -> dict[str, torch.Tensor]:
+    """A state dict of tensors from ``params``: tensors as they are (on any
+    device, so weights drawn on the card load without a host round trip),
+    anything else through a numpy copy."""
+    return {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.array(v))
+            for k, v in params.items()}
 
 
 def init_params(module: TiTok, seed: int = 0) -> dict[str, np.ndarray]:
@@ -177,8 +186,9 @@ def init_params(module: TiTok, seed: int = 0) -> dict[str, np.ndarray]:
 class TiTokModel:
     """Stateful wrapper with the reference's list-of-videos public API.
 
-    ``params``: a state dict (numpy arrays or tensors) such as
-    ``weights.from_flax_params`` returns; seeded random weights when None.
+    ``params``: a state dict (numpy arrays, or tensors on any device) such
+    as ``weights.from_flax_params`` returns; seeded random weights when
+    None.
     ``vq_state`` (EMA-VQ only): the codebook and EMA statistics under the
     buffer names (``init_vq_state``, ``weights.from_vq_state(s, "")``);
     taken from ``params``' ``quantize.*`` entries when it has them, else a
@@ -197,7 +207,7 @@ class TiTokModel:
         self.max_samples = max_samples_for(seq_len, min_grid, module.patch_size)
         if params is None:
             params = init_params(module, seed)
-        state = {k: torch.as_tensor(np.array(v)) for k, v in params.items()}
+        state = state_tensors(params)
         if module.quantizer == "vq":
             if vq_state is None and "quantize.codebook" not in state:
                 vq_state = init_vq_state(torch.Generator().manual_seed(seed + 1),

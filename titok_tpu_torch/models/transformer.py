@@ -4,15 +4,18 @@ the KEEL alpha-scaled residual stack.
 Semantics follow reference ``model/base/transformer.py``:
 
 - ``Attn`` (ref ``:69-104``): RMSNorm pre-norm; one fused bias-free
-  ``to_qkv`` projection producing q + output gate + k + v; RoPE on q and k;
-  segment attention over the packed buffer; output gated by
-  ``sigmoid(gate)``; bias-free ``out_proj``.
+  ``to_qkv`` projection producing q + output gate + k + v; RoPE on q and k
+  (inside the attention kernels under ``attn_impl: flash_rope``); segment
+  attention over the packed buffer; output gated by ``sigmoid(gate)``;
+  bias-free ``out_proj``.
 - ``GEGLU`` (ref ``:36-56``): inner dim ``mult*(2/3)*dim`` rounded up to a
   multiple of 32; RMSNorm pre-norm; ``gelu(gate) * x`` with exact (erf)
   GELU; no biases.
 - ``ResidualAttentionBlock`` (ref ``:107-146``): layer 0 is a pre-LN
   residual; layers >= 1 use ``x = alpha*x + sublayer(x)`` followed by a
-  post-RMSNorm with ``alpha = 2 * num_layers`` (KEEL).
+  post-RMSNorm with ``alpha = 2 * num_layers`` (KEEL). With ``remat`` each
+  ``Attn`` and ``GEGLU`` call is checkpointed (the JAX package's
+  ``nn.remat``): its activations are recomputed in the backward.
 
 Submodule names mirror the flax module tree (``attn_0.to_qkv`` …), so the
 flax parameters map onto the state dict mechanically (``weights.py``).
@@ -27,6 +30,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from titok_tpu_torch.models.rope import apply_rotary_emb
 from titok_tpu_torch.ops.attention import segment_attention
@@ -66,10 +70,18 @@ class Attn(nn.Module):
         qkv = self.to_qkv(self.pre_ln(x))
         q, gate, k, v = torch.split(
             qkv, [self.dim, self.dim, self.gqa_dim, self.gqa_dim], dim=-1)
-        q = apply_rotary_emb(q.reshape(S, self.q_heads, self.head_dim), rope_cos, rope_sin)
-        k = apply_rotary_emb(k.reshape(S, self.kv_heads, self.head_dim), rope_cos, rope_sin)
+        q = q.reshape(S, self.q_heads, self.head_dim)
+        k = k.reshape(S, self.kv_heads, self.head_dim)
         v = v.reshape(S, self.kv_heads, self.head_dim).contiguous()
-        o = segment_attention(q, k, v, segment_ids, impl=self.attn_impl)
+        if self.attn_impl == "flash_rope":
+            # the kernels rotate q and k as they load them: pass them raw
+            # (copied out of the to_qkv row, as the kernels take [S, H*64])
+            o = segment_attention(q.contiguous(), k.contiguous(), v, segment_ids,
+                                  impl=self.attn_impl, rope_cos=rope_cos, rope_sin=rope_sin)
+        else:
+            q = apply_rotary_emb(q, rope_cos, rope_sin)
+            k = apply_rotary_emb(k, rope_cos, rope_sin)
+            o = segment_attention(q, k, v, segment_ids, impl=self.attn_impl)
         o = o.reshape(S, self.dim) * torch.sigmoid(gate)
         return self.out_proj(o)
 
@@ -92,9 +104,10 @@ class GEGLU(nn.Module):
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, embed_dim: int = 512, heads: Sequence[int] = (8, 2),
                  mlp_ratio: float = 4.0, num_layer: int = 2, dtype=torch.bfloat16,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", remat: bool = False):
         super().__init__()
         self.num_layer = num_layer
+        self.remat = remat
         for i in range(num_layer):
             self.add_module(f"attn_{i}", Attn(embed_dim, heads, dtype=dtype,
                                               attn_impl=attn_impl))
@@ -103,13 +116,22 @@ class ResidualAttentionBlock(nn.Module):
                 self.add_module(f"attn_post_ln_{i - 1}", RMSNorm(embed_dim))
                 self.add_module(f"ffd_post_ln_{i - 1}", RMSNorm(embed_dim))
 
+    def _sublayer(self, module: nn.Module):
+        """``module``, or under remat with grad enabled its checkpointed
+        call: the backward replays its forward (serving never pays)."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return module
+        # no sublayer draws random numbers, so no RNG state to stash
+        return lambda *args: checkpoint(module, *args, use_reentrant=False,
+                                        preserve_rng_state=False)
+
     def forward(self, x, rope_cos, rope_sin, segment_ids):
         # 2 * layers (8, 16, 24 or 48) is exact in bf16, so the scalar equals
         # alpha cast to the compute dtype, as the reference multiplies
         alpha = float(self.num_layer * 2)
         for i in range(self.num_layer):
-            attn = getattr(self, f"attn_{i}")
-            ffd = getattr(self, f"ffd_{i}")
+            attn = self._sublayer(getattr(self, f"attn_{i}"))
+            ffd = self._sublayer(getattr(self, f"ffd_{i}"))
             if i == 0:  # standard pre-LN residual (ref :128-130)
                 x = x + attn(x, rope_cos, rope_sin, segment_ids)
                 x = x + ffd(x)

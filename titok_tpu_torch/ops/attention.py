@@ -10,7 +10,8 @@ segment_ids[j]``.
   asks for it.
 - :func:`titok_tpu_torch.ops.flash_attention_mh.flash_segment_attention_mh`
   — the hand-written CUDA kernel for CUDA tensors (its plain version for
-  CPU tensors).
+  CPU tensors); with ``impl='flash_rope'`` the kernels that rotate the
+  unrotated q and k by the RoPE tables themselves.
 
 Both handle GQA (q heads a multiple of kv heads) with an fp32 softmax.
 """
@@ -18,6 +19,8 @@ Both handle GQA (q heads a multiple of kv heads) with an fp32 softmax.
 from __future__ import annotations
 
 import torch
+
+from titok_tpu_torch.ops.flash_attention_mh import flash_segment_attention_mh
 
 NEG_INF = -1e30
 
@@ -60,26 +63,28 @@ def segment_attention(
     segment_ids: torch.Tensor,
     scale: float | None = None,
     impl: str = "auto",
+    rope_cos: torch.Tensor | None = None,
+    rope_sin: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Dispatching entry point used by the transformer.
 
     ``impl``: 'auto' and 'flash' take the hand-written CUDA kernel for CUDA
-    tensors and its plain version for CPU tensors; 'reference' is the dense
-    version on any device. 'flash_rope' and 'flash_v1' name JAX kernels not
-    ported yet.
+    tensors and its plain version for CPU tensors; 'flash_rope' the same
+    with RoPE fused (pass UNROTATED q/k plus ``rope_cos``/``rope_sin``);
+    'reference' is the dense version on any device. 'flash_v1' names a JAX
+    kernel not ported yet.
     """
     if impl in ("auto", "flash"):
-        from titok_tpu_torch.ops.flash_attention_mh import flash_segment_attention_mh
-
         return flash_segment_attention_mh(q, k, v, segment_ids, scale=scale)
+    if impl == "flash_rope":
+        if rope_cos is None or rope_sin is None:
+            raise ValueError("attn_impl 'flash_rope' needs rope_cos and rope_sin")
+        return flash_segment_attention_mh(q, k, v, segment_ids, scale=scale,
+                                          rope_cos=rope_cos, rope_sin=rope_sin)
     if impl == "reference":
         return segment_attention_reference(q, k, v, segment_ids, scale)
-    if impl == "flash_rope":
-        raise NotImplementedError(
-            "attn_impl 'flash_rope' (RoPE fused into the kernel) is not ported "
-            "yet: ROADMAP queue 2, _rope_fwd/_rope_bwd")
     if impl == "flash_v1":
         raise NotImplementedError(
             "attn_impl 'flash_v1' (head-per-grid-row kernel) is not ported "
-            "yet: ROADMAP queue 2, _flash_fwd/_flash_bwd")
+            "yet: ROADMAP queue 2 item 5, _flash_fwd/_flash_bwd")
     raise ValueError(f"unknown attention impl {impl!r}")

@@ -1,12 +1,16 @@
 """Segment-masked GQA flash attention: hand-written CUDA kernels (forward
-and backward) and their plain PyTorch versions.
+and backward, plain and with RoPE fused) and their plain PyTorch versions.
 
 Port of the JAX package's multi-head Pallas kernels in
 ``titok_tpu/ops/flash_attention_mh.py``: the forward ``_mh_fwd`` →
 ``_fwd_kernel`` becomes ``csrc/flash_segment_attn_fwd.cu``; the backward
 ``_mh_bwd`` → ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (the
 ``custom_vjp`` of ``_mh``) becomes ``csrc/flash_segment_attn_bwd.cu``. The
-source notes say what bounds each on the H100 and how it is laid out.
+RoPE-fused pair (``attn_impl: flash_rope``: ``_rope_fwd`` →
+``_fwd_kernel_rope``, ``_rope_bwd`` → ``_bwd_dq_kernel_rope`` and
+``_bwd_dkv_kernel_rope``, the ``custom_vjp`` ``_mh_rope``) is the
+``kRope`` instantiation of the same kernels, with entries of their own.
+The source notes say what bounds each on the H100 and how it is laid out.
 
 - :func:`flash_segment_attention_mh` — the entry point the model calls.
   When grad is enabled and an input requires grad it goes through
@@ -21,6 +25,11 @@ source notes say what bounds each on the H100 and how it is laid out.
   computed densely one head and one chunk of q rows at a time (the
   stacked discriminator buffer has 24,752 rows: one dense f32 score matrix
   for all heads would not fit).
+- With ``rope_cos``/``rope_sin`` tables, q and k come in unrotated and
+  the rope kernels rotate them as they load them: :class:`_FlashSegmentAttnRope`,
+  :func:`_rope_fwd` / :func:`_rope_bwd`, and the plain versions
+  :func:`flash_segment_attention_mh_rope_reference` /
+  :func:`flash_segment_attention_mh_rope_bwd_reference`.
 
 ``launches`` counts kernel launches per kernel and instantiation; a run
 reads it to show that its path went through the kernels.
@@ -33,13 +42,18 @@ import functools
 
 import torch
 
+from titok_tpu_torch.models.rope import apply_rotary_emb
+
 NEG_INF = -1e30
 PAD_ID = 2**30  # pad slots (segment 0) sit after every sample
 
 # kernel launches per kernel and instantiation: "bf16"/"f32" are the forward
-# (mma.sync and FMA kernels), "bwd_dq_*"/"bwd_dkv_*" the two backward kernels
+# (mma.sync and FMA kernels), "bwd_dq_*"/"bwd_dkv_*" the two backward
+# kernels, "rope_*" the same three with RoPE fused
 launches = {"bf16": 0, "f32": 0, "bwd_dq_bf16": 0, "bwd_dkv_bf16": 0,
-            "bwd_dq_f32": 0, "bwd_dkv_f32": 0}
+            "bwd_dq_f32": 0, "bwd_dkv_f32": 0,
+            "rope_bf16": 0, "rope_f32": 0, "rope_bwd_dq_bf16": 0, "rope_bwd_dkv_bf16": 0,
+            "rope_bwd_dq_f32": 0, "rope_bwd_dkv_f32": 0}
 # elements of one dense f32 [q rows, Sk] block in the plain versions (1 GiB)
 _DENSE_ELEMS = 2**28
 
@@ -128,9 +142,11 @@ def flash_segment_attention_mh_bwd_reference(
     dout: torch.Tensor,  # [S, Hq, D], the output gradient
     scale: float | None = None,
     k_segment_ids: torch.Tensor | None = None,
+    f32_grads: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' function computed densely: ``(dq, dk, dv)`` in
-    q's dtype; dk/dv summed over each kv head's group of q heads.
+    q's dtype (in f32, unrounded, with ``f32_grads``); dk/dv summed over
+    each kv head's group of q heads.
 
     Same arithmetic as the kernels (and ``_bwd_dq_kernel`` /
     ``_bwd_dkv_kernel``): ``p = mask ? exp(s - lse) : 0``, ``ds = p * (dp -
@@ -157,7 +173,62 @@ def flash_segment_attention_mh_bwd_reference(
         ds = ds.to(dt).to(f32)
         dq[a:b, h] = ds @ kf
         dk[:, hk] += ds.T @ qf
+    if f32_grads:
+        return dq, dk, dv
     return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _k_tables(cos, sin, k_cos, k_sin):
+    """k's tables: its own when given, else q's (then k has q's rows)."""
+    if (k_cos is None) != (k_sin is None):
+        raise ValueError("give both k_rope_cos and k_rope_sin, or neither")
+    return (cos, sin) if k_cos is None else (k_cos, k_sin)
+
+
+def _inverse_rotary_f32(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`apply_rotary_emb` on an f32 ``[L, H, D]``
+    gradient, kept in f32: pair p < P becomes ``(x0 c + x1 s, x1 c - x0
+    s)``, one rounding per product and sum, as the backward kernels apply
+    it to their accumulators."""
+    L, H, D = x.shape
+    P = cos.shape[-1]
+    xf = x.reshape(L, H, D // 2, 2)
+    x0, x1 = xf[:, :, :P, 0], xf[:, :, :P, 1]
+    c, s = cos[:, None, :], sin[:, None, :]
+    rot = torch.stack([x0 * c + x1 * s, x1 * c - x0 * s], dim=-1)
+    return torch.cat([rot, xf[:, :, P:, :]], dim=2).reshape(L, H, D)
+
+
+def flash_segment_attention_mh_rope_reference(
+    q, k, v, segment_ids, rope_cos, rope_sin, scale=None, k_segment_ids=None,
+    k_rope_cos=None, k_rope_sin=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rope forward kernel's function: q and k rotated by the port's
+    :func:`apply_rotary_emb` (fp32, rounded to their dtype), then the plain
+    forward. ``rope_cos``/``rope_sin`` f32 ``[S, P]``; k's tables
+    ``[Sk, P]`` default to q's."""
+    kc, ks = _k_tables(rope_cos, rope_sin, k_rope_cos, k_rope_sin)
+    return flash_segment_attention_mh_reference(
+        apply_rotary_emb(q, rope_cos, rope_sin), apply_rotary_emb(k, kc, ks), v,
+        segment_ids, scale, k_segment_ids)
+
+
+def flash_segment_attention_mh_rope_bwd_reference(
+    q, k, v, segment_ids, rope_cos, rope_sin, out, lse, dout, scale=None,
+    k_segment_ids=None, k_rope_cos=None, k_rope_sin=None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rope backward kernels' function: the plain backward on the
+    rotated q and k with dq and dk kept in f32, the inverse rotation
+    applied in f32, then one rounding to q's dtype (the kernels' roundings,
+    not those of autograd through :func:`apply_rotary_emb`, which would
+    round the rotated grads twice)."""
+    kc, ks = _k_tables(rope_cos, rope_sin, k_rope_cos, k_rope_sin)
+    dq, dk, dv = flash_segment_attention_mh_bwd_reference(
+        apply_rotary_emb(q, rope_cos, rope_sin), apply_rotary_emb(k, kc, ks), v, segment_ids,
+        out, lse, dout, scale, k_segment_ids, f32_grads=True)
+    dt = q.dtype
+    return (_inverse_rotary_f32(dq, rope_cos, rope_sin).to(dt),
+            _inverse_rotary_f32(dk, kc, ks).to(dt), dv.to(dt))
 
 
 def _check(q, k, v, seg_q, seg_k) -> None:
@@ -189,6 +260,23 @@ def _check(q, k, v, seg_q, seg_k) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _check_rope(q, k, cos, sin, k_cos, k_sin) -> int:
+    """The tables the rope kernels take: f32, contiguous, on q's device,
+    ``[S, P]`` for q and ``[Sk, P]`` for k with one P in 1..32. Returns P."""
+    S, Sk = q.shape[0], k.shape[0]
+    P = cos.shape[-1] if cos.dim() == 2 else -1
+    for name, t, rows in (("rope_cos", cos, S), ("rope_sin", sin, S),
+                          ("k_rope_cos", k_cos, Sk), ("k_rope_sin", k_sin, Sk)):
+        if t.shape != (rows, P) or not 1 <= P <= 32:
+            raise ValueError(f"{name} is {tuple(t.shape)}: want [{rows}, P] with one P "
+                             f"in 1..32 (S={S}, Sk={Sk})")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be f32, got {t.dtype}")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor on {q.device}")
+    return P
+
+
 @functools.cache
 def _kernel():
     """The C entry point of ``csrc/flash_segment_attn_fwd.cu``, built at
@@ -215,6 +303,23 @@ def _bwd_kernels():
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fns
+
+
+@functools.cache
+def _rope_kernels():
+    """The three rope C entry points (forward, dq, dk/dv) of the two
+    sources, built at first use. Each takes q, k, v, the ids and the four
+    tables, then P, then what the plain entry takes after its ids."""
+    from titok_tpu_torch.ops import _build
+
+    fwd = _build.load("flash_segment_attn_fwd").flash_segment_attn_rope_fwd
+    bwd = _build.load("flash_segment_attn_bwd")
+    dq, dkv = bwd.flash_segment_attn_rope_bwd_dq, bwd.flash_segment_attn_rope_bwd_dkv
+    for fn, n_ptr in ((fwd, 2), (dq, 4), (dkv, 5)):
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [
+            ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fwd, dq, dkv
 
 
 def _fwd(q, k, v, segment_ids, scale=None,
@@ -246,6 +351,19 @@ def _fwd(q, k, v, segment_ids, scale=None,
     return out, lse
 
 
+def _check_bwd(q, out, lse, dout) -> None:
+    S, Hq, _ = q.shape
+    for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
+                                  ("dout", dout, q.shape, q.dtype),
+                                  ("lse", lse, (S, Hq), torch.float32)):
+        if t.shape != shape or t.dtype != dtype:
+            raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype}, want "
+                             f"{tuple(shape)} {dtype}")
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"tensor on {q.device}")
+
+
 def _bwd(q, k, v, segment_ids, out, lse, dout, scale=None,
          k_segment_ids=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)``: the two backward kernels for CUDA tensors, the
@@ -257,17 +375,9 @@ def _bwd(q, k, v, segment_ids, out, lse, dout, scale=None,
         raise ValueError(f"no kernel for device {q.device}")
     seg_k = segment_ids if k_segment_ids is None else k_segment_ids
     _check(q, k, v, segment_ids, seg_k)
+    _check_bwd(q, out, lse, dout)
     S, Hq, D = q.shape
     Sk, Hkv, _ = k.shape
-    for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
-                                  ("dout", dout, q.shape, q.dtype),
-                                  ("lse", lse, (S, Hq), torch.float32)):
-        if t.shape != shape or t.dtype != dtype:
-            raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype}, want "
-                             f"{tuple(shape)} {dtype}")
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"tensor on {q.device}")
     if scale is None:
         scale = D ** -0.5
     delta = _delta(out, dout)
@@ -287,6 +397,78 @@ def _bwd(q, k, v, segment_ids, out, lse, dout, scale=None,
         if err != 0:
             raise RuntimeError(f"flash_segment_attn_bwd_dkv launch failed: CUDA error {err}")
         launches[f"bwd_dkv_{key}"] += 1
+    return dq, dk, dv
+
+
+def _rope_fwd(q, k, v, segment_ids, cos, sin, scale=None, k_segment_ids=None, k_cos=None,
+              k_sin=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of attention over unrotated q and k with RoPE fused:
+    the rope forward kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if q.device.type == "cpu":
+        return flash_segment_attention_mh_rope_reference(
+            q, k, v, segment_ids, cos, sin, scale, k_segment_ids, k_cos, k_sin)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    seg_k = segment_ids if k_segment_ids is None else k_segment_ids
+    k_cos, k_sin = _k_tables(cos, sin, k_cos, k_sin)
+    _check(q, k, v, segment_ids, seg_k)
+    P = _check_rope(q, k, cos, sin, k_cos, k_sin)
+    S, Hq, D = q.shape
+    Sk, Hkv, _ = k.shape
+    if scale is None:
+        scale = D ** -0.5
+    out = torch.empty_like(q)
+    lse = torch.empty((S, Hq), dtype=torch.float32, device=q.device)
+    is_bf16 = q.dtype == torch.bfloat16
+    with torch.cuda.device(q.device):
+        err = _rope_kernels()[0](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), seg_k.data_ptr(),
+            cos.data_ptr(), sin.data_ptr(), k_cos.data_ptr(), k_sin.data_ptr(), P,
+            out.data_ptr(), lse.data_ptr(), S, Sk, Hq, Hkv, float(scale), int(is_bf16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_segment_attn_rope_fwd launch failed: CUDA error {err}")
+    launches["rope_bf16" if is_bf16 else "rope_f32"] += 1
+    return out, lse
+
+
+def _rope_bwd(q, k, v, segment_ids, cos, sin, out, lse, dout, scale=None, k_segment_ids=None,
+              k_cos=None, k_sin=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` with respect to the unrotated q and k: the rope dq
+    and dk/dv kernels for CUDA tensors, the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_segment_attention_mh_rope_bwd_reference(
+            q, k, v, segment_ids, cos, sin, out, lse, dout, scale, k_segment_ids, k_cos, k_sin)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    seg_k = segment_ids if k_segment_ids is None else k_segment_ids
+    k_cos, k_sin = _k_tables(cos, sin, k_cos, k_sin)
+    _check(q, k, v, segment_ids, seg_k)
+    _check_bwd(q, out, lse, dout)
+    P = _check_rope(q, k, cos, sin, k_cos, k_sin)
+    S, Hq, D = q.shape
+    Sk, Hkv, _ = k.shape
+    if scale is None:
+        scale = D ** -0.5
+    delta = _delta(out, dout)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    key = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    _, dq_fn, dkv_fn = _rope_kernels()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(),
+                  seg_k.data_ptr(), cos.data_ptr(), sin.data_ptr(), k_cos.data_ptr(),
+                  k_sin.data_ptr(), P, dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
+        tail = (S, Sk, Hq, Hkv, float(scale), int(key == "bf16"), stream)
+        err = dq_fn(*common, dq.data_ptr(), *tail)
+        if err != 0:
+            raise RuntimeError(f"flash_segment_attn_rope_bwd_dq launch failed: CUDA error {err}")
+        launches[f"rope_bwd_dq_{key}"] += 1
+        err = dkv_fn(*common, dk.data_ptr(), dv.data_ptr(), *tail)
+        if err != 0:
+            raise RuntimeError(f"flash_segment_attn_rope_bwd_dkv launch failed: CUDA error {err}")
+        launches[f"rope_bwd_dkv_{key}"] += 1
     return dq, dk, dv
 
 
@@ -310,6 +492,32 @@ class _FlashSegmentAttn(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class _FlashSegmentAttnRope(torch.autograd.Function):
+    """Attention with RoPE fused (the ``custom_vjp`` ``_mh_rope`` of the JAX
+    package): the forward saves the raw q and k, the tables, ``out`` and
+    ``lse``; the backward runs the rope dq and dk/dv kernels (plain version
+    on the CPU). The tables get no grads. Under checkpointing the forward
+    runs again in the backward, kernel launch included."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, k_segment_ids, cos, sin, k_cos, k_sin, scale):
+        out, lse = _rope_fwd(q, k, v, segment_ids, cos, sin, scale, k_segment_ids, k_cos,
+                             k_sin)
+        ctx.save_for_backward(q, k, v, segment_ids, k_segment_ids, cos, sin, k_cos, k_sin,
+                              out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, segment_ids, k_segment_ids, cos, sin, k_cos, k_sin, out, lse = \
+            ctx.saved_tensors
+        dq, dk, dv = _rope_bwd(q, k, v, segment_ids, cos, sin, out, lse,
+                               dout.to(q.dtype).contiguous(), ctx.scale, k_segment_ids,
+                               k_cos, k_sin)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
 def flash_segment_attention_mh(
     q: torch.Tensor,  # [S, Hq, D]
     k: torch.Tensor,  # [Sk, Hkv, D]
@@ -318,6 +526,10 @@ def flash_segment_attention_mh(
     scale: float | None = None,
     k_segment_ids: torch.Tensor | None = None,  # int32 [Sk] (defaults to q's)
     max_seg_len: int | None = None,
+    rope_cos: torch.Tensor | None = None,  # f32 [S, P]: fuse RoPE of q (and k)
+    rope_sin: torch.Tensor | None = None,
+    k_rope_cos: torch.Tensor | None = None,  # f32 [Sk, P] (defaults to q's)
+    k_rope_sin: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Segment-masked attention ``[S, Hq, D]`` in q's dtype, differentiable
     in q, k and v.
@@ -326,12 +538,22 @@ def flash_segment_attention_mh(
     real id, as the packer lays them out. ``max_seg_len`` is accepted for
     parity with the JAX entry point and not needed: each kernel block
     visits exactly the rows its segments span, so nothing is ever
-    truncated."""
+    truncated. With ``rope_cos``/``rope_sin``, q and k are the UNROTATED
+    projections: the kernels rotate them (the first P pairs of each head)
+    as they load them, and the grads are those of the unrotated q and k."""
     del max_seg_len
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        if scale is None:
-            scale = q.shape[-1] ** -0.5
-        return _FlashSegmentAttn.apply(q, k, v, segment_ids, k_segment_ids,
-                                       float(scale))
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if rope_cos is not None:
+        if rope_sin is None:
+            raise ValueError("rope_cos needs rope_sin")
+        if grad:
+            return _FlashSegmentAttnRope.apply(q, k, v, segment_ids, k_segment_ids, rope_cos,
+                                               rope_sin, k_rope_cos, k_rope_sin, float(scale))
+        return _rope_fwd(q, k, v, segment_ids, rope_cos, rope_sin, scale, k_segment_ids,
+                         k_rope_cos, k_rope_sin)[0]
+    if grad:
+        return _FlashSegmentAttn.apply(q, k, v, segment_ids, k_segment_ids, float(scale))
     return _fwd(q, k, v, segment_ids, scale, k_segment_ids)[0]

@@ -23,8 +23,10 @@ Optimizers mirror the JAX package's optax chain
 - the non-finite guard zeroes the grads and the optimizer still steps, so
   the moments decay, the count advances and weight decay applies.
 
-Not ported yet (each raises, naming its ROADMAP entry): the adafactor
-optimizer, ``training.main.remat`` and ``training.main.steps_per_call``.
+``training.main.remat`` checkpoints every ``Attn`` and ``GEGLU`` call of
+the tokenizer and the discriminator (``models/transformer.py``); the step
+itself does not change. Not ported yet (each raises, naming its ROADMAP
+entry): the adafactor optimizer and ``training.main.steps_per_call``.
 """
 
 from __future__ import annotations
@@ -32,11 +34,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Sequence
 
-import numpy as np
 import torch
 
 from titok_tpu_torch import resolve_device
-from titok_tpu_torch.models.titok import TiTok, init_params
+from titok_tpu_torch.models.titok import TiTok, init_params, state_tensors
 from titok_tpu_torch.models.vq import init_vq_state, init_vq_state_from_latents
 from titok_tpu_torch.train_utils.lr_schedulers import get_scheduler
 
@@ -112,10 +113,6 @@ class TrainStepBuilder:
                 "item 6, train-step options)")
         if name != "adamw":
             raise ValueError(f"optimizer.name={name!r}: expected 'adamw' or 'adafactor'")
-        if bool(cm.get("remat", False)):
-            raise NotImplementedError(
-                "training.main.remat is not ported yet (ROADMAP queue 1 item 6, "
-                "train-step options)")
         if int(cm.get("steps_per_call", 1)) > 1:
             raise NotImplementedError(
                 "training.main.steps_per_call > 1 is not ported yet (ROADMAP queue 1 "
@@ -138,8 +135,8 @@ class TrainStepBuilder:
     def init_state(self, seed: int | None = None, gen_params: dict | None = None,
                    disc_params: dict | None = None, device=None,
                    batch: dict | None = None) -> TrainState:
-        """Load the params (state dicts, e.g. from ``weights.
-        from_flax_train_state``; seeded init when None), move both modules
+        """Load the params (state dicts of numpy arrays or tensors, e.g. from
+        ``weights.from_flax_train_state``; seeded init when None), move both modules
         to ``device`` (``cuda`` when None) and make fresh optimizers.
 
         EMA-VQ: the codebook and its statistics come from ``gen_params``'
@@ -154,7 +151,7 @@ class TrainStepBuilder:
         ls = self.loss_system
         if gen_params is None:
             gen_params = init_params(self.model, seed)
-        sd = {k: torch.as_tensor(np.array(v)) for k, v in gen_params.items()}
+        sd = state_tensors(gen_params)
         vq = self.model.quantizer == "vq"
         data_init = vq and "quantize.codebook" not in sd
         if data_init:
@@ -177,8 +174,7 @@ class TrainStepBuilder:
         if ls.use_disc:
             if disc_params is None:
                 disc_params = ls.init_disc_params(seed + 1)
-            ls.disc_model.load_state_dict(
-                {k: torch.as_tensor(np.array(v)) for k, v in disc_params.items()})
+            ls.disc_model.load_state_dict(state_tensors(disc_params))
             ls.disc_model.to(dev).train()
             disc_opt = self._adamw(ls.disc_model.parameters())
         noise_gen = torch.Generator(device=dev)
