@@ -70,12 +70,31 @@ toolkit. Phases, in order; any failure exits non-zero:
    ms/step and a profile of one step; then the same model in f32 at
    ``train_seq_len`` 2048 with remat on and off from the same weights,
    batches and noise: losses and grads must agree;
-12. one JSON line listing every kernel with its numbers; ``launches`` is
+12. the three v1 attention kernels (``attn_impl: flash_v1``) against their
+   plain versions, bf16 and f32: the bench shape, the base_vq serving
+   layout at heads 12/4 and 16/4, a ragged packing, the tiny stacked
+   discriminator buffer (24,752 rows); per-head and group-summed dk/dv; the
+   forward against the row 1 kernel; planted faults (the last overlapping
+   kv tile skipped, dk/dv of one q head of each group, p not rounded before
+   p.v, lse with the wrong scale) that the gates must reject; the four
+   times at the bench shape and the base_vq layout at 12/4;
+13. the trainer: ``Trainer(cfg).fit()`` of ``configs/tiny_fsq16k.yaml`` at
+   full width through the v1 kernels (synthetic data, LPIPS off), 8 steps
+   with eval at 4 and 8 and checkpoints every 4: launches per step and in
+   all, zero launches of the other attention kernels, finite metrics,
+   device PSNR/SSIM, codebook scores, checkpoints, ``config.yaml``, the
+   trainer's rate against the bare step; then the CLI ``python -m
+   titok_tpu_torch.train`` resuming that run to step 12, and a fresh run
+   stopped by SIGTERM (exit 143, a checkpoint at the step reached) and
+   resumed; then f32 at ``train_seq_len`` 2048, 4 steps straight against
+   2 + save + resume + 2 (losses, params, the R1/R2 noise generator);
+14. one JSON line listing every kernel with its numbers; ``launches`` is
    the kernel's count on the training path of its dtype (the VQ kernel's:
    the base_vq training path; the rope kernels': the large training path,
-   f32 its remat run), and ``launches_by_path`` its count on each path,
-   each read from counters set to 0 just before that path;
-13. last line: ``{"ok": true, "device": {...}}``.
+   f32 its remat run; the v1 kernels': the trainer's fit, f32 the straight
+   f32 run), and ``launches_by_path`` its count on each path, each read
+   from counters set to 0 just before that path;
+15. last line: ``{"ok": true, "device": {...}}``.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -101,6 +120,11 @@ BWD_REPLACES = {"dq": "titok_tpu/ops/flash_attention_mh.py:404",   # _bwd_dq_ker
 ROPE_REPLACES = {"fwd": "titok_tpu/ops/flash_attention_mh.py:165",   # _fwd_kernel_rope
                  "dq": "titok_tpu/ops/flash_attention_mh.py:229",    # _bwd_dq_kernel_rope
                  "dkv": "titok_tpu/ops/flash_attention_mh.py:289"}   # _bwd_dkv_kernel_rope
+# the v1 kernels (attn_impl: flash_v1)
+V1_SRC = "titok_tpu_torch/csrc/flash_segment_attn_v1.cu"
+V1_REPLACES = {"fwd": "titok_tpu/ops/flash_attention.py:63",    # _fwd_kernel, via _flash_fwd
+               "dq": "titok_tpu/ops/flash_attention.py:166",    # _bwd_dq_kernel, via _flash_bwd
+               "dkv": "titok_tpu/ops/flash_attention.py:210"}   # _bwd_dkv_kernel, via _flash_bwd
 LARGE = os.path.join(REPO, "configs", "large.yaml")
 VQ_SRC = "titok_tpu_torch/csrc/vq_nearest.cu"
 VQ_REPLACES = "titok_tpu/ops/vq_distance.py:25"  # _vq_kernel, via vq_nearest_pallas
@@ -217,7 +241,8 @@ def phase_build():
         for line in rec["ptxas"].splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"    {line.strip()}")
-    for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd", "vq_nearest"):
+    for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd", "flash_segment_attn_v1",
+                 "vq_nearest"):
         check(name in info, f"no {name} build")
     return card
 
@@ -840,7 +865,8 @@ def print_breakdown(prof, title: str, wall_ms: float, top: int) -> None:
         return
     print(f"breakdown of {title} device busy {busy:.3f} ms ({busy / wall_ms * 100:.1f} % of "
           f"wall); top device events, then the port's own kernels below them:")
-    own = ("fwd_bf16_mma", "fwd_f32_fma", "bwd_dq_", "bwd_dkv_", "vq_partial", "vq_reduce")
+    own = ("fwd_bf16_mma", "fwd_f32_fma", "bwd_dq_", "bwd_dkv_", "vq_partial", "vq_reduce",
+           "v1_fwd_", "v1_bwd_")
     for i, (key, dev_ms, count) in enumerate(rows):
         if i < top or any(k in key for k in own):
             print(f"    {dev_ms:8.4f} ms  x{count:<4d} {key[:90]}")
@@ -1823,6 +1849,584 @@ def phase_remat_large_f32(card: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# The v1 attention kernels (attn_impl: flash_v1) and the trainer, its
+# checkpoints and eval metrics, run on configs/tiny_fsq16k.yaml
+# ---------------------------------------------------------------------------
+
+
+def v1_fwd_gate(out, lse, r_out, r_lse, dname):
+    """A v1 forward ``(out, lse)`` against its plain version: the row 1 gate
+    (every entry within atol + rtol * |b|, lse within lse atol) and, as row
+    2's gate has it, rms(out - b) <= nrel * rms(b) at BWD_TOL's nrel. The
+    plain version rounds p where the kernel does (against the running max
+    of each 64-row kv tile), so in bf16 the two differ only where the f32
+    sum order moves an output to its neighbouring bf16 value; p left
+    unrounded moves a fifth of them. Returns (ok, line)."""
+    import torch
+
+    atol, rtol, lse_atol = TOL[dname]
+    nrel = BWD_TOL[dname][2]
+    o32, r32 = out.float(), r_out.float()
+    d = (o32 - r32).abs()
+    rel = d.square().mean().sqrt().item() / max(r32.square().mean().sqrt().item(), 1e-30)
+    err_lse = (lse - r_lse).abs().max().item()
+    ok = bool((d <= atol + rtol * r32.abs()).all()) and err_lse <= lse_atol and \
+        rel <= nrel and bool(torch.isfinite(o32).all())
+    return ok, (f"out max|d| {d.max().item():.3e}, rms ratio {rel:.2e} (nrel {nrel}), lse "
+                f"max|d| {err_lse:.3e}")
+
+
+def _skip_last_tiles(qmm, kmm):
+    """kv tile intervals with the last kv tile that overlaps each q tile
+    made to overlap nothing: what a kernel that stops one tile early
+    computes. Exact at tile-aligned layouts (the bench shape)."""
+    import torch
+
+    qm, km = qmm.cpu(), kmm.cpu()
+    over = (km[None, :, 0] <= qm[:, None, 1]) & (km[None, :, 1] >= qm[:, None, 0])
+    last = torch.tensor([int(torch.nonzero(r)[-1]) for r in over])
+    out = kmm.clone()
+    out[last.unique().to(kmm.device)] = 2**31 - 1
+    return out
+
+
+def phase_v1_kernels(card: str, train_cfg) -> dict:
+    """The three v1 kernels against their plain versions, bf16 and f32;
+    the forward against the row 1 kernel; planted faults; times."""
+    import torch
+    import torch.nn.functional as F
+
+    from titok_tpu_torch.ops import flash_attention as f1
+    from titok_tpu_torch.ops import flash_attention_mh as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    D = 64
+    disc_seg, _, sd = _stacked_disc_ids(train_cfg)
+    bench_seg = segments([576] * 10, 6144)
+    cases = [  # (label, ids, hq, hkv)
+        ("bench 10x576 4/2", bench_seg, 4, 2),
+        ("base_vq serving layout 12/4", BASE_SEG, 12, 4),
+        ("base_vq serving layout 16/4", BASE_SEG, 16, 4),
+        ("ragged 1..1892 4/2", segments([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299), 4, 2),
+        (f"tiny stacked disc 4x{sd} 4/2", disc_seg, 4, 2),
+    ]
+    res = {f"{k}_{d}": {"max_abs_err": 0.0} for k in ("fwd", "dq", "dkv") for d in ("bf16", "f32")}
+
+    def inputs(S, hq, hkv, dtype):
+        q = torch.randn(S, hq, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(S, hkv, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(S, hkv, D, generator=gen, device=dev).to(dtype)
+        do = torch.randn(S, hq, D, generator=gen, device=dev).to(dtype)
+        return q, k, v, do
+
+    def kernels(q, k, v, seg, do, fwd_kmm=None, bwd_kmm=None, lse_scale=1.0):
+        """The three kernels through their C entries' wrappers: (out, lse,
+        (dq, dk_h, dv_h)); ``*_kmm`` replace the kv tile intervals,
+        ``lse_scale`` scales the lse the forward hands on."""
+        key = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        scale = D ** -0.5
+        fq, fk = f1._intervals(seg, f1.TILES["fwd"][key])
+        out, lse = f1.launch_fwd(q, k, v, seg, fq, fk if fwd_kmm is None else fwd_kmm, scale)
+        lse = lse * lse_scale
+        bq, bk = f1._intervals(seg, f1.TILES["dq"][key])
+        bk = bk if bwd_kmm is None else bwd_kmm
+        delta = fa._delta(out, do)
+        dq = f1.launch_bwd_dq(q, k, v, seg, bq, bk, do, lse, delta, scale)
+        dk_h, dv_h = f1.launch_bwd_dkv(q, k, v, seg, bq, bk, do, lse, delta, scale)
+        return out, lse, (dq, dk_h, dv_h)
+
+    def summed(grads, hkv):
+        dq, dk_h, dv_h = grads
+        return dq, f1.group_sum(dk_h, hkv), f1.group_sum(dv_h, hkv)
+
+    for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for label, seg_np, hq, hkv in cases:
+            S = seg_np.shape[0]
+            gen.manual_seed(S * 100 + hq + 23)
+            q, k, v, do = inputs(S, hq, hkv, dtype)
+            seg = torch.from_numpy(seg_np).to(dev)
+            out, lse, grads = kernels(q, k, v, seg, do)
+            torch.cuda.synchronize()
+            r_out, r_lse = f1.flash_segment_attention_reference(q, k, v, seg)
+            ok_f, line_f = v1_fwd_gate(out, lse, r_out, r_lse, dname)
+            want_h = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, do,
+                                                              per_head=True)
+            ok_h, rows_h = bwd_gate(grads, want_h, dname)
+            ok_b, rows_b = bwd_gate(summed(grads, hkv), summed(want_h, hkv), dname)
+            # the row 1 kernel computes the same function (its kv tiles start
+            # where each q tile's interval starts, so p rounds elsewhere)
+            m_out, m_lse = fa._fwd(q, k, v, seg)
+            m32 = m_out.float()
+            atol, rtol, lse_atol = TOL[dname]
+            ok_m = bool(((out.float() - m32).abs() <= atol + rtol * m32.abs()).all()) and \
+                (lse - m_lse).abs().max().item() <= lse_atol
+            print(f"v1 kernels {dname} {label} S={S}: forward {line_f} {'ok' if ok_f else 'FAIL'}; "
+                  f"per-head dk/dv {'ok' if ok_h else 'FAIL'} ({_gate_line(rows_h)}); group-summed "
+                  f"{'ok' if ok_b else 'FAIL'} ({_gate_line(rows_b)}); vs the row 1 kernel out "
+                  f"max|d| {(out.float() - m32).abs().max().item():.3e} {'ok' if ok_m else 'FAIL'}")
+            check(ok_f and ok_h and ok_b, f"v1 kernels disagree with their plain versions: "
+                  f"{dname} {label}")
+            check(ok_m, f"the v1 forward disagrees with the row 1 kernel: {dname} {label}")
+            errs = [(out.float() - r_out.float()).abs().max().item()] + [
+                (a.float() - b.float()).abs().max().item() for a, b in zip(grads, want_h)]
+            for key, e in (("fwd", errs[0]), ("dq", errs[1]), ("dkv", max(errs[2:]))):
+                res[f"{key}_{dname}"]["max_abs_err"] = max(res[f"{key}_{dname}"]["max_abs_err"], e)
+            del q, k, v, do, out, lse, grads, r_out, r_lse, want_h, m_out, m_lse
+            torch.cuda.empty_cache()
+
+        # planted faults at the bench shape, each made by the kernels on
+        # altered inputs or outputs, or by the plain version, so it looks as
+        # a faulty kernel's output would
+        S, hq, hkv = 6144, 4, 2
+        gen.manual_seed(5)
+        q, k, v, do = inputs(S, hq, hkv, dtype)
+        seg = torch.from_numpy(bench_seg).to(dev)
+        out, lse, grads = kernels(q, k, v, seg, do)
+        r_out, r_lse = f1.flash_segment_attention_reference(q, k, v, seg)
+        want = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, do)
+        fwd_faults, bwd_faults = {}, {}
+        fq, fk = f1._intervals(seg, f1.TILES["fwd"][dname])
+        bq, bk = f1._intervals(seg, f1.TILES["dq"][dname])
+        skip_f, skip_b = _skip_last_tiles(fq, fk), _skip_last_tiles(bq, bk)
+        fwd_faults["the last overlapping kv tile skipped"] = kernels(
+            q, k, v, seg, do, fwd_kmm=skip_f)[:2]
+        bwd_faults["the last overlapping kv/q tile skipped"] = summed(
+            kernels(q, k, v, seg, do, bwd_kmm=skip_b)[2], hkv)
+        dq, dk_h, dv_h = grads
+        bwd_faults["dk/dv of only one q head of each group"] = (
+            dq, dk_h.view(S, hkv, hq // hkv, D)[:, :, 0].contiguous(),
+            dv_h.view(S, hkv, hq // hkv, D)[:, :, 0].contiguous())
+        # lse in log2 units: a kernel that folds log2(e) into the scale for
+        # exp2 and does not convert its lse back
+        wrong = kernels(q, k, v, seg, do, lse_scale=float(np.log2(np.e)))
+        fwd_faults["lse with the wrong scale (log2 units)"] = wrong[:2]
+        bwd_faults["the backward given lse with the wrong scale"] = summed(wrong[2], hkv)
+        if dname == "bf16":
+            p_out, p_lse = f1.flash_segment_attention_reference(q.float(), k.float(), v.float(), seg)
+            fwd_faults["p not rounded before p.v"] = (p_out.to(dtype), p_lse)
+        for name, (f_out, f_lse) in fwd_faults.items():
+            ok, line = v1_fwd_gate(f_out, f_lse, r_out, r_lse, dname)
+            print(f"  planted fault {dname}, {name}: forward gate "
+                  f"{'PASSED' if ok else 'REJECTED'} ({line})")
+            check(not ok, f"the {dname} v1 forward gate passes a planted fault: {name}")
+        for name, got in bwd_faults.items():
+            ok, rows = bwd_gate(got, want, dname)
+            print(f"  planted fault {dname}, {name}: backward gate "
+                  f"{'PASSED' if ok else 'REJECTED'} ({_gate_line(rows)})")
+            check(not ok, f"the {dname} v1 backward gate passes a planted fault: {name}")
+        del out, lse, grads, want, fwd_faults, bwd_faults, wrong, dq, dk_h, dv_h
+
+        # times at the bench shape (the numbers of the JSON line) and at the
+        # base_vq serving layout, heads 12/4: each kernel at its C entry on
+        # fixed buffers, the plain versions, one library call, the bound
+        fwd_fn, dq_fn, dkv_fn = f1._kernels()
+        for label, seg_np, hq, hkv, key in (("bench 10x576 4/2", bench_seg, 4, 2, None),
+                                            ("base heads 12/4", BASE_SEG, 12, 4, "at_base_12_4")):
+            S = seg_np.shape[0]
+            q, k, v, do = inputs(S, hq, hkv, dtype)
+            seg = torch.from_numpy(seg_np).to(dev)
+            out, lse = f1._fwd(q, k, v, seg)
+            delta = fa._delta(out, do)
+            fq, fk = f1._intervals(seg, f1.TILES["fwd"][dname])
+            bq, bk = f1._intervals(seg, f1.TILES["dq"][dname])
+            o2, l2 = torch.empty_like(q), torch.empty_like(lse)
+            dq, dk_h, dv_h = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+            stream = torch.cuda.current_stream().cuda_stream
+            tail = (S, hq, hkv, float(D ** -0.5), int(dname == "bf16"), stream)
+            head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr())
+            ft, bt = f1.TILES["fwd"][dname], f1.TILES["dq"][dname]
+            bwd_in = (do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+            ms = {"fwd": cuda_ms(lambda: fwd_fn(*head, fq.data_ptr(), fk.data_ptr(), *ft,
+                                                o2.data_ptr(), l2.data_ptr(), *tail), reps=100),
+                  "dq": cuda_ms(lambda: dq_fn(*head, bq.data_ptr(), bk.data_ptr(), *bt, *bwd_in,
+                                              dq.data_ptr(), *tail), reps=100),
+                  "dkv": cuda_ms(lambda: dkv_fn(*head, bq.data_ptr(), bk.data_ptr(), *bt, *bwd_in,
+                                                dk_h.data_ptr(), dv_h.data_ptr(), *tail),
+                                 reps=100)}
+            check(torch.equal(o2, out), "the timed forward launches changed their output")
+            wrap_fwd = cuda_ms(lambda: f1._fwd(q, k, v, seg), reps=100)
+            wrap_bwd = cuda_ms(lambda: f1._bwd(q, k, v, seg, out, lse, do), reps=100)
+            plain_fwd = cuda_ms(lambda: f1.flash_segment_attention_reference(q, k, v, seg),
+                                reps=5, warmup=1)
+            plain_bwd = cuda_ms(lambda: f1.flash_segment_attention_bwd_reference(
+                q, k, v, seg, out, lse, do), reps=5, warmup=1)
+            # yardstick only, never called by the port: SDPA with the
+            # block-diagonal bool mask, and its backward
+            qb = q.permute(1, 0, 2)[None].detach().requires_grad_()
+            kb = k.repeat_interleave(hq // hkv, dim=1).permute(1, 0, 2)[None].detach().requires_grad_()
+            vb = v.repeat_interleave(hq // hkv, dim=1).permute(1, 0, 2)[None].detach().requires_grad_()
+            rs = fa._remap_pad(seg)
+            mask = (rs[:, None] == rs[None, :])[None, None]
+            with torch.no_grad():
+                lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask),
+                                  reps=20)
+            ob = F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
+            dob = do.permute(1, 0, 2)[None]
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(ob, (qb, kb, vb), dob,
+                                                          retain_graph=True), reps=20)
+            # the bound of rows 1-2 (the same work): forward 2 products and
+            # out + lse; dq 3 products and dq; dk/dv 4 products and dk, dv
+            bounds = {"fwd": attn_bound_ms(seg_np, S, hq, hkv, D, dname),
+                      "dq": bwd_bound_ms(seg_np, S, S, hq, hkv, D, dname, 3, ("dq",)),
+                      "dkv": bwd_bound_ms(seg_np, S, S, hq, hkv, D, dname, 4, ("dkv",))}
+            parts = []
+            for kind in ("fwd", "dq", "dkv"):
+                bound, by, flops, nbytes = bounds[kind]
+                timing = dict(ms=ms[kind], plain_ms=plain_fwd if kind == "fwd" else plain_bwd,
+                              library_ms=lib_fwd if kind == "fwd" else lib_bwd,
+                              bound_ms=bound, bound_by=by)
+                parts.append(f"{kind} {ms[kind]:.4f} ms (bound {bound * 1e3:.2f} us, {by}; "
+                             f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; share "
+                             f"{bound / ms[kind]:.4f})")
+                if key is None:
+                    res[f"{kind}_{dname}"].update(timing)
+                else:
+                    res[f"{kind}_{dname}"][key] = timing
+            print(f"timing v1 {dname} {label} S={S} [{card}]: " + ", ".join(parts) +
+                  f"; through the wrappers forward {wrap_fwd:.4f} ms, backward (delta, both "
+                  f"kernels, group sums) {wrap_bwd:.4f} ms; plain forward {plain_fwd:.4f} ms, "
+                  f"plain backward {plain_bwd:.4f} ms; library (SDPA, bool mask) forward "
+                  f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms")
+            del q, k, v, do, out, lse, delta, o2, l2, dq, dk_h, dv_h, qb, kb, vb, ob, mask
+        torch.cuda.empty_cache()
+    return res
+
+
+TINY16K = os.path.join(REPO, "configs", "tiny_fsq16k.yaml")
+RUN_DIR = os.path.join(REPO, "build", "chip_smoke")  # git-ignored, emptied per run
+
+
+def tiny16k_overrides(run: str, **over) -> list[str]:
+    """configs/tiny_fsq16k.yaml as the trainer phases run it: synthetic
+    data, the v1 kernels, LPIPS off (not ported), 8 steps with eval at 4 and
+    8 over 16 clips, checkpoints every 4 steps keeping 2, into
+    ``RUN_DIR/<run>``."""
+    base = {"dataset.train_dataset": "synthetic", "dataset.eval_dataset": "synthetic",
+            "training.main.attn_impl": "flash_v1", "tokenizer.losses.perceptual_weight": 0,
+            "optimizer.warmup_steps": 2, "training.main.max_steps": 8,
+            "general.wandb.log_step_interval": 1, "training.eval.eval_step_interval": 4,
+            "training.eval.eval_samples": 16, "general.checkpoints.save_interval": 4,
+            "general.checkpoints.keep_prior": 2,
+            "general.checkpoints.save_path": os.path.join(RUN_DIR, run), **over}
+    return [f"{k}={v}" for k, v in base.items()]
+
+
+def _jsonl(run: str) -> list[dict]:
+    """The records of a run's metrics.jsonl; a line still being written
+    is left out."""
+    path = os.path.join(RUN_DIR, run, "metrics.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.endswith("\n")]
+
+
+def _count_steps(trainer, per_step: list) -> None:
+    """Wrap ``trainer``'s train step so that each call appends its kernel
+    launches to ``per_step``."""
+    make = trainer.builder.make_train_step
+
+    def counted_make():
+        step = make()
+
+        def counted(*args, **kw):
+            before = read_counts()
+            out = step(*args, **kw)
+            per_step.append({k: v - before[k] for k, v in read_counts().items()})
+            return out
+
+        return counted
+
+    trainer.builder.make_train_step = counted_make
+
+
+def phase_trainer(card: str) -> dict:
+    """``Trainer(cfg).fit()`` of configs/tiny_fsq16k.yaml on the card,
+    through the v1 kernels: 8 steps, eval at 4 and 8, checkpoints."""
+    import shutil
+
+    import torch
+
+    from titok_tpu_torch.config import load_config
+    from titok_tpu_torch.data.packing import to_device
+    from titok_tpu_torch.train_utils.codebook_logging import codebook_scores
+    from titok_tpu_torch.training.trainer import Trainer
+
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    cfg = load_config(TINY16K, tiny16k_overrides("fit"))
+    trainer = Trainer(cfg)
+    per_step, init = [], {}
+    _count_steps(trainer, per_step)
+    init_state = trainer._init_state
+
+    def snap_init(seed):
+        st = init_state(seed)
+        init["params"] = [p.detach().clone() for p in st.model.parameters()]
+        init["disc"] = [p.detach().clone() for p in st.disc_model.parameters()]
+        return st
+
+    trainer._init_state = snap_init
+    reset_counts()  # the main path: the whole fit, read right after it
+    t0 = time.perf_counter()
+    state = trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    paths = {"train_v1_bf16": read_counts()}
+    total = paths["train_v1_bf16"]
+
+    n = TRAIN_LAUNCHES["tiny"]
+    want = {**{k: 0 for k in total}, "v1_bf16": n, "v1_bwd_dq_bf16": n, "v1_bwd_dkv_bf16": n}
+    check(len(per_step) == 8, f"{len(per_step)} train steps, want 8")
+    for i, got in enumerate(per_step):
+        check(got == want, f"trainer step {i}: launches {got}, want {want}")
+    n_eval = len(trainer._eval_cache)
+    layers = 4 + 4  # encoder + decoder forwards per eval batch
+    want_total = {**{k: 0 for k in total}, "v1_bf16": 8 * n + 2 * n_eval * layers,
+                  "v1_bwd_dq_bf16": 8 * n, "v1_bwd_dkv_bf16": 8 * n}
+    check(total == want_total, f"fit launches {total}, want {want_total}")
+    print(f"trainer (configs/tiny_fsq16k.yaml, flash_v1, bf16-mixed, train_seq_len "
+          f"{cfg.training.sampling.train_seq_len}, eval_seq_len {cfg.training.sampling.eval_seq_len},"
+          f" FSQ {list(cfg.tokenizer.model.fsq_levels)}): fit of 8 steps in {fit_s:.2f} s; launches "
+          f"per step {per_step[0]['v1_bf16']} forward, {per_step[0]['v1_bwd_dq_bf16']} dq, "
+          f"{per_step[0]['v1_bwd_dkv_bf16']} dk/dv (every one of 8); fit total "
+          f"{ {k: v for k, v in total.items() if v} } = 8 steps + 2 evals of {n_eval} batches x "
+          f"{layers} forwards; rows 1-4 kernels 0")
+
+    rows = _jsonl("fit")
+    train_rows = [r for r in rows if "train/gen/total_loss" in r]
+    check([r["step"] for r in train_rows] == list(range(8)), "a train step was not logged")
+    for r in train_rows:
+        vals = {k: v for k, v in r.items() if k.startswith("train/")}
+        check(all(np.isfinite(v) for v in vals.values()), f"step {r['step']}: non-finite {vals}")
+        check(vals["train/nonfinite_grad/generator"] == 0 and
+              vals["train/nonfinite_grad/discriminator"] == 0, f"step {r['step']}: zeroed step")
+    evals = {r["step"]: r for r in rows if "eval/psnr" in r}
+    check(sorted(evals) == [4, 8] and all("eval/ssim" in r for r in evals.values()),
+          f"eval rows at {sorted(evals)}, want PSNR and SSIM at 4 and 8")
+    for s, r in evals.items():
+        check(np.isfinite(r["eval/psnr"]) and -1 <= r["eval/ssim"] <= 1, f"eval at {s}: {r}")
+    moved_g = max((p.detach() - p0).abs().max().item()
+                  for p, p0 in zip(state.model.parameters(), init["params"]))
+    moved_d = max((p.detach() - p0).abs().max().item()
+                  for p, p0 in zip(state.disc_model.parameters(), init["disc"]))
+    check(moved_g > 0 and moved_d > 0, "the params did not move")
+    cl = trainer.codebook_logger
+    check(len(cl.window) > 0, "the codebook logger saw no sample")
+    scores = codebook_scores(cl.window, cl.codebook_size)
+    flat = np.concatenate(cl.window)
+    check(bool(((flat >= 0) & (flat < cl.codebook_size)).all()), "codebook index out of range")
+    check(0 < scores["codebook/usage_percent"] <= 100 and scores["codebook/entropy"] > 0,
+          f"codebook scores {scores}")
+    ckpts = trainer.ckpt.all_steps()
+    check(ckpts == [4, 8], f"checkpoints {ckpts}, want [4, 8] (save_interval 4, keep_prior 2)")
+    check(os.path.exists(os.path.join(RUN_DIR, "fit", "config.yaml")), "no config.yaml")
+    for s, r in evals.items():
+        print(f"  eval at step {s}: psnr {r['eval/psnr']:.4f} dB, ssim {r['eval/ssim']:.5f} "
+              f"(device sums, {n_eval} eval batches of {cfg.training.eval.eval_samples} clips)")
+    print(f"  codebook window {len(cl.window)} samples of {cl.codebook_size}: usage "
+          f"{scores['codebook/usage_percent']:.3f} %, entropy {scores['codebook/entropy']:.4f}; "
+          f"checkpoints {ckpts}; params moved: generator {moved_g:.3e}, discriminator "
+          f"{moved_d:.3e}")
+    for r in train_rows:
+        print(f"  step {r['step']}: gen/total_loss {r['train/gen/total_loss']:.6g}, "
+              f"disc/total_loss {r.get('train/disc/total_loss', float('nan')):.6g}, "
+              f"perf/tokens_per_sec {r['perf/tokens_per_sec']:.0f}, step_time_mean "
+              f"{r.get('perf/step_time_mean_s', float('nan')):.4f} s")
+
+    # the trainer's rate against the bare step at the same shape: the
+    # prefetch thread packs and copies the next batch during the step
+    seq_len = int(cfg.training.sampling.train_seq_len)
+    tps = [r["perf/tokens_per_sec"] for r in train_rows[3:] if r["step"] not in evals]
+    step_mean = train_rows[-1]["perf/step_time_mean_s"]
+    step = trainer.builder.make_train_step()
+    batches, pack_ms = _host_batches(cfg, 5, seed=3)
+    dev = next(state.model.parameters()).device
+    times = []
+    for b, d in batches:
+        bt, dt_ = to_device(b, dev), to_device(d, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, _ = step(state, bt, dt_)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    bare = float(np.mean(times[2:]))
+    print(f"train step tiny_fsq16k flash_v1 bf16 S={seq_len} [{card}]: trainer "
+          f"perf/tokens_per_sec {np.mean(tps):.0f} (mean over steps "
+          f"{[r['step'] for r in train_rows[3:] if r['step'] not in evals]}, host clock between "
+          f"loop iterations, packing overlapped), trainer step_time_mean {step_mean * 1e3:.3f} ms "
+          f"(all 8 steps, the eval steps' included); bare make_train_step {bare:.3f} ms/step "
+          f"({seq_len / bare * 1e3:.0f} tokens/s; H2D of packed batches in the step, host "
+          f"packing {pack_ms:.1f} ms/batch outside it; steps {', '.join(f'{t:.2f}' for t in times)})")
+    _train_breakdown(step, state, batches[0])
+    del trainer, state, step
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _cli(args: list[str]):
+    """``python -m titok_tpu_torch.train`` in a subprocess from the repo root."""
+    return subprocess.Popen([sys.executable, "-m", "titok_tpu_torch.train", *args], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def phase_trainer_cli(card: str) -> None:
+    """The CLI on the card: resume the fit phase's run to step 12; then a
+    fresh run stopped by SIGTERM after its log shows step 3 (exit 143, a
+    checkpoint at the step reached) and resumed from that checkpoint."""
+    import signal as _signal
+
+    from titok_tpu_torch.train_utils.checkpoints import CheckpointManager
+
+    cfg_arg = f"config={TINY16K}"
+    procs = []
+    try:
+        # 1. resume the fit phase's run (checkpoints 4 and 8) to 12 steps
+        t0 = time.perf_counter()
+        p = _cli([cfg_arg, *tiny16k_overrides("fit", **{
+            "training.main.max_steps": 12,
+            "general.checkpoints.resume_from_checkpoint": True})])
+        procs.append(p)
+        out, _ = p.communicate(timeout=600)
+        took = time.perf_counter() - t0
+        check(p.returncode == 0, f"CLI resume exited {p.returncode}:\n{out[-3000:]}")
+        check("resumed from step 8" in out, f"CLI resume did not resume from 8:\n{out[-3000:]}")
+        steps = CheckpointManager(os.path.join(RUN_DIR, "fit")).all_steps()
+        check(steps[-1] == 12, f"checkpoints after the resume {steps}, want the final one at 12")
+        logged = sorted({r["step"] for r in _jsonl("fit") if "train/gen/total_loss" in r})
+        check(logged == list(range(12)), f"logged train steps {logged}")
+        print(f"CLI resume: 'resumed from step 8', steps 8-11 logged, checkpoints {steps} "
+              f"({took:.1f} s including start-up)")
+
+        # 2. a fresh run, SIGTERM once its log shows step >= 3
+        t0 = time.perf_counter()
+        p = _cli([cfg_arg, *tiny16k_overrides("sigterm", **{
+            "training.main.max_steps": 200, "general.checkpoints.save_interval": 0,
+            "training.eval.eval_step_interval": 0})])
+        procs.append(p)
+        while p.poll() is None and time.perf_counter() - t0 < 300:
+            if any(r.get("step", -1) >= 3 for r in _jsonl("sigterm")):
+                break
+            time.sleep(0.2)
+        print(f"CLI run to stop: its log shows step 3 after {time.perf_counter() - t0:.1f} s; "
+              f"sending SIGTERM", flush=True)
+        if p.poll() is not None:
+            raise SmokeFailure(f"the run ended before its log showed step 3: "
+                               f"{p.communicate()[0][-3000:]}")
+        p.send_signal(_signal.SIGTERM)
+        out, _ = p.communicate(timeout=300)
+        check(p.returncode == 143, f"SIGTERM: exit {p.returncode}, want 143:\n{out[-3000:]}")
+        reached = CheckpointManager(os.path.join(RUN_DIR, "sigterm")).latest_step()
+        logged = max(r["step"] for r in _jsonl("sigterm") if "train/gen/total_loss" in r)
+        check(reached is not None and reached >= 4 and logged < reached,
+              f"checkpoint after SIGTERM {reached}, last logged step {logged}")
+        check(f"preemption save at step {reached}" in out, f"no preemption save line:\n{out[-2000:]}")
+        print(f"CLI SIGTERM after step {logged} was logged: exit 143, 'preemption save at step "
+              f"{reached}' ({time.perf_counter() - t0:.1f} s)")
+
+        # 3. resume from the preemption checkpoint
+        p = _cli([cfg_arg, *tiny16k_overrides("sigterm", **{
+            "training.main.max_steps": reached + 2, "general.checkpoints.save_interval": 0,
+            "training.eval.eval_step_interval": 0,
+            "general.checkpoints.resume_from_checkpoint": True})])
+        procs.append(p)
+        out, _ = p.communicate(timeout=600)
+        check(p.returncode == 0 and f"resumed from step {reached}" in out,
+              f"resume after SIGTERM: exit {p.returncode}:\n{out[-3000:]}")
+        last = CheckpointManager(os.path.join(RUN_DIR, "sigterm")).latest_step()
+        check(last == reached + 2, f"final checkpoint {last}, want {reached + 2}")
+        print(f"CLI resume after SIGTERM: 'resumed from step {reached}', final checkpoint {last}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_resume_f32(card: str) -> dict:
+    """f32 at train_seq_len 2048 (the discriminator rebuilt in f32 too): 4
+    steps straight against 2 steps, a save, a new Trainer that resumes and 2
+    more, from the same period-2 stream (a trainer restarts its stream on
+    resume, as the JAX package's does)."""
+    import itertools
+
+    import torch
+
+    from titok_tpu_torch.config import load_config
+    from titok_tpu_torch.models.blocks import PackedEncoder
+    from titok_tpu_torch.training.trainer import Trainer, synthetic_batches
+
+    def two(config, eval=False, seed=0):
+        if eval:
+            return synthetic_batches(config, eval=True, seed=seed)
+        return itertools.cycle(list(itertools.islice(synthetic_batches(config, seed=seed), 2)))
+
+    def run(name, **over):
+        cfg = load_config(TINY16K, tiny16k_overrides(name, **{
+            "training.main.precision": "32", "training.sampling.train_seq_len": 2048,
+            "training.eval.eval_step_interval": 0, "general.checkpoints.save_interval": 0,
+            **over}))
+        trainer = Trainer(cfg, batches_fn=two)
+        ls = trainer.loss_system
+        ls.disc_model = PackedEncoder(
+            model_size=cfg.discriminator.model.model_size, patch_size=ls.patch_size,
+            in_channels=3, out_channels=1, dtype=torch.float32, attn_impl="flash_v1")
+        gens = []  # the noise generator's state before each step
+        make = trainer.builder.make_train_step
+
+        def recording_make():
+            step = make()
+
+            def recording(state, *args, **kw):
+                gens.append((state.step, state.noise_gen.get_state().clone()))
+                return step(state, *args, **kw)
+
+            return recording
+
+        trainer.builder.make_train_step = recording_make
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        rows = {r["step"]: r for r in _jsonl(name) if "train/gen/total_loss" in r}
+        return state, rows, dict(gens)
+
+    reset_counts()  # the f32 main path: the straight run, read right after it
+    straight, s_rows, s_gens = run("f32_straight", **{"training.main.max_steps": 4})
+    paths = {"train_v1_f32": read_counts()}
+    _, a_rows, _ = run("f32_resumed", **{"training.main.max_steps": 2})
+    resumed, b_rows, b_gens = run("f32_resumed", **{
+        "training.main.max_steps": 4, "general.checkpoints.resume_from_checkpoint": True})
+    got = {**a_rows, **b_rows}
+    check(sorted(got) == sorted(s_rows) == [0, 1, 2, 3], f"logged steps {sorted(got)}")
+    pairs = [(got[s][k], s_rows[s][k]) for s in s_rows for k in s_rows[s]
+             if k.startswith("train/") and ("loss" in k or "penalty" in k)]
+    labs = max(abs(a - b) for a, b in pairs)
+    lok = all(abs(a - b) <= 1e-6 + 1e-4 * abs(b) for a, b in pairs)
+    pmax = max(p.abs().max().item() for p in straight.model.parameters())
+    perr = max((a - b).abs().max().item() for a, b in
+               zip(resumed.model.parameters(), straight.model.parameters()))
+    dmax = max(p.abs().max().item() for p in straight.disc_model.parameters())
+    derr = max((a - b).abs().max().item() for a, b in
+               zip(resumed.disc_model.parameters(), straight.disc_model.parameters()))
+    noise_ok = all(torch.equal(b_gens[s], s_gens[s]) for s in (2, 3)) and \
+        torch.equal(resumed.noise_gen.get_state(), straight.noise_gen.get_state())
+    k32 = paths["train_v1_f32"]
+    print(f"f32 resume, tiny_fsq16k flash_v1 S=2048 [{card}]: 4 steps straight vs 2 + save + "
+          f"resume + 2: losses max|diff| {labs:.3e} over {len(pairs)} values (gate 1e-6 + 1e-4 "
+          f"relative); generator params max|diff| {perr:.3e} of max|p| {pmax:.3e}, discriminator "
+          f"{derr:.3e} of {dmax:.3e} (gate 1e-5 x max|p|); R1/R2 noise generator state before steps "
+          f"2 and 3 and at the end equal: {noise_ok}; straight-run launches "
+          f"{ {k: v for k, v in k32.items() if v} }")
+    check(lok, "the resumed f32 run's losses disagree with the straight run's")
+    check(perr <= 1e-5 * pmax and derr <= 1e-5 * dmax, "the resumed f32 params disagree")
+    check(noise_ok, "the R1/R2 noise after resume differs from the straight run's")
+    n = TRAIN_LAUNCHES["tiny"]
+    want = {**{k: 0 for k in k32}, "v1_f32": 4 * n, "v1_bwd_dq_f32": 4 * n,
+            "v1_bwd_dkv_f32": 4 * n}
+    check(k32 == want, f"f32 trainer launches {k32}, want {want}")
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -1835,10 +2439,12 @@ def main() -> int:
         return 1
     if not os.path.isdir(os.path.join(REPO, "titok_tpu_torch")) or not all(
             os.path.exists(os.path.join(REPO, "configs", c))
-            for c in ("tiny.yaml", "base_vq.yaml", "large.yaml")):
+            for c in ("tiny.yaml", "base_vq.yaml", "large.yaml", "tiny_fsq16k.yaml")):
         print("FAIL: run chip_smoke.py from the root of a checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from titok_tpu_torch.config import load_config
+
     try:
         card = phase_build()
         kres = phase_kernels(card)
@@ -1854,6 +2460,10 @@ def main() -> int:
         paths.update(phase_serving_large(card))
         paths.update(phase_training_large(card))
         paths.update(phase_remat_large_f32(card))
+        v1res = phase_v1_kernels(card, load_config(TINY16K, tiny16k_overrides("kernels")))
+        paths.update(phase_trainer(card))
+        phase_trainer_cli(card)
+        paths.update(phase_resume_f32(card))
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -1862,7 +2472,8 @@ def main() -> int:
     # its dtype (bf16: the tiny main path, 6 steps; f32: the f32 kernel path;
     # the VQ kernel: the base_vq training path, 5 steps; the rope kernels:
     # the large training path, bf16 5 steps, f32 the remat run of the f32
-    # check, one grad pass and 2 steps)
+    # check, one grad pass and 2 steps; the v1 kernels: the trainer's fit of
+    # tiny_fsq16k, bf16 8 steps and 2 evals, f32 the straight 4-step run)
     entries = [(f"flash_segment_attn_fwd_{d}", KERNEL_SRC, KERNEL_REPLACES, d, kres[d],
                 f"train_{d}") for d in ("bf16", "f32")]
     entries += [(f"flash_segment_attn_bwd_{k}_{d}", BWD_SRC, BWD_REPLACES[k], f"bwd_{k}_{d}",
@@ -1873,6 +2484,12 @@ def main() -> int:
             key = f"rope_{d}" if k == "fwd" else f"rope_bwd_{k}_{d}"
             name = f"flash_segment_attn_rope_{'fwd' if k == 'fwd' else 'bwd_' + k}_{d}"
             entries.append((name, src, ROPE_REPLACES[k], key, rres[f"{k}_{d}"], main_path))
+    for k in ("fwd", "dq", "dkv"):
+        for d in ("bf16", "f32"):
+            key = f"v1_{d}" if k == "fwd" else f"v1_bwd_{k}_{d}"
+            name = f"flash_segment_attn_v1_{'fwd' if k == 'fwd' else 'bwd_' + k}_{d}"
+            entries.append((name, V1_SRC, V1_REPLACES[k], key, v1res[f"{k}_{d}"],
+                            f"train_v1_{d}"))
     kernels = []
     for name, src, replaces, key, r, main_path in entries:
         kernels.append({

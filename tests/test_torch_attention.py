@@ -127,9 +127,10 @@ def test_dispatcher_on_cpu(rng):
     ones, zeros = torch.ones(q.shape[0], 30), torch.zeros(q.shape[0], 30)
     out = segment_attention(q, k, v, seg, impl="flash_rope", rope_cos=ones, rope_sin=zeros)
     torch.testing.assert_close(out, dense, atol=1e-5, rtol=0)
+    # flash_v1 (the v1 kernels' plain version on CPU tensors) is the same function
+    out = segment_attention(q, k, v, seg, impl="flash_v1")
+    torch.testing.assert_close(out, dense, atol=1e-5, rtol=0)
     assert fa.launches == before  # CPU tensors take the plain version
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        segment_attention(q, k, v, seg, impl="flash_v1")
     with pytest.raises(ValueError):
         segment_attention(q, k, v, seg, impl="nope")
 

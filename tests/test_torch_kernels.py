@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the segment-attention forward and its backward (dq and dk/dv kernels), the
-VQ nearest-neighbour kernel, and train steps (FSQ and EMA-VQ) that go
-through them.
+the segment-attention forward and its backward (dq and dk/dv kernels), with
+RoPE fused and in their v1 form (``attn_impl: flash_v1``), the VQ
+nearest-neighbour kernel, train steps (FSQ, EMA-VQ, flash_rope with remat,
+flash_v1) that go through them, and a short ``Trainer.fit``.
 
 Every test here needs a CUDA card and the CUDA toolkit; without one it skips
 (the fixture decides, never the import). This file imports no JAX, so it
@@ -539,3 +540,122 @@ def test_flash_rope_remat_train_step_launches(cuda):
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert float(metrics["nonfinite_grad/generator"]) == 0.0
     assert int(indices.max()) < 4375 and int(indices.min()) >= 0
+
+
+# the v1 kernels (attn_impl: flash_v1): forward, dq and per-q-head dk/dv,
+# Sq == Sk, tile pairs skipped by interval overlap. Forward: the row 1
+# limits and rms(out - plain) <= nrel * rms(plain) (the plain version rounds
+# p against the same running max per 64-row kv tile as the kernel, so in
+# bf16 they differ only where the sum order moves an output to its
+# neighbouring bf16 value); grads: the backward limits above.
+V1_CASES = {
+    "bench 10x576 4/2": ([576] * 10, 6144, 4, 2),
+    "base_vq layout 12/4": ([513, 1040, 416, 832, 608], 4096, 12, 4),
+    "ragged 1..1892, pad": ([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299, 4, 2),
+    "one row": ([1], 1, 4, 2),
+    "all pad": ([], 100, 4, 2),
+    "MHA 4/4": ([50, 70], 130, 4, 4),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(V1_CASES))
+def test_v1_kernels_match_plain(cuda, dtype, case):
+    from titok_tpu_torch.ops import flash_attention as f1
+
+    lengths, S, hq, hkv = V1_CASES[case]
+    q, k, v = _inputs(cuda, dtype, S, hq, hkv, seed=3)
+    dout = torch.randn(S, hq, 64, generator=torch.Generator(device=cuda).manual_seed(4),
+                       device=cuda).to(dtype)
+    seg = _segments(lengths, S).to(cuda)
+    key = "bf16" if dtype == torch.bfloat16 else "f32"
+    names = (f"v1_{key}", f"v1_bwd_dq_{key}", f"v1_bwd_dkv_{key}")
+    before = {n: fa.launches[n] for n in names}
+    out, lse = f1._fwd(q, k, v, seg)
+    grads = f1._bwd(q, k, v, seg, out, lse, dout)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in names} == {n: 1 for n in names}
+    ref_out, ref_lse = f1.flash_segment_attention_reference(q, k, v, seg)
+    _assert_close(out, lse, ref_out, ref_lse, dtype)
+    nrel = BWD_TOL[dtype][2]
+    d = (out.float() - ref_out.float()).square().mean().sqrt().item()
+    assert d <= nrel * max(ref_out.float().square().mean().sqrt().item(), 1e-30)
+    want = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, dout)
+    for a, x in zip(grads, (q, k, v)):
+        assert a.dtype == dtype and a.shape == x.shape and bool(torch.isfinite(a.float()).all())
+    _assert_bwd_close(grads, want, dtype)
+
+
+def test_v1_wrappers_raise_on_cuda_instead_of_falling_back(cuda):
+    from titok_tpu_torch.ops import flash_attention as f1
+
+    seg = _segments([128], 128).to(cuda)
+    q, k, v = _inputs(cuda, torch.float32, 128, 4, 2)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        f1._fwd(q, k[:100].contiguous(), v[:100].contiguous(), seg)
+    with pytest.raises(ValueError, match="int32"):
+        f1._fwd(q, k, v, seg.long())
+    qmm = f1.tile_minmax(seg, 64)
+    with pytest.raises(ValueError, match="tiles of 32 rows"):
+        f1.launch_fwd(q, k, v, seg, qmm, qmm, 0.125)  # the f32 forward's kv tiles are 32
+
+
+def test_flash_v1_train_step_launches(cuda):
+    """One GAN step of a small tiny model with attn_impl flash_v1: the v1
+    kernels only, each once per attention layer (encoder 4 + decoder 4 +
+    stacked disc 4 in the generator pass, disc 4 in the discriminator
+    pass), none of the row 1-4 kernels."""
+    import itertools
+
+    from titok_tpu_torch.data.packing import build_disc_batch, to_device
+    from titok_tpu_torch.losses.loss_module import LossSystem
+    from titok_tpu_torch.models.titok import make_titok
+    from titok_tpu_torch.training.train_step import TrainStepBuilder
+    from titok_tpu_torch.training.trainer import synthetic_batches
+
+    cfg = _small_train_config("training.main.attn_impl=flash_v1")
+    ls = LossSystem(cfg)
+    builder = TrainStepBuilder(make_titok(cfg), ls, cfg)
+    state = builder.init_state(device=cuda)
+    step = builder.make_train_step()
+    (batch,) = itertools.islice(synthetic_batches(cfg, seed=0), 1)
+    disc = build_disc_batch(batch, ls.disc_tokens)
+    fa.reset_launches()
+    state, metrics, indices = step(state, to_device(batch, cuda), to_device(disc, cuda))
+    torch.cuda.synchronize()
+    n = 4 + 4 + 4 + 4
+    assert fa.launches == {**{k: 0 for k in fa.launches}, "v1_bf16": n,
+                           "v1_bwd_dq_bf16": n, "v1_bwd_dkv_bf16": n}
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert float(metrics["nonfinite_grad/generator"]) == 0.0
+    assert int(indices.max()) < 4375 and int(indices.min()) >= 0
+
+
+def test_trainer_fit_on_the_card(cuda, tmp_path):
+    """``Trainer.fit`` of 2 steps on the card through the v1 kernels: the
+    prefetch thread's copies, the train step, the eval with PSNR/SSIM
+    summed on the device (16x16 frames and up), the final checkpoint."""
+    import json
+    import os
+
+    from titok_tpu_torch.train_utils.checkpoints import CheckpointManager
+    from titok_tpu_torch.training.trainer import Trainer
+
+    cfg = _small_train_config(
+        "training.main.attn_impl=flash_v1", "training.main.max_steps=2",
+        "training.sampling.min_grid=[2,16,16]", "training.sampling.max_grid=[4,24,24]",
+        "training.sampling.eval_seq_len=256", "training.eval.eval_samples=4",
+        "training.eval.eval_step_interval=1", "general.wandb.log_step_interval=1",
+        "dataset.train_dataset=synthetic", "dataset.eval_dataset=synthetic",
+        f"general.checkpoints.save_path={tmp_path}")
+    fa.reset_launches()
+    state = Trainer(cfg).fit()
+    torch.cuda.synchronize()
+    assert state.step == 2 and next(state.model.parameters()).is_cuda
+    assert fa.launches["v1_bwd_dq_bf16"] == 2 * 16 and fa.launches["bf16"] == 0
+    rows = [json.loads(line) for line in open(os.path.join(tmp_path, "metrics.jsonl"))]
+    assert [r["step"] for r in rows if "train/gen/total_loss" in r] == [0, 1]
+    evals = [r for r in rows if "eval/psnr" in r]
+    assert [r["step"] for r in evals] == [1, 2] and all("eval/ssim" in r for r in evals)
+    assert all(np.isfinite(v) for r in rows for v in r.values())
+    assert CheckpointManager(str(tmp_path)).latest_step() == 2

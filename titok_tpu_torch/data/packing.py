@@ -14,6 +14,11 @@ one fixed ``[S, ...]`` buffer:
   and pad slots); P = prod(patch_size) * in_channels.
 - ``rope_cos/sin`` f32 [S, R]: per-slot rotary tables, host-computed in
   float64 (see ``models/rope.py``); pad slots rotate by the identity.
+
+The rows are kept on the host in f32 (numpy has no bf16) with the values
+of the packer's dtype, and cross to the device in that dtype, the batch's
+``wire`` (:func:`wire_dtype`: bf16 at 'bf16-mixed', as the JAX package
+ships them).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ class PackedBatch:
     grids: np.ndarray         # int32 [Bmax, G] patch-grid shape per sample
     sample_valid: np.ndarray  # bool  [Bmax]
     fps: np.ndarray           # f32   [Bmax]   source fps (for logging/eval)
+    wire: torch.dtype = torch.float32  # dtype of ``patches`` on the device
 
     @property
     def seq_len(self) -> int:
@@ -66,11 +72,35 @@ class PackedBatch:
         }
 
 
+def wire_dtype(config) -> torch.dtype:
+    """The dtype packed pixel rows cross to the device in: the compute
+    dtype of ``training.main.precision`` (bf16 at 'bf16-mixed'). The JAX
+    package's ``dataset.uint8_wire`` (raw pixel bytes, normalized on the
+    device) comes with the data readers, which are not ported yet."""
+    if bool(config.dataset.get("uint8_wire", False)):
+        raise NotImplementedError(
+            "dataset.uint8_wire is not ported yet: it comes with the CSV/WebDataset "
+            "readers and native/ (ROADMAP queue 1, data readers)")
+    from titok_tpu_torch.models.titok import compute_dtype
+
+    return compute_dtype(config)
+
+
+def host_tensors(batch: "PackedBatch | DiscBatch") -> dict:
+    """``device_arrays()`` as CPU tensors, a PackedBatch's patch rows in its
+    ``wire`` dtype."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v))
+           for k, v in batch.device_arrays().items()}
+    wire = getattr(batch, "wire", torch.float32)
+    if "patches" in out and wire != torch.float32:
+        out["patches"] = out["patches"].to(wire)
+    return out
+
+
 def to_device(batch: "PackedBatch | DiscBatch", device) -> dict:
     """``device_arrays()`` of a PackedBatch or a DiscBatch as a dict of
-    tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.device_arrays().items()}
+    tensors on ``device`` (:func:`host_tensors`, copied)."""
+    return {k: v.to(device) for k, v in host_tensors(batch).items()}
 
 
 def max_samples_for(seq_len: int, min_grid: Sequence[int], patch_size: Sequence[int],
@@ -134,7 +164,7 @@ def pack_samples(
     """Pack a list of CTHW (or uint8 THWC, or ``GridOnly``) clips into one
     PackedBatch. The patch rows are rounded to ``dtype``, as the JAX
     package's packer stores them in its host dtype (bf16 at 'bf16-mixed'),
-    and kept in f32: numpy has no bf16."""
+    kept in f32 on the host (numpy has no bf16) and shipped in ``dtype``."""
     n_dims = len(patch_size)
     B = len(videos)
     if B != len(token_counts) or B > max_samples:
@@ -202,6 +232,7 @@ def pack_samples(
         grids=grids,
         sample_valid=valid,
         fps=fps_arr,
+        wire=dtype,
     )
 
 
@@ -304,8 +335,9 @@ class Packer:
     Pulls ``{'video', 'fps'}`` samples from an iterator, gives each a
     random token count from ``token_range``, packs until the budget would
     be exceeded, then emits a PackedBatch. The overflowing sample starts
-    the next batch; a partial final batch is dropped. Rows are rounded to
-    ``dtype`` (see :func:`pack_samples`).
+    the next batch; a partial final batch is dropped unless ``flush_final``
+    (the eval stream emits it). Rows are rounded to ``dtype`` (see
+    :func:`pack_samples`).
     """
 
     def __init__(
@@ -319,6 +351,7 @@ class Packer:
         max_samples: int | None = None,
         rng: np.random.Generator | None = None,
         dtype: torch.dtype = torch.float32,
+        flush_final: bool = False,
     ):
         self.seq_len = int(seq_len)
         self.token_range = (int(token_range[0]), int(token_range[1]))
@@ -329,6 +362,7 @@ class Packer:
         )
         self.rng = rng or np.random.default_rng()
         self.dtype = dtype
+        self.flush_final = flush_final
 
     def _pack(self, videos, tcs, fps) -> PackedBatch:
         return pack_samples(videos, tcs, seq_len=self.seq_len,
@@ -356,3 +390,5 @@ class Packer:
             videos.append(vid)
             tcs.append(tc)
             fps.append(float(sample.get("fps", 0.0)))
+        if self.flush_final and videos:
+            yield self._pack(videos, tcs, fps)

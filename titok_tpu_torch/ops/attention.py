@@ -12,6 +12,9 @@ segment_ids[j]``.
   — the hand-written CUDA kernel for CUDA tensors (its plain version for
   CPU tensors); with ``impl='flash_rope'`` the kernels that rotate the
   unrotated q and k by the RoPE tables themselves.
+- :func:`titok_tpu_torch.ops.flash_attention.flash_segment_attention` —
+  ``impl='flash_v1'``: the v1 kernels (tile-pair skipping, per-q-head
+  dk/dv), the same for CPU tensors.
 
 Both handle GQA (q heads a multiple of kv heads) with an fp32 softmax.
 """
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from titok_tpu_torch.ops.flash_attention import flash_segment_attention
 from titok_tpu_torch.ops.flash_attention_mh import flash_segment_attention_mh
 
 NEG_INF = -1e30
@@ -71,8 +75,8 @@ def segment_attention(
     ``impl``: 'auto' and 'flash' take the hand-written CUDA kernel for CUDA
     tensors and its plain version for CPU tensors; 'flash_rope' the same
     with RoPE fused (pass UNROTATED q/k plus ``rope_cos``/``rope_sin``);
-    'reference' is the dense version on any device. 'flash_v1' names a JAX
-    kernel not ported yet.
+    'flash_v1' the v1 kernels (rotated q/k of one length), the same for
+    CPU tensors; 'reference' is the dense version on any device.
     """
     if impl in ("auto", "flash"):
         return flash_segment_attention_mh(q, k, v, segment_ids, scale=scale)
@@ -84,7 +88,5 @@ def segment_attention(
     if impl == "reference":
         return segment_attention_reference(q, k, v, segment_ids, scale)
     if impl == "flash_v1":
-        raise NotImplementedError(
-            "attn_impl 'flash_v1' (head-per-grid-row kernel) is not ported "
-            "yet: ROADMAP queue 2 item 5, _flash_fwd/_flash_bwd")
+        return flash_segment_attention(q, k, v, segment_ids, scale=scale)
     raise ValueError(f"unknown attention impl {impl!r}")

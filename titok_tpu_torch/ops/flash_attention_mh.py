@@ -49,11 +49,14 @@ PAD_ID = 2**30  # pad slots (segment 0) sit after every sample
 
 # kernel launches per kernel and instantiation: "bf16"/"f32" are the forward
 # (mma.sync and FMA kernels), "bwd_dq_*"/"bwd_dkv_*" the two backward
-# kernels, "rope_*" the same three with RoPE fused
+# kernels, "rope_*" the same three with RoPE fused, "v1_*" the three v1
+# kernels of ops/flash_attention.py
 launches = {"bf16": 0, "f32": 0, "bwd_dq_bf16": 0, "bwd_dkv_bf16": 0,
             "bwd_dq_f32": 0, "bwd_dkv_f32": 0,
             "rope_bf16": 0, "rope_f32": 0, "rope_bwd_dq_bf16": 0, "rope_bwd_dkv_bf16": 0,
-            "rope_bwd_dq_f32": 0, "rope_bwd_dkv_f32": 0}
+            "rope_bwd_dq_f32": 0, "rope_bwd_dkv_f32": 0,
+            "v1_bf16": 0, "v1_f32": 0, "v1_bwd_dq_bf16": 0, "v1_bwd_dkv_bf16": 0,
+            "v1_bwd_dq_f32": 0, "v1_bwd_dkv_f32": 0}
 # elements of one dense f32 [q rows, Sk] block in the plain versions (1 GiB)
 _DENSE_ELEMS = 2**28
 

@@ -260,3 +260,38 @@ class TrainStepBuilder:
             return recon, aux["indices"]
 
         return eval_step
+
+    def make_eval_metrics_step(self, image_metrics=()) -> Callable:
+        """``eval_step(batch, plan) -> (recon, indices, stats)`` without
+        gradients, with the PSNR/SSIM sums of the batch computed on the
+        device (``stats``: 0-d tensors ``psnr_sse``/``psnr_cnt`` and
+        ``ssim_sum``/``ssim_cnt``), so only scalars cross to the host per
+        eval epoch. ``plan`` is the eval-frame plan on the device
+        (``ops/frames.py:build_eval_frame_plan``) when 'ssim' is among
+        ``image_metrics``, else None."""
+        from titok_tpu_torch.metrics.psnr_device import packed_psnr_stats
+        from titok_tpu_torch.metrics.ssim_device import ssim_frames_stats
+        from titok_tpu_torch.ops.frames import gather_frames
+        from titok_tpu_torch.ops.patchify import decode_rows
+
+        model = self.model
+        want_psnr = "psnr" in image_metrics
+        want_ssim = "ssim" in image_metrics
+        patch_size = tuple(self.config.tokenizer.model.patch_size)
+
+        def eval_step(batch, plan=None):
+            with torch.no_grad():
+                recon, aux = model(batch)
+                stats = {}
+                if want_psnr:
+                    stats["psnr_sse"], stats["psnr_cnt"] = packed_psnr_stats(recon, batch)
+                if want_ssim and plan is not None:
+                    rec = gather_frames(torch.clamp(recon.to(torch.float32), -1.0, 1.0),
+                                        plan, patch_size)
+                    tgt = gather_frames(decode_rows(batch["patches"], torch.float32), plan,
+                                        patch_size)
+                    stats["ssim_sum"], stats["ssim_cnt"] = ssim_frames_stats(
+                        rec, tgt, plan["scale"], plan["weight"])
+            return recon, aux["indices"], stats
+
+        return eval_step
