@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit. Phases, in order; any failure exits non-zero:
 
 1. device and build: the card, its power limit, and the ``nvcc`` build of
-   every ``titok_tpu_torch/csrc/*.cu`` with its ``-Xptxas -v`` lines;
+   every ``titok_tpu_torch/csrc/*.cu`` with its ``-Xptxas -v`` lines and
+   the entries that spill registers;
 2. the attention forward kernel against its plain PyTorch version on the
    card, at the serving shape and beside it, in bf16 and f32, with times
    (CUDA events) of the kernel, the plain version, one library call and
@@ -104,6 +105,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -236,11 +238,19 @@ def phase_build():
     t0 = time.perf_counter()
     info = _build.build_all()
     print(f"build: {len(info)} kernel sources in {time.perf_counter() - t0:.2f} s")
+    spills = []  # entries with spill stores, from each entry's "Function properties"
     for name, rec in info.items():
         print(f"  {name}: nvcc {rec['seconds']:.2f} s")
+        entry = ""
         for line in rec["ptxas"].splitlines():
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"    {line.strip()}")
+            stores = re.search(r"(\d+) bytes spill stores", line)
+            if stores and int(stores.group(1)) > 0:
+                spills.append(f"{name}: {entry}")
+    print(f"entries that spill: {', '.join(spills) if spills else 'none'}")
     for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd", "flash_segment_attn_v1",
                  "vq_nearest"):
         check(name in info, f"no {name} build")
@@ -865,7 +875,7 @@ def print_breakdown(prof, title: str, wall_ms: float, top: int) -> None:
         return
     print(f"breakdown of {title} device busy {busy:.3f} ms ({busy / wall_ms * 100:.1f} % of "
           f"wall); top device events, then the port's own kernels below them:")
-    own = ("fwd_bf16_mma", "fwd_f32_fma", "bwd_dq_", "bwd_dkv_", "vq_partial", "vq_reduce",
+    own = ("fwd_bf16_pipe", "fwd_f32_fma", "bwd_dq_", "bwd_dkv_", "vq_partial", "vq_reduce",
            "v1_fwd_", "v1_bwd_")
     for i, (key, dev_ms, count) in enumerate(rows):
         if i < top or any(k in key for k in own):

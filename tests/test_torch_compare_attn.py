@@ -1,0 +1,38 @@
+"""The A/B tool of the segment-attention kernels (``titok_tpu_torch/tools/
+compare_attn.py``) on the CPU: its shapes and its bound, which must be the
+one ``chip_smoke.py`` reports for the same kernel, so that the two tools'
+shares of bound can be set side by side. Timing needs a card and is not
+tested here."""
+
+import numpy as np
+import pytest
+
+import chip_smoke
+from titok_tpu_torch.tools import compare_attn as ca
+
+
+@pytest.mark.parametrize("shape", list(ca.SHAPES))
+@pytest.mark.parametrize("kind", ca.KINDS)
+def test_bound_matches_chip_smoke(shape, kind):
+    seg, hq, hkv = ca.SHAPES[shape]
+    S, D = len(seg), 64
+    got, by = ca.bound_ms(kind, seg, hq, hkv)
+    base = kind.removeprefix("rope_")
+    if kind.startswith("rope_"):
+        want, want_by, _, _ = chip_smoke.rope_bound_ms(seg, seg, hq, hkv, D, "bf16", base,
+                                                       ca.P, False)
+    elif base == "fwd":
+        want, want_by, _, _ = chip_smoke.attn_bound_ms(seg, S, hq, hkv, D, "bf16")
+    else:
+        want, want_by, _, _ = chip_smoke.bwd_bound_ms(seg, S, S, hq, hkv, D, "bf16",
+                                                      3 if base == "dq" else 4, (base,))
+    assert got == pytest.approx(want, rel=1e-12) and by == want_by
+
+
+def test_shapes_are_the_three_layouts():
+    bench, base, large = (ca.SHAPES[k] for k in ("bench 4/2", "base_vq 12/4", "large 16/4"))
+    assert (len(bench[0]), bench[1:]) == (6144, (4, 2))
+    assert np.array_equal(bench[0], chip_smoke.segments([576] * 10, 6144))
+    assert base[1:] == (12, 4) and large[1:] == (16, 4)
+    for seg in (base[0], large[0]):
+        assert np.array_equal(seg, chip_smoke.BASE_SEG)

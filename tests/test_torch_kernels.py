@@ -510,6 +510,80 @@ def test_rope_wrapper_raises_on_cuda_instead_of_falling_back(cuda):
         fa.flash_segment_attention_mh(q, k, v, seg, rope_cos=cos.cpu(), rope_sin=sin.cpu())
 
 
+# The edges of the pipelined bf16 forward and dk/dv kernels: segments of 1
+# row and around 64 and 128 rows (the q and kv tiles, and the 128-row q
+# tile a CTA takes when it holds one head), S and Sk not multiples of 128,
+# and every head split the kernels choose (a CTA takes 4, 3 or 2 q heads of
+# a group, or one head).
+EDGE_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 1, 200]  # 778 rows, then pad
+EDGE_HEADS = {"MHA 4/4": (4, 4), "4/2": (4, 2), "12/4": (12, 4), "16/4": (16, 4)}
+
+
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope P30"])
+@pytest.mark.parametrize("heads", list(EDGE_HEADS))
+def test_tile_edges_match_plain(cuda, heads, rope):
+    hq, hkv = EDGE_HEADS[heads]
+    bf = torch.bfloat16
+    seg = _segments(EDGE_LENGTHS, 809).to(cuda)
+    if rope:
+        q, k, v = _inputs(cuda, bf, 809, hq, hkv, seed=11)
+        cos, sin = _rope_tables(cuda, 809, 30, 12)
+        dout = torch.randn(809, hq, 64, generator=torch.Generator(device=cuda).manual_seed(13),
+                           device=cuda).to(bf)
+        _check_rope(cuda, bf, q, k, v, seg, cos, sin, dout)
+    else:
+        q, k, v = _inputs(cuda, bf, 809, hq, hkv, seed=11)
+        out, lse = fa._fwd(q, k, v, seg)
+        _assert_close(out, lse, *fa.flash_segment_attention_mh_reference(q, k, v, seg), bf)
+        _check_bwd(cuda, bf, seg, hq, hkv)
+
+
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope P30"])
+@pytest.mark.parametrize("heads", ["MHA 4/4", "16/4"])
+def test_tile_edges_separate_k_ids_and_tables(cuda, heads, rope):
+    """Sk != S, neither a multiple of 128, k's own ids (and tables)."""
+    hq, hkv = EDGE_HEADS[heads]
+    bf = torch.bfloat16
+    seg_q = _segments([1, 64, 129, 100], 300).to(cuda)
+    seg_k = _segments([63, 65, 128, 130, 1], 461).to(cuda)
+    q, _, _ = _inputs(cuda, bf, 300, hq, hkv, seed=21)
+    _, k, v = _inputs(cuda, bf, 461, hq, hkv, seed=22)
+    if rope:
+        cos, sin = _rope_tables(cuda, 300, 30, 23)
+        k_cos, k_sin = _rope_tables(cuda, 461, 30, 24)
+        dout = torch.randn(300, hq, 64, generator=torch.Generator(device=cuda).manual_seed(25),
+                           device=cuda).to(bf)
+        _check_rope(cuda, bf, q, k, v, seg_q, cos, sin, dout, seg_k, k_cos, k_sin)
+    else:
+        out, lse = fa._fwd(q, k, v, seg_q, k_segment_ids=seg_k)
+        _assert_close(out, lse, *fa.flash_segment_attention_mh_reference(
+            q, k, v, seg_q, k_segment_ids=seg_k), bf)
+        _check_bwd(cuda, bf, seg_q, hq, hkv, Sk=461, k_seg=seg_k)
+
+
+@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope P30"])
+@pytest.mark.parametrize("heads", ["4/2", "12/4", "16/4"])
+def test_dkv_two_launches_give_identical_bits(cuda, heads, rope):
+    """The dk/dv kernel sums its warp groups' partial dk/dv in a fixed order
+    (no atomics): two launches on the same inputs give the same bits."""
+    hq, hkv = EDGE_HEADS[heads]
+    bf = torch.bfloat16
+    seg = _segments([513, 1040, 416, 832, 608], 4096).to(cuda)
+    q, k, v = _inputs(cuda, bf, 4096, hq, hkv, seed=31)
+    dout = torch.randn(4096, hq, 64, generator=torch.Generator(device=cuda).manual_seed(32),
+                       device=cuda).to(bf)
+    if rope:
+        cos, sin = _rope_tables(cuda, 4096, 30, 33)
+        out, lse = fa._rope_fwd(q, k, v, seg, cos, sin)
+        runs = [fa._rope_bwd(q, k, v, seg, cos, sin, out, lse, dout) for _ in range(2)]
+    else:
+        out, lse = fa._fwd(q, k, v, seg)
+        runs = [fa._bwd(q, k, v, seg, out, lse, dout) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
 def test_flash_rope_remat_train_step_launches(cuda):
     """One GAN step of a small tiny model with attn_impl flash_rope and
     remat on: the rope kernels only, each dq and dk/dv kernel once per

@@ -31,30 +31,53 @@
 // part of S x Sk only.
 //
 // What the design does about it:
-// - dq: one CTA per (64-row q tile, q head), 4 warps of 16 q rows, as the
-//   forward. The CTA binary-searches seg_k for the exact kv interval of its
+// - dq (`bwd_dq_bf16`): one CTA per (64-row q tile, q head), 4 warps of 16
+//   q rows. The CTA binary-searches seg_k for the exact kv interval of its
 //   tile and visits nothing else. Q and dO stay in registers as mma A
-//   fragments; K and V tiles are staged in shared memory.
-// - dk/dv: one CTA per (64-row kv tile, kv head). It binary-searches seg_q
-//   for the q interval of its tile (the JAX `_overlap_ranges(kmm, qmm)`) and
-//   loops over the Hq/Hkv q heads of its GQA group, so dk/dv sum over the
-//   group in registers, with no atomics and no second pass. K and V stay in
-//   registers; S^T and dP^T are computed directly with kv rows as the M
-//   dimension, so P^T and dS^T feed the next products from registers.
+//   fragments; K and V tiles are staged in shared memory through registers,
+//   between two barriers. It is the next kernel to redesign as dk/dv was.
+// - dk/dv (`bwd_dkv_pipe`): one CTA per (64-row kv tile, kv head). Two warps
+//   search seg_q for the q interval of its tile (the JAX
+//   `_overlap_ranges(kmm, qmm)`), 32 probes a step. It walks the group's q
+//   heads x the q tiles of the interval, so the work of a CTA is a long
+//   chain; what the design does about that and the rest:
+//   - NG warp groups (NG the largest of 4, 3, 2 that divides Hq/Hkv, else
+//     1) share the stationary K and V in shared memory; group g takes q
+//     head g of each unit, so the serial chain is Hq/Hkv/NG times shorter;
+//   - units are (q tile, NG heads), q tile outer, heads inner: the q ids and,
+//     kRope, q's table rows are staged once per q tile for all NG heads;
+//   - a ring of DKV_STAGES = 2 units in dynamic shared memory, filled by
+//     16-byte (tiles) and 4-byte (lse, delta, ids, tables) cp.async: unit
+//     u+1 is in flight while u is computed; each thread prepares its own
+//     copies of u+1 at the end of iteration u, so one barrier per unit both
+//     publishes it and frees the other stage;
+//   - K and V are read by ldmatrix.x4 at each use (A fragments), Q and dO
+//     by ldmatrix.x4 (B of S^T, dP^T) and ldmatrix.x4.trans (B of dV, dK);
+//   - each unit in 4 passes of 16 q columns, so a thread holds the two f32
+//     accumulators and one pass's P^T and dP^T: 127-128 registers (152-156
+//     with 3 groups) and no spills, 16 warps an SM at NG 4 or 2;
+//   - p = exp(s - lse) as one ex2.approx of s scale log2(e) - lse log2(e);
+//     a kv row whose id is the unit's first and last q row's skips the
+//     compares (q ids are non-decreasing);
+//   - the group's dk/dv: groups 1..NG-1 leave their f32 partial sums in the
+//     idle ring, group 0 adds them in a fixed order and rounds to bf16 once.
+//     No atomics: two launches give the same bits.
 // - bf16 on mma.sync m16n8k16 (bf16 in, fp32 accumulate). f32 on fp32 FMA
 //   (no TF32: the f32 path must hold tight tolerances against the plain
-//   version), 32-row tiles and 256 threads.
-// Not yet: wgmma, TMA, cp.async double buffering (later work; PERF.md has
-// the measured gap).
+//   version), 32-row tiles and 256 threads, K and V in registers.
+// Not yet: an asynchronous wgmma pipeline and TMA for dk/dv (a synchronous
+// wgmma version was no faster: PERF.md); the dq kernel's redesign.
 //
 // RoPE fused (kRope = true; entries `flash_segment_attn_rope_bwd_dq` and
 // `..._rope_bwd_dkv`): replaces `_bwd_dq_kernel_rope` and
 // `_bwd_dkv_kernel_rope`, reached through `_rope_bwd`, the custom_vjp
 // backward `_mh_rope` of attn_impl 'flash_rope'. q and k come in unrotated
 // with their tables, as in the forward: the kernels rotate q and k tiles as
-// they are staged (dq: q once per CTA, each visited k tile; dk/dv: k once
-// per CTA, each visited q tile), so p and ds are those of the rotated q
-// and k. The rotation is orthogonal, so the grads of the raw q and k are
+// they are staged (dq: q once per CTA, each visited k tile, as each
+// thread stages it; dk/dv: k once per CTA and each q tile once per CTA for
+// all NG heads, in place in shared memory by the thread that copied the
+// chunk and its table entries, after its own cp.async wait), so p and ds
+// are those of the rotated q and k. The rotation is orthogonal, so the grads of the raw q and k are
 // the grads of the rotated ones rotated back: the f32 dq and dk
 // accumulators get the inverse rotation (sin negated) before their one
 // rounding to the output dtype. dv is unrotated. In the bf16 kernels a
@@ -158,41 +181,131 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
   }
 }
 
-template <bool kRope>
-__global__ void __launch_bounds__(NT_BF16)
-bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+// ---------------------------------------------------------------------------
+// bf16 dk/dv: one CTA per (64-row kv tile, kv head), NG warp groups over the
+// group's q heads, a cp.async ring of (q tile, NG heads) units
+// ---------------------------------------------------------------------------
+
+constexpr int DKV_STAGES = 2;  // units in the ring: u computed, u+1 in flight
+
+// Bytes of one ring stage: the Q and dO tiles of NG heads, their lse and
+// delta, and the q ids.
+template <int NG>
+__host__ __device__ constexpr int dkv_stage_bytes() {
+  return NG * 2 * BT * LDS * 2 + NG * 2 * BT * 4 + BT * 4;
+}
+
+// Dynamic shared memory: K and V, the ring, and (kRope) one buffer of table
+// rows (k's 64 rows, then each unit's q rows).
+template <bool kRope, int NG>
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  return 2 * BT * LDS * 2 + DKV_STAGES * dkv_stage_bytes<NG>() + (kRope ? 2 * BT * PMAX * 4 : 0);
+}
+
+struct DkvStage {
+  __nv_bfloat16* q;   // [NG][BT][LDS]
+  __nv_bfloat16* dO;  // [NG][BT][LDS]
+  float* lse;         // [NG][BT]
+  float* delta;       // [NG][BT]
+  int* ids;           // [BT]
+};
+
+template <int NG>
+__device__ __forceinline__ DkvStage dkv_stage(unsigned char* base) {
+  DkvStage st;
+  st.q = reinterpret_cast<__nv_bfloat16*>(base);
+  st.dO = st.q + NG * BT * LDS;
+  st.lse = reinterpret_cast<float*>(st.dO + NG * BT * LDS);
+  st.delta = st.lse + NG * BT;
+  st.ids = reinterpret_cast<int*>(st.delta + NG * BT);
+  return st;
+}
+
+template <bool kRope, int NG>
+__global__ void __launch_bounds__(NG * 128, NG == 3 ? 1 : 4 / NG)
+bwd_dkv_pipe(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
              const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int Sk,
              int hq, int hkv, float scale, Rope rq, Rope rk) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[BT * LDS];   // also stages the K tile
-  __shared__ __align__(16) __nv_bfloat16 do_s[BT * LDS];  // also stages the V tile
-  __shared__ float lse_s[BT];
-  __shared__ float delta_s[BT];
-  __shared__ int segq_s[BT];
-  __shared__ int segk_s[BT];
+  constexpr int NT = NG * 128;
+  constexpr int SB = dkv_stage_bytes<NG>();
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int range_s[2];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [BT][LDS]
+  __nv_bfloat16* v_s = k_s + BT * LDS;
+  unsigned char* ring = smem + 2 * BT * LDS * 2;
+  float* tcos = reinterpret_cast<float*>(ring + DKV_STAGES * SB);  // kRope: [BT][PMAX]
+  float* tsin = tcos + BT * PMAX;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int grp = warp >> 2;       // warp group: head grp of each unit's NG heads
+  const int r0 = (warp & 3) * 16;  // this warp's kv rows in the tile: r0 + g, r0 + g + 8
   const int k0 = blockIdx.x * BT;
   const int k1 = min(k0 + BT, Sk);
   const int hk = blockIdx.y;
-  const int rep = hq / hkv;
+  const int rep = hq / hkv, chunks = rep / NG;
   const int ldq = hq * D, ldk = hkv * D;
-  const int r0 = warp * 16 + g;  // this thread's kv rows in the tile: r0 and r0 + 8
 
-  if (tid == 0) segment_interval(seg_k, seg_q, k0, k1, S, &range_s[0], &range_s[1]);
-  if (tid < BT) segk_s[tid] = (k0 + tid < Sk) ? remap(seg_k[k0 + tid]) : NO_ROW_K;
-  load_tiles_bf16<kRope>(q_s, k, do_s, v, k0, Sk, ldk, hk * D, rk);
-  __syncthreads();
-  uint32_t ka[4][4], va[4][4];
-  load_a_frags(ka, q_s, r0, t2);
-  load_a_frags(va, do_s, r0, t2);
-
-  const int sk0 = segk_s[r0], sk1 = segk_s[r0 + 8];
+  issue_rows<NT, BT, 1>(k_s, k, k0, Sk, ldk, hk * D, tid);
+  issue_rows<NT, BT, 1>(v_s, v, k0, Sk, ldk, hk * D, tid);
+  if constexpr (kRope) issue_tables<NT, BT>(tcos, tsin, k0, Sk, rk, tid);
+  cp_async_commit();
+  const int row0 = k0 + r0 + g, row1 = row0 + 8;
+  const int sk0 = row0 < Sk ? remap(seg_k[row0]) : NO_ROW_K;
+  const int sk1 = row1 < Sk ? remap(seg_k[row1]) : NO_ROW_K;
+  segment_interval_warps(seg_k, seg_q, k0, k1, S, range_s);
   const int lo = range_s[0], hi = range_s[1];
+  // units: q tile outer, chunk of NG heads inner (one chunk unless Hq/Hkv > 4)
+  const int nunits = (hi - lo + BT - 1) / BT * chunks;
+
+  // unit u into stage u % DKV_STAGES; always one commit
+  auto issue_unit = [&](int u) {
+    if (u < nunits) {
+      const DkvStage st = dkv_stage<NG>(ring + (u % DKV_STAGES) * SB);
+      const int qs0 = lo + (u / chunks) * BT;
+      const int h0 = hk * rep + (u % chunks) * NG;
+      issue_rows<NT, BT, NG>(st.q, q, qs0, hi, ldq, h0 * D, tid);
+      issue_rows<NT, BT, NG>(st.dO, dout, qs0, hi, ldq, h0 * D, tid);
+      if (tid < NG * BT) {
+        const int hh = tid / BT, r = tid % BT;
+        const bool ok = qs0 + r < hi;
+        const size_t off = ok ? (size_t)(qs0 + r) * hq + h0 + hh : 0;
+        cp_async4(&st.lse[tid], lse + off, ok);
+        cp_async4(&st.delta[tid], delta + off, ok);
+      }
+      if (tid < BT && qs0 + tid < hi) cp_async4(&st.ids[tid], seg_q + qs0 + tid, true);
+    }
+    cp_async_commit();
+  };
+  // kRope: unit u's q table rows into the one table buffer; one commit
+  auto issue_tab = [&](int u) {
+    if constexpr (kRope) {
+      if (u < nunits) issue_tables<NT, BT>(tcos, tsin, lo + (u / chunks) * BT, hi, rq, tid);
+      cp_async_commit();
+    }
+  };
+  // finish this thread's copies of unit u, once they have landed: rotate its
+  // Q chunks, remap its id; a barrier then publishes the whole unit
+  auto prep = [&](int u) {
+    if (u < nunits) {
+      const DkvStage st = dkv_stage<NG>(ring + (u % DKV_STAGES) * SB);
+      const int qs0 = lo + (u / chunks) * BT;
+      if constexpr (kRope) rotate_own<NT, BT, NG>(st.q, qs0, hi, tcos, tsin, rq.P, tid);
+      if (tid < BT) st.ids[tid] = qs0 + tid < hi ? remap(st.ids[tid]) : NO_ROW_Q;
+    }
+  };
+
+  issue_unit(0);
+  if constexpr (kRope) {
+    cp_async_wait<1>();  // K, V and k's table rows
+    rotate_own<NT, BT, 1>(k_s, k0, Sk, tcos, tsin, rk.P, tid);
+    issue_tab(0);
+  }
+  cp_async_wait<0>();
+  prep(0);
 
   float dka[8][4], dva[8][4];
 #pragma unroll
@@ -201,51 +314,147 @@ bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
   }
 
-  for (int hr = 0; hr < rep; ++hr) {
-    const int h = hk * rep + hr;
-    for (int qs0 = lo; qs0 < hi; qs0 += BT) {
-      __syncthreads();  // the previous tile (or the K/V staging) is consumed
-      load_tiles_bf16<kRope>(q_s, q, do_s, dout, qs0, hi, ldq, h * D, rq);
-      if (tid < BT) {
-        const bool ok = qs0 + tid < hi;
-        segq_s[tid] = ok ? remap(seg_q[qs0 + tid]) : NO_ROW_Q;
-        lse_s[tid] = ok ? lse[(size_t)(qs0 + tid) * hq + h] : 0.f;
-        delta_s[tid] = ok ? delta[(size_t)(qs0 + tid) * hq + h] : 0.f;
-      }
-      __syncthreads();
+  // passes of CP q columns: n-tiles NTP * hp .. + NTP - 1, k steps KSP * hp ..
+  // + KSP - 1 of the products over q; a thread holds the two f32
+  // accumulators and one pass's P^T and dP^T
+  constexpr int NPASS = 4, CP = 64 / NPASS, NTP = CP / 8, KSP = CP / 16;
+  constexpr float L2E = 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+  const float sl2 = scale * L2E;
+  for (int u = 0; u < nunits; ++u) {
+    // unit u is whole and prepared; the other stage and this thread's table
+    // entries are free
+    __syncthreads();
+    issue_tab(u + 1);
+    issue_unit(u + 1);
+    const DkvStage st = dkv_stage<NG>(ring + (u % DKV_STAGES) * SB);
+    const __nv_bfloat16* qs = st.q + grp * BT * LDS;
+    const __nv_bfloat16* dos = st.dO + grp * BT * LDS;
+    const float* lse_s = st.lse + grp * BT;
+    const float* delta_s = st.delta + grp * BT;
 
-      float p[8][4];
-      mma_abt(p, ka, q_s, g, t2);  // S^T = K Q^T: kv rows x q columns
+#pragma unroll 1
+    for (int hp = 0; hp < NPASS; ++hp) {
+      float p[NTP][4], dp[NTP][4];
+      uint32_t fa[KSP][4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int c0 = nt * 8 + t2, c1 = c0 + 1;
-        const int sqa = segq_s[c0], sqb = segq_s[c1];
-        const float la = lse_s[c0], lb = lse_s[c1];
-        p[nt][0] = sk0 == sqa ? expf(p[nt][0] * scale - la) : 0.f;
-        p[nt][1] = sk0 == sqb ? expf(p[nt][1] * scale - lb) : 0.f;
-        p[nt][2] = sk1 == sqa ? expf(p[nt][2] * scale - la) : 0.f;
-        p[nt][3] = sk1 == sqb ? expf(p[nt][3] * scale - lb) : 0.f;
+      for (int n = 0; n < NTP; ++n) {
+        p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
+        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
       }
-      uint32_t fa[4][4];
-      c_to_a(fa, p);                // bf16(P^T)
-      mma_ab(dva, fa, do_s, g, t2);  // dV += P^T dO
-
-      float dpt[8][4];
-      mma_abt(dpt, va, do_s, g, t2);  // dP^T = V dO^T
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float da = delta_s[nt * 8 + t2], db = delta_s[nt * 8 + t2 + 1];
-        p[nt][0] = p[nt][0] * (dpt[nt][0] - da) * scale;  // dS^T, in place
-        p[nt][1] = p[nt][1] * (dpt[nt][1] - db) * scale;
-        p[nt][2] = p[nt][2] * (dpt[nt][2] - da) * scale;
-        p[nt][3] = p[nt][3] * (dpt[nt][3] - db) * scale;
+      for (int kk2 = 0; kk2 < 2; ++kk2) {  // S^T = K Q^T: kv rows x q columns
+        uint32_t ka[2][4];
+        ldsm_x4(ka[0], &k_s[(r0 + (lane & 15)) * LDS + kk2 * 32 + (lane >> 4) * 8]);
+        ldsm_x4(ka[1], &k_s[(r0 + (lane & 15)) * LDS + kk2 * 32 + 16 + (lane >> 4) * 8]);
+#pragma unroll
+        for (int n = 0; n < NTP; ++n) {
+          uint32_t b[4];
+          ldsm_x4(b, &qs[((hp * NTP + n) * 8 + (lane & 7)) * LDS + kk2 * 32 + (lane >> 3) * 8]);
+          mma_bf16(p[n], ka[0], b);
+          mma_bf16(p[n], ka[1], b + 2);
+        }
       }
-      c_to_a(fa, p);                // bf16(dS^T)
-      mma_ab(dka, fa, q_s, g, t2);  // dK += dS^T Q
+      // p = exp(s - lse) as 2^(s log2e - lse log2e); the q ids are
+      // non-decreasing, so a kv row whose id is the tile's first and last
+      // q row's sees no masked column here, and needs no compares
+      const bool all = st.ids[0] == st.ids[BT - 1] && st.ids[0] == sk0 && sk0 == sk1;
+#pragma unroll
+      for (int n = 0; n < NTP; ++n) {
+        const int c0 = (hp * NTP + n) * 8 + t2, c1 = c0 + 1;
+        const float la = lse_s[c0] * L2E, lb = lse_s[c1] * L2E;
+        p[n][0] = fast_exp2(fmaf(p[n][0], sl2, -la));
+        p[n][1] = fast_exp2(fmaf(p[n][1], sl2, -lb));
+        p[n][2] = fast_exp2(fmaf(p[n][2], sl2, -la));
+        p[n][3] = fast_exp2(fmaf(p[n][3], sl2, -lb));
+        if (!all) {
+          const int sqa = st.ids[c0], sqb = st.ids[c1];
+          if (sk0 != sqa) p[n][0] = 0.f;
+          if (sk0 != sqb) p[n][1] = 0.f;
+          if (sk1 != sqa) p[n][2] = 0.f;
+          if (sk1 != sqb) p[n][3] = 0.f;
+        }
+        fa[n >> 1][(n & 1) * 2 + 0] = pack_bf16(p[n][0], p[n][1]);  // bf16(P^T)
+        fa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[n][2], p[n][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < KSP; ++j) {  // dV += P^T dO
+#pragma unroll
+        for (int dt2 = 0; dt2 < 4; ++dt2) {
+          uint32_t b[4];
+          ldsm_x4_t(b, &dos[((hp * KSP + j) * 16 + (lane & 15)) * LDS + dt2 * 16 + (lane >> 4) * 8]);
+          mma_bf16(dva[2 * dt2], fa[j], b);
+          mma_bf16(dva[2 * dt2 + 1], fa[j], b + 2);
+        }
+      }
+#pragma unroll
+      for (int kk2 = 0; kk2 < 2; ++kk2) {  // dP^T = V dO^T
+        uint32_t va[2][4];
+        ldsm_x4(va[0], &v_s[(r0 + (lane & 15)) * LDS + kk2 * 32 + (lane >> 4) * 8]);
+        ldsm_x4(va[1], &v_s[(r0 + (lane & 15)) * LDS + kk2 * 32 + 16 + (lane >> 4) * 8]);
+#pragma unroll
+        for (int n = 0; n < NTP; ++n) {
+          uint32_t b[4];
+          ldsm_x4(b, &dos[((hp * NTP + n) * 8 + (lane & 7)) * LDS + kk2 * 32 + (lane >> 3) * 8]);
+          mma_bf16(dp[n], va[0], b);
+          mma_bf16(dp[n], va[1], b + 2);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NTP; ++n) {  // dS^T, then bf16(dS^T)
+        const int c0 = (hp * NTP + n) * 8 + t2;
+        const float da = delta_s[c0], db = delta_s[c0 + 1];
+        const float d0 = p[n][0] * (dp[n][0] - da) * scale;
+        const float d1 = p[n][1] * (dp[n][1] - db) * scale;
+        const float d2 = p[n][2] * (dp[n][2] - da) * scale;
+        const float d3 = p[n][3] * (dp[n][3] - db) * scale;
+        fa[n >> 1][(n & 1) * 2 + 0] = pack_bf16(d0, d1);
+        fa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(d2, d3);
+      }
+#pragma unroll
+      for (int j = 0; j < KSP; ++j) {  // dK += dS^T Q
+#pragma unroll
+        for (int dt2 = 0; dt2 < 4; ++dt2) {
+          uint32_t b[4];
+          ldsm_x4_t(b, &qs[((hp * KSP + j) * 16 + (lane & 15)) * LDS + dt2 * 16 + (lane >> 4) * 8]);
+          mma_bf16(dka[2 * dt2], fa[j], b);
+          mma_bf16(dka[2 * dt2 + 1], fa[j], b + 2);
+        }
+      }
     }
+
+    cp_async_wait<0>();  // unit u + 1 and its table rows (issued this iteration)
+    prep(u + 1);
   }
 
-  const int row0 = k0 + r0, row1 = row0 + 8;
+  // the group's sum, in a fixed order: groups 1..NG-1 leave their partial
+  // f32 sums in the (now idle) ring, group 0 adds them in turn, then rounds
+  // once; no atomics, so two launches give the same bits
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);  // [NG - 1][4 warps][64 values][32 lanes]
+  if (grp > 0) {
+    float* mine = red + ((grp - 1) * 4 + (warp & 3)) * 64 * 32 + lane;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        mine[(dt * 4 + i) * 32] = dka[dt][i];
+        mine[(32 + dt * 4 + i) * 32] = dva[dt][i];
+      }
+  }
+  __syncthreads();
+  if (grp > 0) return;
+  for (int gg = 1; gg < NG; ++gg) {
+    const float* part = red + ((gg - 1) * 4 + warp) * 64 * 32 + lane;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        dka[dt][i] += part[(dt * 4 + i) * 32];
+        dva[dt][i] += part[(32 + dt * 4 + i) * 32];
+      }
+  }
+
   if constexpr (kRope) {  // back to the raw k; dv is unrotated
 #pragma unroll
     for (int dt = 0; dt < 8; ++dt) {
@@ -265,6 +474,45 @@ bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
       *reinterpret_cast<uint32_t*>(dv + (size_t)row1 * ldk + col) = pack_bf16(dva[dt][2], dva[dt][3]);
     }
   }
+}
+
+template <bool kRope, int NG>
+int launch_dkv_pipe(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                    const int* seg_q, const int* seg_k, const __nv_bfloat16* dout,
+                    const float* lse, const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                    int S, int Sk, int hq, int hkv, float scale, Rope rq, Rope rk,
+                    cudaStream_t st) {
+  constexpr int smem = dkv_smem_bytes<kRope, NG>();
+  static_assert((NG - 1) * 4 * 64 * 32 * 4 <= DKV_STAGES * dkv_stage_bytes<NG>(),
+                "the partial sums must fit in the ring");
+  auto kern = bwd_dkv_pipe<kRope, NG>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<dim3((Sk + BT - 1) / BT, hkv), NG * 128, smem, st>>>(
+      q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq, hkv, scale, rq, rk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// warp groups a CTA runs: the largest of 4, 3, 2 that divides the group, else 1
+template <bool kRope>
+int launch_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                    const int* seg_q, const int* seg_k, const __nv_bfloat16* dout,
+                    const float* lse, const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
+                    int S, int Sk, int hq, int hkv, float scale, Rope rq, Rope rk,
+                    cudaStream_t st) {
+  const int rep = hq / hkv;
+  if (rep % 4 == 0)
+    return launch_dkv_pipe<kRope, 4>(q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq,
+                                     hkv, scale, rq, rk, st);
+  if (rep % 3 == 0)
+    return launch_dkv_pipe<kRope, 3>(q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq,
+                                     hkv, scale, rq, rk, st);
+  if (rep % 2 == 0)
+    return launch_dkv_pipe<kRope, 2>(q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq,
+                                     hkv, scale, rq, rk, st);
+  return launch_dkv_pipe<kRope, 1>(q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq,
+                                   hkv, scale, rq, rk, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -550,12 +798,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const int* seg_q, co
                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    bwd_dkv_bf16<kRope><<<dim3((Sk + BT - 1) / BT, hkv), NT_BF16, 0, st>>>(
+    return launch_dkv_bf16<kRope>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
         static_cast<const __nv_bfloat16*>(dout), lse, delta,
         static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, Sk, hq, hkv,
-        scale, rq, rk);
+        scale, rq, rk, st);
   } else {
     bwd_dkv_f32<kRope><<<dim3((Sk + BF - 1) / BF, hkv), 256, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -601,7 +849,7 @@ extern "C" int flash_segment_attn_rope_bwd_dq(const void* q, const void* k, cons
                                               int hq, int hkv, float scale, int is_bf16,
                                               void* stream) {
   return launch_dq<true>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq, hkv, scale,
-                         is_bf16, Rope{cos_q, sin_q, P}, Rope{cos_k, sin_k, P}, stream);
+                         is_bf16, make_rope(cos_q, sin_q, P), make_rope(cos_k, sin_k, P), stream);
 }
 
 extern "C" int flash_segment_attn_rope_bwd_dkv(const void* q, const void* k, const void* v,
@@ -613,5 +861,5 @@ extern "C" int flash_segment_attn_rope_bwd_dkv(const void* q, const void* k, con
                                                int Sk, int hq, int hkv, float scale,
                                                int is_bf16, void* stream) {
   return launch_dkv<true>(q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq, hkv,
-                          scale, is_bf16, Rope{cos_q, sin_q, P}, Rope{cos_k, sin_k, P}, stream);
+                          scale, is_bf16, make_rope(cos_q, sin_q, P), make_rope(cos_k, sin_k, P), stream);
 }

@@ -18,120 +18,265 @@
 // segments, Hq/Hkv = 4/2, D = 64, bf16) the useful work is
 // 4*D*Hq*sum(L_b^2) = 3.4 GFLOP, 3.4 us at 989 TFLOP/s, and the bytes
 // (q, k, v, out, lse, ids: ~9.6 MB) take 2.9 us at 3.35 TB/s: compute-bound,
-// on the tensor cores, and only on the block-diagonal part of S x Sk.
+// on the tensor cores, and only on the block-diagonal part of S x Sk. Once
+// the loads are overlapped and the operands come by ldmatrix, the kernel
+// with both products removed still takes two thirds of its time (measured
+// on the card, PERF.md): what bounds it is the softmax's per-element ALU
+// work and the per-tile overhead, not the tensor cores.
 //
 // What the design does about it:
 // - Block skipping without a pre-pass: segments are contiguous, so each
-//   CTA binary-searches seg_k for the exact kv interval
+//   CTA searches seg_k for the exact kv interval
 //   [lower_bound(seg_q[first]), upper_bound(seg_q[last])) of its q tile and
 //   visits nothing else (the JAX kernel visits whole blocks of a
-//   host-computed interval). No padding of S or Sk: ragged edges are masked.
-// - bf16: one CTA per (64-row q tile, q head), 4 warps of 16 q rows each;
-//   Q K^T and P V on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//   fp32 accumulate); the softmax stays in registers (the S accumulator's
-//   fragment layout is reused as the A operand of P V). K/V tiles of 64
-//   rows are staged in shared memory with 16-byte loads.
-// - f32: the same tiling on fp32 FMA (no TF32: the f32 path must hold
-//   1e-5 against the plain version), 256 threads per 64-row q tile.
-// Not yet: wgmma, TMA, cp.async double buffering, one CTA per GQA group
-// sharing the K/V tile (later work; PERF.md has the measured gap).
+//   host-computed interval). Two warps search at once, 32 probes a step. No
+//   padding of S or Sk: ragged edges are masked.
+// - bf16: one CTA per (64-row q tile, HPC q heads of one GQA group), as the
+//   JAX kernel takes a q block's heads in one grid step: each staged K/V
+//   tile serves HPC * 64 (row, head) pairs, 4 warps per head, 16 rows a
+//   warp. HPC is 2 for the plain kernel (two CTAs an SM) and 4 for RoPE
+//   (its per-tile copies and rotation are shared by more heads); then 3, 2;
+//   a group of one head takes 128 q rows.
+// - A ring of NS = 3 K/V tiles in dynamic shared memory, filled by 16-byte
+//   cp.async (zero-filled past the interval), with two mbarriers a stage
+//   instead of block barriers: `ready` (every thread has finished its copies
+//   of the tile) and `empty` (every thread has computed on it). Each
+//   iteration prepares tile t + 1, refills the stage of tile t - 1 with tile
+//   t + 2 once it is empty, and computes tile t; a warp may run a tile ahead
+//   of the slowest, so the CTA's warps are not all in the tensor-core or all
+//   in the softmax phase at once.
+// - Q K^T and P V on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
+//   accumulate); A fragments of Q and B fragments of K by ldmatrix.x4, of V
+//   by ldmatrix.x4.trans; the softmax stays in registers (the S accumulator's
+//   fragment layout is reused as the A operand of P V).
+// - The softmax in log2 units: scale * log2(e) folded into the scores, p by
+//   one ex2.approx each; masked scores are -inf, and a row with no live
+//   column yet subtracts 0, so no select per element; a tile whose first
+//   and last ids are both rows' id (ids are non-decreasing) skips the
+//   compares. lse leaves in natural-log units, as the backward reads it.
+// - Registers: 128 a thread (153 at HPC 3), no spills; the table helpers
+//   read threadIdx.x afresh so their per-thread offsets are not held across
+//   the loop.
+// - f32: fp32 FMA (no TF32: the f32 path must hold 1e-5 against the plain
+//   version), one CTA of 256 threads per (64-row q tile, q head), unchanged.
+// Not yet: wgmma and TMA (B from the ring straight into the tensor cores),
+// 32 q rows a warp (B fragments shared by two m-tiles).
 //
 // RoPE fused (kRope = true; entry `flash_segment_attn_rope_fwd`): replaces
 // `_fwd_kernel_rope` reached through `_rope_fwd` (attn_impl 'flash_rope').
 // q and k come in unrotated with per-row tables cos/sin [rows, P] f32 (k
 // may have its own); each interleaved pair (x[2p], x[2p+1]), p < P, is
-// rotated in fp32 as its tile is staged in shared memory (q once per CTA,
-// every k tile on each visit, as the JAX kernel does), rounded to the input
-// dtype, and the rest of the kernel is the kRope = false code unchanged.
-// The rotation rounds each product and sum on its own (no FMA), as the
-// port's elementwise apply_rotary_emb does, so the fused forward equals
-// apply_rotary_emb + this kernel bit for bit. The tables add (S + Sk) * P *
-// 8 bytes of reads; the bound is that of the unfused kernel.
+// rotated in fp32 and rounded to the input dtype. cp.async brings a tile
+// into shared memory without passing through registers, so the rotation is
+// a pass over the arrived tile: the thread that copied a 16-byte chunk also
+// copied that chunk's table entries (8-byte copies where P is even) into
+// the CTA's one table buffer, and after its own cp.async wait it rotates the
+// chunk in place before it arrives on the tile's `ready`. Q is rotated once
+// per CTA, each K tile once per CTA, for all HPC heads. The rotation rounds each product and sum on its own (no FMA), as
+// the port's elementwise apply_rotary_emb does, and both instantiations
+// take the same tiles in the same order with the same arithmetic, so the
+// fused forward equals apply_rotary_emb + this kernel bit for bit. The
+// tables add (S + Sk) * P * 8 bytes of reads; the bound is that of the
+// unfused kernel.
 
 #include "segment_attn_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // q rows per CTA
+constexpr int BQ = 64;  // q rows per CTA of the f32 kernel
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16
+// bf16: mma.sync m16n8k16, a cp.async ring of K/V tiles, one CTA per (q tile,
+// HPC q heads of one GQA group)
 // ---------------------------------------------------------------------------
 
 constexpr int BK = 64;  // kv rows per tile
+// Tiles in the ring: t computed, t + 1 prepared, t + 2 in flight. The
+// prologue fills tiles 0 and 1, and the one table buffer holds one tile's
+// rows, so a deeper ring needs both to change.
+constexpr int NS = 3;
 
-template <bool kRope>
-__global__ void __launch_bounds__(NT_BF16)
-fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
-             const int* __restrict__ seg_k, __nv_bfloat16* __restrict__ out,
-             float* __restrict__ lse, int S, int Sk, int hq, int hkv, float scale,
-             Rope rq, Rope rk) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[BQ * LDS];
-  __shared__ __align__(16) __nv_bfloat16 k_s[BK * LDS];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BK * LDS];
-  __shared__ int segq_s[BQ];
-  __shared__ int segk_s[BK];
+// Bytes of one ring stage: the K and V tiles and the tile's ids.
+__host__ __device__ constexpr int fwd_stage_bytes() { return 2 * BK * LDS * 2 + BK * 4; }
+
+// Dynamic shared memory: Q of the CTA's heads, the ring, and (kRope) one
+// buffer of table rows (q's QR rows, then each K tile's 64).
+template <bool kRope, int HPC, int QR>
+__host__ __device__ constexpr int fwd_smem_bytes() {
+  return HPC * QR * LDS * 2 + NS * fwd_stage_bytes() +
+         (kRope ? 2 * QR * PMAX * 4 : 0);
+}
+
+struct FwdStage {
+  __nv_bfloat16* k;
+  __nv_bfloat16* v;
+  int* ids;
+};
+
+__device__ __forceinline__ FwdStage fwd_stage(unsigned char* base) {
+  FwdStage st;
+  st.k = reinterpret_cast<__nv_bfloat16*>(base);
+  st.v = st.k + BK * LDS;
+  st.ids = reinterpret_cast<int*>(st.v + BK * LDS);
+  return st;
+}
+
+// QR q rows of HPC consecutive q heads per CTA; QR / 16 warps per head, each
+// warp 16 rows of one head. Every staged K/V tile serves HPC * QR (row, head)
+// pairs.
+template <bool kRope, int HPC, int QR>
+__global__ void __launch_bounds__(HPC * QR * 2, 512 / (HPC * QR * 2))
+fwd_bf16_pipe(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
+              const int* __restrict__ seg_k, __nv_bfloat16* __restrict__ out,
+              float* __restrict__ lse, int S, int Sk, int hq, int hkv, float scale,
+              Rope rq, Rope rk) {
+  constexpr int NT = HPC * QR * 2;
+  constexpr int SB = fwd_stage_bytes();
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int range_s[2];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [HPC][QR][LDS]
+  unsigned char* ring = smem + HPC * QR * LDS * 2;
+  float* tcos = reinterpret_cast<float*>(ring + NS * SB);  // kRope: [QR][PMAX]
+  float* tsin = tcos + QR * PMAX;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2;        // fragment row group
   const int t2 = (lane & 3) * 2;  // fragment column pair
-  const int q0 = blockIdx.x * BQ;
-  const int q1 = min(q0 + BQ, S);
-  const int h = blockIdx.y;
-  const int hk = h / (hq / hkv);
+  const int rep = hq / hkv, splits = rep / HPC;
+  const int hk = blockIdx.y / splits;
+  const int h0 = hk * rep + (blockIdx.y % splits) * HPC;  // the CTA's first q head
+  const int hw = warp / (QR / 16);                        // this warp's head, h0 + hw
+  const int r0 = (warp % (QR / 16)) * 16;                 // its rows r0 + g, r0 + g + 8
+  const int q0 = blockIdx.x * QR;
+  const int q1 = min(q0 + QR, S);
   const int ldq = hq * D, ldk = hkv * D;
 
-  if (tid == 0) segment_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
-  load_tile_bf16<kRope>(q_s, q, q0, S, ldq, h * D, rq);
-  if (tid < BQ) segq_s[tid] = (q0 + tid < S) ? remap(seg_q[q0 + tid]) : NO_ROW_Q;
-  __syncthreads();
+  // per stage: `ready` completes when every thread has finished its copies
+  // of the stage's tile (NT arrivals), `empty` when every thread is done
+  // computing on it; so a warp may run a tile ahead of the slowest one
+  __shared__ uint64_t ready[NS], empty[NS];
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&ready[i], NT);
+      mbar_init(&empty[i], NT);
+    }
+  }
+  issue_rows<NT, QR, HPC>(q_s, q, q0, S, ldq, h0 * D, tid);
+  if constexpr (kRope) issue_tables<NT, QR>(tcos, tsin, q0, S, rq, tid);
+  cp_async_commit();
+  const int row0 = q0 + r0 + g, row1 = row0 + 8;
+  const int sq0 = row0 < S ? remap(seg_q[row0]) : NO_ROW_Q;
+  const int sq1 = row1 < S ? remap(seg_q[row1]) : NO_ROW_Q;
+  segment_interval_warps(seg_q, seg_k, q0, q1, Sk, range_s);  // its barrier also
+  const int lo = range_s[0], hi = range_s[1];                  // publishes the inits
+  const int ntiles = (hi - lo + BK - 1) / BK;
 
-  // this thread's rows in the tile: r0 and r0 + 8
-  const int r0 = warp * 16 + g;
-  uint32_t qa[4][4];  // A fragments of Q, one per 16-wide k step over D
-  load_a_frags(qa, q_s, r0, t2);
-  const int sq0 = segq_s[r0], sq1 = segq_s[r0 + 8];
-  const int lo = range_s[0], hi = range_s[1];
+  // tile t's K, V, ids (and kRope: table rows, into the one table buffer)
+  // into stage t % NS; no commit
+  auto issue = [&](int t) {
+    if (t < ntiles) {
+      const FwdStage st = fwd_stage(ring + (t % NS) * SB);
+      const int kv0 = lo + t * BK;
+      issue_rows<NT, BK, 1>(st.k, k, kv0, hi, ldk, hk * D, tid);
+      issue_rows<NT, BK, 1>(st.v, v, kv0, hi, ldk, hk * D, tid);
+      if (tid < BK && kv0 + tid < hi) cp_async4(&st.ids[tid], seg_k + kv0 + tid, true);
+      if constexpr (kRope) issue_tables<NT, BK>(tcos, tsin, kv0, hi, rk, tid_fresh());
+    }
+  };
+  // this thread's copies of tile t have landed: finish them (rotate its K
+  // chunks, remap its id) and say so
+  auto prep = [&](int t) {
+    if (t < ntiles) {
+      const FwdStage st = fwd_stage(ring + (t % NS) * SB);
+      const int kv0 = lo + t * BK;
+      if constexpr (kRope) rotate_own<NT, BK, 1>(st.k, kv0, hi, tcos, tsin, rk.P, tid_fresh());
+      if (tid < BK) st.ids[tid] = kv0 + tid < hi ? remap(st.ids[tid]) : NO_ROW_K;
+      mbar_arrive(&ready[t % NS]);
+    }
+  };
 
-  float m0 = NEG_INF, m1 = NEG_INF;  // running max of rows r0, r0 + 8
-  float l0 = 0.f, l1 = 0.f;          // this thread's share of the running sums
+  // Q (rotated once), then tiles 0 and 1; a tile's table rows go in only
+  // after the previous user of this thread's table entries is done
+  if constexpr (kRope) {
+    cp_async_wait<0>();
+    rotate_own<NT, QR, HPC>(q_s, q0, S, tcos, tsin, rq.P, tid);
+    issue(0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    prep(0);
+    issue(1);
+    cp_async_commit();
+  } else {
+    issue(0);
+    issue(1);
+    cp_async_commit();
+    cp_async_wait<0>();
+    prep(0);
+  }
+  __syncthreads();  // Q, rotated, is whole
+  const __nv_bfloat16* qs = q_s + hw * QR * LDS;
+
+  const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units: ex2, not exp
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r0 + g, r0 + g + 8 (log2 units)
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the running sums
   float o[8][4];
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
 
-  for (int kv0 = lo; kv0 < hi; kv0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    load_tiles_bf16<kRope>(k_s, k, v_s, v, kv0, hi, ldk, hk * D, rk);
-    if (tid < BK) segk_s[tid] = (kv0 + tid < hi) ? remap(seg_k[kv0 + tid]) : NO_ROW_K;
-    __syncthreads();
+  for (int t = 0; t < ntiles; ++t) {
+    // tile t + 1 was issued before tile t - 1 was computed: finish it; then
+    // put tile t + NS - 1 in flight into the stage of tile t - 1, once every
+    // thread is done with that
+    cp_async_wait<0>();
+    prep(t + 1);
+    if (t + NS - 1 < ntiles) {
+      if (t >= 1) mbar_wait(&empty[(t - 1) % NS], ((t - 1) / NS) & 1);
+      issue(t + NS - 1);
+    }
+    cp_async_commit();
+    mbar_wait(&ready[t % NS], (t / NS) & 1);
+    const FwdStage st = fwd_stage(ring + (t % NS) * SB);
 
     // S = Q K^T: 16 rows x 64 kv columns per warp, as 8 n-tiles of 8
     float s[8][4];
-    mma_abt(s, qa, k_s, g, t2);
+    mma_abt_ldsm(s, qs, r0, st.k, lane);
 
-    // scale, mask, row max (rows are shared by the 4 lanes of a quad)
-    float mx0 = NEG_INF, mx1 = NEG_INF;
-    bool msk[8][4];
+    // scale, mask to -inf, row max (a row's 4 lanes form a quad). The ids
+    // are non-decreasing, so a row whose id is the tile's first and last
+    // row's has no masked column here: the usual case, and no compares.
+    const int id_a = st.ids[0], id_b = st.ids[BK - 1];
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    if (id_a == id_b && id_a == sq0 && id_a == sq1) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int sk0 = segk_s[nt * 8 + t2], sk1 = segk_s[nt * 8 + t2 + 1];
-      msk[nt][0] = sq0 == sk0;
-      msk[nt][1] = sq0 == sk1;
-      msk[nt][2] = sq1 == sk0;
-      msk[nt][3] = sq1 == sk1;
+      for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = msk[nt][i] ? s[nt][i] * scale : NEG_INF;
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+        for (int i = 0; i < 4; ++i) s[nt][i] *= sl2;
+        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int sk0 = st.ids[nt * 8 + t2], sk1 = st.ids[nt * 8 + t2 + 1];
+        s[nt][0] = sq0 == sk0 ? s[nt][0] * sl2 : -INFINITY;
+        s[nt][1] = sq0 == sk1 ? s[nt][1] * sl2 : -INFINITY;
+        s[nt][2] = sq1 == sk0 ? s[nt][2] * sl2 : -INFINITY;
+        s[nt][3] = sq1 == sk1 ? s[nt][3] * sl2 : -INFINITY;
+        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      }
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    // a row with no live column yet subtracts 0, so every exponent of a
+    // masked score is -inf and its p exactly 0, with no select
+    const float z0 = mn0 == -INFINITY ? 0.f : mn0, z1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float a0 = fast_exp2(m0 - z0), a1 = fast_exp2(m1 - z1);
     m0 = mn0;
     m1 = mn1;
 
@@ -140,10 +285,10 @@ fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      const float p0 = msk[nt][0] ? expf(s[nt][0] - mn0) : 0.f;
-      const float p1 = msk[nt][1] ? expf(s[nt][1] - mn0) : 0.f;
-      const float p2 = msk[nt][2] ? expf(s[nt][2] - mn1) : 0.f;
-      const float p3 = msk[nt][3] ? expf(s[nt][3] - mn1) : 0.f;
+      const float p0 = fast_exp2(s[nt][0] - z0);
+      const float p1 = fast_exp2(s[nt][1] - z0);
+      const float p2 = fast_exp2(s[nt][2] - z1);
+      const float p3 = fast_exp2(s[nt][3] - z1);
       ps0 += p0 + p1;
       ps1 += p2 + p3;
       pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
@@ -160,15 +305,18 @@ fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
       o[dt][2] *= a1;
       o[dt][3] *= a1;
     }
-    mma_ab(o, pa, v_s, g, t2);
+    mma_ab_ldsm(o, pa, st.v, lane);
+    mbar_arrive(&empty[t % NS]);
+
   }
+  cp_async_wait<0>();  // only empty groups can be left
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
-  const int row0 = q0 + r0, row1 = row0 + 8;
+  const int h = h0 + hw;
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
     const int col = h * D + dt * 8 + t2;
@@ -180,9 +328,54 @@ fwd_bf16_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
           pack_bf16(o[dt][2] / L1, o[dt][3] / L1);
   }
   if ((lane & 3) == 0) {
-    if (row0 < S) lse[(size_t)row0 * hq + h] = m0 + logf(L0);
-    if (row1 < S) lse[(size_t)row1 * hq + h] = m1 + logf(L1);
+    // lse in natural-log units, as the backward kernels read it; a row that
+    // matched no kv row gets -1e30 + log(1e-30), as the plain version does
+    constexpr float LN2 = 0.6931471805599453f;
+    if (row0 < S) lse[(size_t)row0 * hq + h] = (m0 == -INFINITY ? NEG_INF : m0 * LN2) + logf(L0);
+    if (row1 < S) lse[(size_t)row1 * hq + h] = (m1 == -INFINITY ? NEG_INF : m1 * LN2) + logf(L1);
   }
+}
+
+template <bool kRope, int HPC, int QR>
+int launch_fwd_pipe(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                    const int* seg_q, const int* seg_k, __nv_bfloat16* out, float* lse, int S,
+                    int Sk, int hq, int hkv, float scale, Rope rq, Rope rk, cudaStream_t st) {
+  constexpr int smem = fwd_smem_bytes<kRope, HPC, QR>();
+  auto kern = fwd_bf16_pipe<kRope, HPC, QR>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((S + QR - 1) / QR, hkv * (hq / hkv / HPC));
+  kern<<<grid, HPC * QR * 2, smem, st>>>(q, k, v, seg_q, seg_k, out, lse, S, Sk, hq, hkv, scale,
+                                         rq, rk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q heads a CTA takes, from the group's Hq/Hkv: the plain kernel prefers 2
+// (two CTAs an SM, each with its own ring, keep each other's tensor cores
+// busy), the rope kernel 4 (each K tile's table rows are copied and the
+// tile rotated once per CTA); then 3, 2; else one head of 128 q rows. Both
+// take 64-row q tiles wherever the group has 2, 3 or 4 heads, so their tiles,
+// and so their arithmetic, are the same.
+template <bool kRope>
+int launch_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                    const int* seg_q, const int* seg_k, __nv_bfloat16* out, float* lse, int S,
+                    int Sk, int hq, int hkv, float scale, Rope rq, Rope rk, cudaStream_t st) {
+  const int rep = hq / hkv;
+  if (kRope && rep % 4 == 0)
+    return launch_fwd_pipe<kRope, 4, 64>(q, k, v, seg_q, seg_k, out, lse, S, Sk, hq, hkv, scale,
+                                         rq, rk, st);
+  if (!kRope && rep % 2 == 0)
+    return launch_fwd_pipe<kRope, 2, 64>(q, k, v, seg_q, seg_k, out, lse, S, Sk, hq, hkv, scale,
+                                         rq, rk, st);
+  if (rep % 3 == 0)
+    return launch_fwd_pipe<kRope, 3, 64>(q, k, v, seg_q, seg_k, out, lse, S, Sk, hq, hkv, scale,
+                                         rq, rk, st);
+  if (rep % 2 == 0)
+    return launch_fwd_pipe<kRope, 2, 64>(q, k, v, seg_q, seg_k, out, lse, S, Sk, hq, hkv, scale,
+                                         rq, rk, st);
+  return launch_fwd_pipe<kRope, 1, 128>(q, k, v, seg_q, seg_k, out, lse, S, Sk, hq, hkv, scale,
+                                        rq, rk, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -332,14 +525,14 @@ template <bool kRope>
 int launch_fwd(const void* q, const void* k, const void* v, const int* seg_q, const int* seg_k,
                void* out, float* lse, int S, int Sk, int hq, int hkv, float scale, int is_bf16,
                Rope rq, Rope rk, void* stream) {
-  const dim3 grid((S + BQ - 1) / BQ, hq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    fwd_bf16_mma<kRope><<<grid, NT_BF16, 0, st>>>(
+    return launch_fwd_bf16<kRope>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
-        static_cast<__nv_bfloat16*>(out), lse, S, Sk, hq, hkv, scale, rq, rk);
+        static_cast<__nv_bfloat16*>(out), lse, S, Sk, hq, hkv, scale, rq, rk, st);
   } else {
+    const dim3 grid((S + BQ - 1) / BQ, hq);
     fwd_f32_fma<kRope><<<grid, 256, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), seg_q, seg_k, static_cast<float*>(out), lse,
@@ -370,5 +563,5 @@ extern "C" int flash_segment_attn_rope_fwd(const void* q, const void* k, const v
                                            void* out, float* lse, int S, int Sk, int hq,
                                            int hkv, float scale, int is_bf16, void* stream) {
   return launch_fwd<true>(q, k, v, seg_q, seg_k, out, lse, S, Sk, hq, hkv, scale, is_bf16,
-                          Rope{cos_q, sin_q, P}, Rope{cos_k, sin_k, P}, stream);
+                          make_rope(cos_q, sin_q, P), make_rope(cos_k, sin_k, P), stream);
 }

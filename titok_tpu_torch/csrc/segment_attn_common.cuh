@@ -66,7 +66,14 @@ struct Rope {
   const float* cos;
   const float* sin;
   int P;
+  bool pairs8;  // P even and both tables 8-byte aligned: staged two pairs a copy
 };
+
+inline Rope make_rope(const float* cos, const float* sin, int P) {
+  return Rope{cos, sin, P,
+              P % 2 == 0 && reinterpret_cast<uintptr_t>(cos) % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(sin) % 8 == 0};
+}
 
 // One interleaved pair (x[2p], x[2p+1]) rotated in fp32, every product and
 // sum rounded on its own (no FMA contraction), as the port's elementwise
@@ -266,6 +273,268 @@ __device__ __forceinline__ void c_to_a(uint32_t (*pa)[4], float (*c)[4]) {
   for (int nt = 0; nt < 8; ++nt) {
     pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(c[nt][0], c[nt][1]);
     pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(c[nt][2], c[nt][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The pipelined kernels' pieces (the forward and the dk/dv kernel): a ring of
+// tiles filled by cp.async, fragments by ldmatrix, the interval found by a
+// 32-way warp search. The helpers above stay for the dq and v1 kernels.
+// ---------------------------------------------------------------------------
+
+constexpr int PMAX = 32;  // table columns staged per row (P <= 32)
+
+// threadIdx.x read afresh where it is used: what a helper derives from it is
+// then recomputed there, not held in registers across a kernel's main loop
+// (the forward passes it to its table helpers to stay within 128 registers)
+__device__ __forceinline__ int tid_fresh() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
+// The first j in [0, n) with remap(seg[j]) >= x (upper: > x), n when none,
+// by the 32 lanes of a warp: 32 probes a step, so about log32(n) dependent
+// loads, not log2(n). Every lane of the warp must call it.
+__device__ __forceinline__ int warp_search(const int* __restrict__ seg, int n, int x, bool upper,
+                                           int lane) {
+  int lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) >> 5;
+    const int p = lo + lane * step;
+    bool below = false;
+    if (p < hi) {
+      const int s = remap(seg[p]);
+      below = upper ? s <= x : s < x;
+    }
+    const int c = __popc(__ballot_sync(0xffffffffu, below));  // lanes 0..c-1 are below
+    if (c == 0) return lo;
+    const int nlo = lo + (c - 1) * step + 1;
+    hi = min(lo + c * step, hi);
+    lo = nlo;
+  }
+  return lo;
+}
+
+// [lo, hi) of `segment_interval` into range_s, found by warps 0 and 1 (one
+// search each, at once). Every thread of the block must call it; it ends
+// with a barrier.
+__device__ __forceinline__ void segment_interval_warps(const int* __restrict__ seg_a,
+                                                       const int* __restrict__ seg_b, int a0,
+                                                       int a1, int nb, int* range_s) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < 2) {
+    const int x = remap(seg_a[warp == 0 ? a0 : a1 - 1]);
+    const int r = warp_search(seg_b, nb, x, warp == 1, lane);
+    if (lane == 0) range_s[warp] = r;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without passing through registers; zeros when
+// !ok (src is then not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// All but the newest N groups of this thread's copies have landed, and are
+// visible to this thread (to the others after a barrier or an mbarrier).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x by the special function unit alone (ex2.approx.ftz: relative error
+// about 2^-22, results below 2^-126 flushed to 0; 2^-inf = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// mbarriers in shared memory (sm_90): `count` arrivals complete a phase;
+// arrive has release and the wait acquire semantics at CTA scope.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Four 8x8 bf16 matrices: lanes 8i..8i+7 give the row addresses of matrix i;
+// r[i] gets matrix i's fragment, (row lane / 4, columns 2 (lane % 4) + 0..1),
+// or with .trans its transpose (rows 2 (lane % 4) + 0..1, column lane / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c[nt] (16 rows x 64 columns, 8 n-tiles) = A times the transpose of the
+// [64][LDS] tile `s` (k = D): A's fragments by ldmatrix.x4 from rows
+// r0..r0+15 of the [*][LDS] tile `a_s`, two k steps at a time (8 of its
+// registers live); one ldmatrix.x4 gives the B fragments of one n-tile for
+// two k steps.
+__device__ __forceinline__ void mma_abt_ldsm(float (*c)[4], const __nv_bfloat16* a_s, int r0,
+                                             const __nv_bfloat16* s, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+#pragma unroll
+  for (int kk2 = 0; kk2 < 2; ++kk2) {
+    uint32_t a[2][4];
+    ldsm_x4(a[0], &a_s[(r0 + (lane & 15)) * LDS + kk2 * 32 + (lane >> 4) * 8]);
+    ldsm_x4(a[1], &a_s[(r0 + (lane & 15)) * LDS + kk2 * 32 + 16 + (lane >> 4) * 8]);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      uint32_t b[4];
+      ldsm_x4(b, &s[(nt * 8 + (lane & 7)) * LDS + kk2 * 32 + (lane >> 3) * 8]);
+      mma_bf16(c[nt], a[0], b);
+      mma_bf16(c[nt], a[1], b + 2);
+    }
+  }
+}
+
+// acc[dt] (16 rows x D, 8 n-tiles) += A (k = the tile's 64 rows) times the
+// [64][LDS] tile `s` (k = tile row, n = d). One ldmatrix.x4.trans gives the
+// B fragments of two n-tiles for one k step.
+__device__ __forceinline__ void mma_ab_ldsm(float (*acc)[4], uint32_t (*pa)[4],
+                                            const __nv_bfloat16* s, int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int dt2 = 0; dt2 < 4; ++dt2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, &s[(j * 16 + (lane & 15)) * LDS + dt2 * 16 + (lane >> 4) * 8]);
+      mma_bf16(acc[2 * dt2], pa[j], b);
+      mma_bf16(acc[2 * dt2 + 1], pa[j], b + 2);
+    }
+  }
+}
+
+// Issue the copies of ROWS rows of NH consecutive heads (columns col0 + h *
+// D) into NH [ROWS][LDS] tiles at dst + h * ROWS * LDS; rows at or past
+// `valid` are zero-filled. Thread `tid` takes the 16-byte chunks e = tid,
+// tid + NT, ... (row e / 8, pairs 4 (e % 8) .. + 3), as `issue_tables` and
+// `rotate_own` do.
+template <int NT, int ROWS, int NH>
+__device__ __forceinline__ void issue_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
+                                           int valid, int ld, int col0, int tid) {
+#pragma unroll
+  for (int e = tid; e < ROWS * 8; e += NT) {
+    const int r = e >> 3, c = (e & 7) * 8;
+    const bool ok = row0 + r < valid;
+    const size_t off = ok ? (size_t)(row0 + r) * ld + col0 + c : 0;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) cp_async16(&dst[(h * ROWS + r) * LDS + c], src + off + h * D, ok);
+  }
+}
+
+// The table entries of the same chunks (rows below `valid`, pairs < P) into
+// [ROWS][PMAX] cos_s/sin_s: the thread that copies a chunk copies its
+// entries, so it alone rotates the chunk (`rotate_own`) after its own
+// cp_async_wait, with no barrier in between.
+template <int NT, int ROWS>
+__device__ __forceinline__ void issue_tables(float* cos_s, float* sin_s, int row0, int valid,
+                                             const Rope& rp, int tid) {
+#pragma unroll
+  for (int e = tid; e < ROWS * 8; e += NT) {
+    const int r = e >> 3, p0 = (e & 7) * 4;
+    if (row0 + r >= valid) continue;
+    const size_t t = (size_t)(row0 + r) * rp.P;
+#pragma unroll
+    for (int i = 0; i < 4; i += 2) {
+      const int p = p0 + i;
+      if (rp.pairs8 && p + 1 < rp.P) {
+        cp_async8(&cos_s[r * PMAX + p], rp.cos + t + p);
+        cp_async8(&sin_s[r * PMAX + p], rp.sin + t + p);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (p + j < rp.P) {
+            cp_async4(&cos_s[r * PMAX + p + j], rp.cos + t + p + j, true);
+            cp_async4(&sin_s[r * PMAX + p + j], rp.sin + t + p + j, true);
+          }
+      }
+    }
+  }
+}
+
+// Rotate in place, in shared memory, the chunks this thread copied with
+// `issue_rows` (same loop), by the table entries it copied with
+// `issue_tables`; as rot8_bf16 does, so the result is apply_rotary_emb's bit
+// for bit.
+template <int NT, int ROWS, int NH>
+__device__ __forceinline__ void rotate_own(__nv_bfloat16* dst, int row0, int valid,
+                                           const float* cos_s, const float* sin_s, int P, int tid) {
+#pragma unroll
+  for (int e = tid; e < ROWS * 8; e += NT) {
+    const int r = e >> 3, c = (e & 7) * 8;
+    if (row0 + r >= valid) continue;
+    // the chunk's 4 entries of each table in one 16-byte load (entries past
+    // P were not copied and are not used)
+    const float4 cs = *reinterpret_cast<const float4*>(&cos_s[r * PMAX + (c >> 1)]);
+    const float4 sn = *reinterpret_cast<const float4*>(&sin_s[r * PMAX + (c >> 1)]);
+    const float cv[4] = {cs.x, cs.y, cs.z, cs.w}, sv[4] = {sn.x, sn.y, sn.z, sn.w};
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      uint4* x = reinterpret_cast<uint4*>(&dst[(h * ROWS + r) * LDS + c]);
+      uint4 v = *x;
+      uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if ((c >> 1) + i < P) {
+          const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+          float x0 = __low2float(b), x1 = __high2float(b);
+          rot_pair(x0, x1, cv[i], sv[i]);
+          w[i] = pack_bf16(x0, x1);
+        }
+      }
+      *x = make_uint4(w[0], w[1], w[2], w[3]);
+    }
   }
 }
 

@@ -58,7 +58,8 @@ def _nvcc() -> str:
 
 def _digest(src: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+    # the source and the headers beside it (another directory's, for an A/B)
+    for path in [src] + sorted(glob.glob(os.path.join(os.path.dirname(src), "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]

@@ -280,48 +280,60 @@ def _check_rope(q, k, cos, sin, k_cos, k_sin) -> int:
     return P
 
 
-@functools.cache
-def _kernel():
-    """The C entry point of ``csrc/flash_segment_attn_fwd.cu``, built at
-    first use."""
-    from titok_tpu_torch.ops import _build
-
-    fn = _build.load("flash_segment_attn_fwd").flash_segment_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+def bind_fwd(lib: ctypes.CDLL):
+    """The C entries of a ``flash_segment_attn_fwd`` library with their
+    argument types: ``(plain, rope)``. The rope entry takes q, k, v, the ids
+    and the four tables, then P, then what the plain entry takes after its
+    ids."""
+    fwd, rope = lib.flash_segment_attn_fwd, lib.flash_segment_attn_rope_fwd
+    fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    rope.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    for fn in (fwd, rope):
+        fn.restype = ctypes.c_int
+    return fwd, rope
 
 
-@functools.cache
-def _bwd_kernels():
-    """The two C entry points of ``csrc/flash_segment_attn_bwd.cu`` (dq,
-    dkv), built at first use."""
-    from titok_tpu_torch.ops import _build
-
-    lib = _build.load("flash_segment_attn_bwd")
-    fns = (lib.flash_segment_attn_bwd_dq, lib.flash_segment_attn_bwd_dkv)
-    for fn, n_ptr in zip(fns, (9, 10)):
+def bind_bwd(lib: ctypes.CDLL):
+    """The C entries of a ``flash_segment_attn_bwd`` library with their
+    argument types: ``(dq, dkv, rope_dq, rope_dkv)``."""
+    fns = (lib.flash_segment_attn_bwd_dq, lib.flash_segment_attn_bwd_dkv,
+           lib.flash_segment_attn_rope_bwd_dq, lib.flash_segment_attn_rope_bwd_dkv)
+    for fn, n_ptr in zip(fns[:2], (9, 10)):
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    for fn, n_ptr in zip(fns[2:], (4, 5)):
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [
+            ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    for fn in fns:
         fn.restype = ctypes.c_int
     return fns
 
 
 @functools.cache
-def _rope_kernels():
-    """The three rope C entry points (forward, dq, dk/dv) of the two
-    sources, built at first use. Each takes q, k, v, the ids and the four
-    tables, then P, then what the plain entry takes after its ids."""
+def _libs():
+    """``bind_fwd`` and ``bind_bwd`` of ``csrc/flash_segment_attn_{fwd,bwd}.cu``,
+    built at first use."""
     from titok_tpu_torch.ops import _build
 
-    fwd = _build.load("flash_segment_attn_fwd").flash_segment_attn_rope_fwd
-    bwd = _build.load("flash_segment_attn_bwd")
-    dq, dkv = bwd.flash_segment_attn_rope_bwd_dq, bwd.flash_segment_attn_rope_bwd_dkv
-    for fn, n_ptr in ((fwd, 2), (dq, 4), (dkv, 5)):
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + [
-            ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    return (bind_fwd(_build.load("flash_segment_attn_fwd")),
+            bind_bwd(_build.load("flash_segment_attn_bwd")))
+
+
+def _kernel():
+    """The plain forward entry."""
+    return _libs()[0][0]
+
+
+def _bwd_kernels():
+    """The plain backward entries ``(dq, dkv)``."""
+    return _libs()[1][:2]
+
+
+def _rope_kernels():
+    """The three rope entries ``(forward, dq, dkv)``."""
+    (_, fwd), (_, _, dq, dkv) = _libs()
     return fwd, dq, dkv
 
 
