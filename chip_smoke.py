@@ -73,12 +73,14 @@ toolkit. Phases, in order; any failure exits non-zero:
    batches and noise: losses and grads must agree;
 12. the three v1 attention kernels (``attn_impl: flash_v1``) against their
    plain versions, bf16 and f32: the bench shape, the base_vq serving
-   layout at heads 12/4 and 16/4, a ragged packing, the tiny stacked
-   discriminator buffer (24,752 rows); per-head and group-summed dk/dv; the
-   forward against the row 1 kernel; planted faults (the last overlapping
-   kv tile skipped, dk/dv of one q head of each group, p not rounded before
-   p.v, lse with the wrong scale) that the gates must reject; the four
-   times at the bench shape and the base_vq layout at 12/4;
+   layout at heads 12/4, 16/4 and 8/1, a ragged packing, the tiny stacked
+   discriminator buffer (24,752 rows); group-summed dk/dv (bf16: the
+   kernel sums each group, each q head rounded first) and, in f32, the
+   per-head dk/dv; the forward against the row 1 kernel; planted faults
+   (the last overlapping kv tile skipped, dk/dv of one q head of each
+   group, p not rounded before p.v, lse with the wrong scale) that the
+   gates must reject; the four times at the bench shape and the base_vq
+   layout at 12/4;
 13. the trainer: ``Trainer(cfg).fit()`` of ``configs/tiny_fsq16k.yaml`` at
    full width through the v1 kernels (synthetic data, LPIPS off), 8 steps
    with eval at 4 and 8 and checkpoints every 4: launches per step and in
@@ -1919,6 +1921,9 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
         ("bench 10x576 4/2", bench_seg, 4, 2),
         ("base_vq serving layout 12/4", BASE_SEG, 12, 4),
         ("base_vq serving layout 16/4", BASE_SEG, 16, 4),
+        # 8 q heads a kv head: the bf16 dk/dv's 4 warp groups take them in
+        # two chunks of 4, each head rounded when its chunk is folded
+        ("base_vq serving layout 8/1", BASE_SEG, 8, 1),
         ("ragged 1..1892 4/2", segments([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299), 4, 2),
         (f"tiny stacked disc 4x{sd} 4/2", disc_seg, 4, 2),
     ]
@@ -1933,8 +1938,9 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
 
     def kernels(q, k, v, seg, do, fwd_kmm=None, bwd_kmm=None, lse_scale=1.0):
         """The three kernels through their C entries' wrappers: (out, lse,
-        (dq, dk_h, dv_h)); ``*_kmm`` replace the kv tile intervals,
-        ``lse_scale`` scales the lse the forward hands on."""
+        (dq, dk, dv)), dk/dv summed over each group in bf16 and per q head
+        in f32; ``*_kmm`` replace the kv tile intervals (the bf16 dk/dv
+        reads none), ``lse_scale`` scales the lse the forward hands on."""
         key = "bf16" if q.dtype == torch.bfloat16 else "f32"
         scale = D ** -0.5
         fq, fk = f1._intervals(seg, f1.TILES["fwd"][key])
@@ -1944,12 +1950,16 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
         bk = bk if bwd_kmm is None else bwd_kmm
         delta = fa._delta(out, do)
         dq = f1.launch_bwd_dq(q, k, v, seg, bq, bk, do, lse, delta, scale)
-        dk_h, dv_h = f1.launch_bwd_dkv(q, k, v, seg, bq, bk, do, lse, delta, scale)
-        return out, lse, (dq, dk_h, dv_h)
+        dk, dv = f1.launch_bwd_dkv(q, k, v, seg, bq, bk, do, lse, delta, scale)
+        return out, lse, (dq, dk, dv)
 
     def summed(grads, hkv):
-        dq, dk_h, dv_h = grads
-        return dq, f1.group_sum(dk_h, hkv), f1.group_sum(dv_h, hkv)
+        """(dq, dk, dv) with per-q-head dk/dv ([S, Hq, D]) summed over each
+        group; the bf16 kernel's are summed already."""
+        dq, dk, dv = grads
+        if dk.shape[1] == hkv:
+            return dq, dk, dv
+        return dq, f1.group_sum(dk, hkv), f1.group_sum(dv, hkv)
 
     for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         for label, seg_np, hq, hkv in cases:
@@ -1963,8 +1973,11 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             ok_f, line_f = v1_fwd_gate(out, lse, r_out, r_lse, dname)
             want_h = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, do,
                                                               per_head=True)
-            ok_h, rows_h = bwd_gate(grads, want_h, dname)
-            ok_b, rows_b = bwd_gate(summed(grads, hkv), summed(want_h, hkv), dname)
+            want_b = summed(want_h, hkv)
+            # f32: the kernel's per-head dk/dv, then their group sums; bf16:
+            # the kernel's group sums (each head rounded first, as want_b)
+            ok_h, rows_h = bwd_gate(grads, want_h, dname) if dname == "f32" else (True, None)
+            ok_b, rows_b = bwd_gate(summed(grads, hkv), want_b, dname)
             # the row 1 kernel computes the same function (its kv tiles start
             # where each q tile's interval starts, so p rounds elsewhere)
             m_out, m_lse = fa._fwd(q, k, v, seg)
@@ -1972,18 +1985,21 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             atol, rtol, lse_atol = TOL[dname]
             ok_m = bool(((out.float() - m32).abs() <= atol + rtol * m32.abs()).all()) and \
                 (lse - m_lse).abs().max().item() <= lse_atol
+            per_head = (f"per-head dk/dv {'ok' if ok_h else 'FAIL'} ({_gate_line(rows_h)}); "
+                        if rows_h else "")
             print(f"v1 kernels {dname} {label} S={S}: forward {line_f} {'ok' if ok_f else 'FAIL'}; "
-                  f"per-head dk/dv {'ok' if ok_h else 'FAIL'} ({_gate_line(rows_h)}); group-summed "
-                  f"{'ok' if ok_b else 'FAIL'} ({_gate_line(rows_b)}); vs the row 1 kernel out "
-                  f"max|d| {(out.float() - m32).abs().max().item():.3e} {'ok' if ok_m else 'FAIL'}")
+                  f"{per_head}group-summed {'ok' if ok_b else 'FAIL'} ({_gate_line(rows_b)}); vs "
+                  f"the row 1 kernel out max|d| {(out.float() - m32).abs().max().item():.3e} "
+                  f"{'ok' if ok_m else 'FAIL'}")
             check(ok_f and ok_h and ok_b, f"v1 kernels disagree with their plain versions: "
                   f"{dname} {label}")
             check(ok_m, f"the v1 forward disagrees with the row 1 kernel: {dname} {label}")
             errs = [(out.float() - r_out.float()).abs().max().item()] + [
-                (a.float() - b.float()).abs().max().item() for a, b in zip(grads, want_h)]
+                (a.float() - b.float()).abs().max().item()
+                for a, b in zip(grads, want_h if dname == "f32" else want_b)]
             for key, e in (("fwd", errs[0]), ("dq", errs[1]), ("dkv", max(errs[2:]))):
                 res[f"{key}_{dname}"]["max_abs_err"] = max(res[f"{key}_{dname}"]["max_abs_err"], e)
-            del q, k, v, do, out, lse, grads, r_out, r_lse, want_h, m_out, m_lse
+            del q, k, v, do, out, lse, grads, r_out, r_lse, want_h, want_b, m_out, m_lse
             torch.cuda.empty_cache()
 
         # planted faults at the bench shape, each made by the kernels on
@@ -2004,10 +2020,11 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             q, k, v, seg, do, fwd_kmm=skip_f)[:2]
         bwd_faults["the last overlapping kv/q tile skipped"] = summed(
             kernels(q, k, v, seg, do, bwd_kmm=skip_b)[2], hkv)
-        dq, dk_h, dv_h = grads
-        bwd_faults["dk/dv of only one q head of each group"] = (
-            dq, dk_h.view(S, hkv, hq // hkv, D)[:, :, 0].contiguous(),
-            dv_h.view(S, hkv, hq // hkv, D)[:, :, 0].contiguous())
+        # the kernel itself with dO, and so delta, zero on every q head but
+        # the first of each group: its dk/dv are then that head's alone
+        keep = (torch.arange(hq, device=dev) % (hq // hkv) == 0).to(dtype)
+        one = summed(kernels(q, k, v, seg, (do * keep[None, :, None]).contiguous())[2], hkv)
+        bwd_faults["dk/dv of only one q head of each group"] = (grads[0], one[1], one[2])
         # lse in log2 units: a kernel that folds log2(e) into the scale for
         # exp2 and does not convert its lse back
         wrong = kernels(q, k, v, seg, do, lse_scale=float(np.log2(np.e)))
@@ -2026,7 +2043,7 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             print(f"  planted fault {dname}, {name}: backward gate "
                   f"{'PASSED' if ok else 'REJECTED'} ({_gate_line(rows)})")
             check(not ok, f"the {dname} v1 backward gate passes a planted fault: {name}")
-        del out, lse, grads, want, fwd_faults, bwd_faults, wrong, dq, dk_h, dv_h
+        del out, lse, grads, want, fwd_faults, bwd_faults, wrong, one
 
         # times at the bench shape (the numbers of the JSON line) and at the
         # base_vq serving layout, heads 12/4: each kernel at its C entry on
@@ -2042,7 +2059,9 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             fq, fk = f1._intervals(seg, f1.TILES["fwd"][dname])
             bq, bk = f1._intervals(seg, f1.TILES["dq"][dname])
             o2, l2 = torch.empty_like(q), torch.empty_like(lse)
-            dq, dk_h, dv_h = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+            # dk/dv: bf16 summed over each group, f32 per q head
+            dq = torch.empty_like(q)
+            dk_h, dv_h = (torch.empty_like(k if dname == "bf16" else q) for _ in range(2))
             stream = torch.cuda.current_stream().cuda_stream
             tail = (S, hq, hkv, float(D ** -0.5), int(dname == "bf16"), stream)
             head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr())

@@ -510,22 +510,57 @@ def test_rope_wrapper_raises_on_cuda_instead_of_falling_back(cuda):
         fa.flash_segment_attention_mh(q, k, v, seg, rope_cos=cos.cpu(), rope_sin=sin.cpu())
 
 
-# The edges of the pipelined bf16 forward and dk/dv kernels: segments of 1
-# row and around 64 and 128 rows (the q and kv tiles, and the 128-row q
-# tile a CTA takes when it holds one head), S and Sk not multiples of 128,
-# and every head split the kernels choose (a CTA takes 4, 3 or 2 q heads of
-# a group, or one head).
+# The edges of the pipelined bf16 kernels (forward, dq, dk/dv, and the v1
+# dk/dv, which is the dk/dv kernel with each q head rounded before the group
+# sum): segments of 1 row and around 64 and 128 rows (the q and kv tiles,
+# and the 128-row q tile a forward CTA takes when it holds one head), S and
+# Sk not multiples of 128, and every head split the kernels choose (a CTA
+# takes 4, 3 or 2 q heads of a group, or one head; at 8/1 the plain dq takes
+# 2 heads a CTA and the rope dq 4, and dk/dv walks 8 heads with 4 warp
+# groups: v1 in two chunks of 4 heads, each folded into a running sum).
 EDGE_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 1, 200]  # 778 rows, then pad
-EDGE_HEADS = {"MHA 4/4": (4, 4), "4/2": (4, 2), "12/4": (12, 4), "16/4": (16, 4)}
+EDGE_HEADS = {"MHA 4/4": (4, 4), "4/2": (4, 2), "12/4": (12, 4), "16/4": (16, 4),
+              "8/1": (8, 1)}
 
 
-@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope P30"])
+def _check_v1(dev, dtype, seg, hq, hkv, seed):
+    """The three v1 kernels against their plain versions, one launch each;
+    dk/dv against the group sums of the plain per-head grads."""
+    from titok_tpu_torch.ops import flash_attention as f1
+
+    S = seg.shape[0]
+    q, k, v = _inputs(dev, dtype, S, hq, hkv, seed=seed)
+    dout = torch.randn(S, hq, 64, generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                       device=dev).to(dtype)
+    key = "bf16" if dtype == torch.bfloat16 else "f32"
+    names = (f"v1_{key}", f"v1_bwd_dq_{key}", f"v1_bwd_dkv_{key}")
+    before = {n: fa.launches[n] for n in names}
+    out, lse = f1._fwd(q, k, v, seg)
+    grads = f1._bwd(q, k, v, seg, out, lse, dout)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in names} == {n: 1 for n in names}
+    ref_out, ref_lse = f1.flash_segment_attention_reference(q, k, v, seg)
+    _assert_close(out, lse, ref_out, ref_lse, dtype)
+    nrel = BWD_TOL[dtype][2]
+    d = (out.float() - ref_out.float()).square().mean().sqrt().item()
+    assert d <= nrel * max(ref_out.float().square().mean().sqrt().item(), 1e-30)
+    dq, dk_h, dv_h = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, dout,
+                                                              per_head=True)
+    want = (dq, f1.group_sum(dk_h, hkv), f1.group_sum(dv_h, hkv))
+    for a, x in zip(grads, (q, k, v)):
+        assert a.dtype == dtype and a.shape == x.shape and bool(torch.isfinite(a.float()).all())
+    _assert_bwd_close(grads, want, dtype)
+
+
+@pytest.mark.parametrize("kind", ["plain", "rope P30", "v1"])
 @pytest.mark.parametrize("heads", list(EDGE_HEADS))
-def test_tile_edges_match_plain(cuda, heads, rope):
+def test_tile_edges_match_plain(cuda, heads, kind):
     hq, hkv = EDGE_HEADS[heads]
     bf = torch.bfloat16
     seg = _segments(EDGE_LENGTHS, 809).to(cuda)
-    if rope:
+    if kind == "v1":
+        _check_v1(cuda, bf, seg, hq, hkv, seed=11)
+    elif kind == "rope P30":
         q, k, v = _inputs(cuda, bf, 809, hq, hkv, seed=11)
         cos, sin = _rope_tables(cuda, 809, 30, 12)
         dout = torch.randn(809, hq, 64, generator=torch.Generator(device=cuda).manual_seed(13),
@@ -561,18 +596,25 @@ def test_tile_edges_separate_k_ids_and_tables(cuda, heads, rope):
         _check_bwd(cuda, bf, seg_q, hq, hkv, Sk=461, k_seg=seg_k)
 
 
-@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope P30"])
-@pytest.mark.parametrize("heads", ["4/2", "12/4", "16/4"])
-def test_dkv_two_launches_give_identical_bits(cuda, heads, rope):
+@pytest.mark.parametrize("kind", ["plain", "rope P30", "v1"])
+@pytest.mark.parametrize("heads", ["4/2", "12/4", "16/4", "8/1"])
+def test_dkv_two_launches_give_identical_bits(cuda, heads, kind):
     """The dk/dv kernel sums its warp groups' partial dk/dv in a fixed order
-    (no atomics): two launches on the same inputs give the same bits."""
+    (no atomics), and each dq element is one CTA's sum over its kv tiles in
+    ascending order: two launches on the same inputs give the same bits (v1:
+    its dq and its dk/dv, which adds the rounded heads in head order)."""
     hq, hkv = EDGE_HEADS[heads]
     bf = torch.bfloat16
     seg = _segments([513, 1040, 416, 832, 608], 4096).to(cuda)
     q, k, v = _inputs(cuda, bf, 4096, hq, hkv, seed=31)
     dout = torch.randn(4096, hq, 64, generator=torch.Generator(device=cuda).manual_seed(32),
                        device=cuda).to(bf)
-    if rope:
+    if kind == "v1":
+        from titok_tpu_torch.ops import flash_attention as f1
+
+        out, lse = f1._fwd(q, k, v, seg)
+        runs = [f1._bwd(q, k, v, seg, out, lse, dout) for _ in range(2)]
+    elif kind == "rope P30":
         cos, sin = _rope_tables(cuda, 4096, 30, 33)
         out, lse = fa._rope_fwd(q, k, v, seg, cos, sin)
         runs = [fa._rope_bwd(q, k, v, seg, cos, sin, out, lse, dout) for _ in range(2)]
@@ -625,6 +667,7 @@ def test_flash_rope_remat_train_step_launches(cuda):
 V1_CASES = {
     "bench 10x576 4/2": ([576] * 10, 6144, 4, 2),
     "base_vq layout 12/4": ([513, 1040, 416, 832, 608], 4096, 12, 4),
+    "base_vq layout 8/1": ([513, 1040, 416, 832, 608], 4096, 8, 1),
     "ragged 1..1892, pad": ([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299, 4, 2),
     "one row": ([1], 1, 4, 2),
     "all pad": ([], 100, 4, 2),
@@ -635,29 +678,8 @@ V1_CASES = {
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("case", list(V1_CASES))
 def test_v1_kernels_match_plain(cuda, dtype, case):
-    from titok_tpu_torch.ops import flash_attention as f1
-
     lengths, S, hq, hkv = V1_CASES[case]
-    q, k, v = _inputs(cuda, dtype, S, hq, hkv, seed=3)
-    dout = torch.randn(S, hq, 64, generator=torch.Generator(device=cuda).manual_seed(4),
-                       device=cuda).to(dtype)
-    seg = _segments(lengths, S).to(cuda)
-    key = "bf16" if dtype == torch.bfloat16 else "f32"
-    names = (f"v1_{key}", f"v1_bwd_dq_{key}", f"v1_bwd_dkv_{key}")
-    before = {n: fa.launches[n] for n in names}
-    out, lse = f1._fwd(q, k, v, seg)
-    grads = f1._bwd(q, k, v, seg, out, lse, dout)
-    torch.cuda.synchronize()
-    assert {n: fa.launches[n] - before[n] for n in names} == {n: 1 for n in names}
-    ref_out, ref_lse = f1.flash_segment_attention_reference(q, k, v, seg)
-    _assert_close(out, lse, ref_out, ref_lse, dtype)
-    nrel = BWD_TOL[dtype][2]
-    d = (out.float() - ref_out.float()).square().mean().sqrt().item()
-    assert d <= nrel * max(ref_out.float().square().mean().sqrt().item(), 1e-30)
-    want = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, dout)
-    for a, x in zip(grads, (q, k, v)):
-        assert a.dtype == dtype and a.shape == x.shape and bool(torch.isfinite(a.float()).all())
-    _assert_bwd_close(grads, want, dtype)
+    _check_v1(cuda, dtype, _segments(lengths, S).to(cuda), hq, hkv, seed=3)
 
 
 def test_v1_wrappers_raise_on_cuda_instead_of_falling_back(cuda):

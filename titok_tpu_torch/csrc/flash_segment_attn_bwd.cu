@@ -31,15 +31,35 @@
 // part of S x Sk only.
 //
 // What the design does about it:
-// - dq (`bwd_dq_bf16`): one CTA per (64-row q tile, q head), 4 warps of 16
-//   q rows. The CTA binary-searches seg_k for the exact kv interval of its
-//   tile and visits nothing else. Q and dO stay in registers as mma A
-//   fragments; K and V tiles are staged in shared memory through registers,
-//   between two barriers. It is the next kernel to redesign as dk/dv was.
-// - dk/dv (`bwd_dkv_pipe`): one CTA per (64-row kv tile, kv head). Two warps
-//   search seg_q for the q interval of its tile (the JAX
-//   `_overlap_ranges(kmm, qmm)`), 32 probes a step. It walks the group's q
-//   heads x the q tiles of the interval, so the work of a CTA is a long
+// - Both kernels search the other side's ids for the exact interval of
+//   their tile (two warps, 32 probes a step; the JAX `_overlap_ranges`) and
+//   visit nothing else; tiles come through cp.async rings in dynamic shared
+//   memory; operands are read by ldmatrix at each use; p = exp(s - lse) is
+//   one ex2.approx of s scale log2(e) - lse log2(e); a tile whose first and
+//   last ids are the rows' own id skips the compares (ids are
+//   non-decreasing).
+// - dq (`bwd_dq_pipe<kRope, HPC>`): one CTA per (64-row q tile, HPC q heads
+//   of one GQA group), 4 warps a head, 16 q rows a warp:
+//   - each staged K/V tile, its ids and (kRope) its table rows and rotation
+//     serve HPC heads: the plain kernel takes 2 (two CTAs an SM), RoPE
+//     DQ_ROPE_HPC = 4; then 3, 2, else 1 (HPC divides Hq/Hkv);
+//   - Q and dO of the CTA's heads are staged once and read by ldmatrix.x4
+//     (A of S = Q K^T and dP = dO V^T), K and V by ldmatrix.x4 (B of S, dP)
+//     and K again by ldmatrix.x4.trans (B of dQ += bf16(dS) K); dS goes from
+//     its accumulator to A fragments in registers;
+//   - a ring of DQ_STAGES = 3 K/V tiles with two mbarriers a stage, `ready`
+//     and `empty`, as in the forward: tile t + 2 is in flight while t is
+//     computed, and a warp may run a tile ahead of the slowest;
+//   - each tile in DQ_NPASS = 2 passes of 32 kv columns, so a thread holds
+//     the f32 dq accumulator and one pass's S, dP and bf16(dS): no spills at
+//     128 registers (256- and 512-thread CTAs; the plain instantiation runs
+//     its passes rolled, as unrolled ptxas spilled 8-16 bytes of it);
+//   - every CTA takes its q tile's kv tiles in ascending order and rounds
+//     each dq element once, so both instantiations and every HPC give a
+//     (row, head) the same arithmetic, and two launches the same bits.
+// - dk/dv (`bwd_dkv_pipe`, in segment_attn_dkv.cuh, shared with the v1
+//   backward): one CTA per (64-row kv tile, kv head). It walks the group's q
+//   heads x the q tiles of its interval, so the work of a CTA is a long
 //   chain; what the design does about that and the rest:
 //   - NG warp groups (NG the largest of 4, 3, 2 that divides Hq/Hkv, else
 //     1) share the stationary K and V in shared memory; group g takes q
@@ -56,27 +76,24 @@
 //   - each unit in 4 passes of 16 q columns, so a thread holds the two f32
 //     accumulators and one pass's P^T and dP^T: 127-128 registers (152-156
 //     with 3 groups) and no spills, 16 warps an SM at NG 4 or 2;
-//   - p = exp(s - lse) as one ex2.approx of s scale log2(e) - lse log2(e);
-//     a kv row whose id is the unit's first and last q row's skips the
-//     compares (q ids are non-decreasing);
 //   - the group's dk/dv: groups 1..NG-1 leave their f32 partial sums in the
 //     idle ring, group 0 adds them in a fixed order and rounds to bf16 once.
 //     No atomics: two launches give the same bits.
 // - bf16 on mma.sync m16n8k16 (bf16 in, fp32 accumulate). f32 on fp32 FMA
 //   (no TF32: the f32 path must hold tight tolerances against the plain
 //   version), 32-row tiles and 256 threads, K and V in registers.
-// Not yet: an asynchronous wgmma pipeline and TMA for dk/dv (a synchronous
-// wgmma version was no faster: PERF.md); the dq kernel's redesign.
+// Not yet: an asynchronous wgmma pipeline and TMA (a synchronous wgmma
+// dk/dv was no faster: PERF.md).
 //
 // RoPE fused (kRope = true; entries `flash_segment_attn_rope_bwd_dq` and
 // `..._rope_bwd_dkv`): replaces `_bwd_dq_kernel_rope` and
 // `_bwd_dkv_kernel_rope`, reached through `_rope_bwd`, the custom_vjp
 // backward `_mh_rope` of attn_impl 'flash_rope'. q and k come in unrotated
 // with their tables, as in the forward: the kernels rotate q and k tiles as
-// they are staged (dq: q once per CTA, each visited k tile, as each
-// thread stages it; dk/dv: k once per CTA and each q tile once per CTA for
-// all NG heads, in place in shared memory by the thread that copied the
-// chunk and its table entries, after its own cp.async wait), so p and ds
+// they are staged (dq: q once per CTA for all HPC heads and each k tile
+// once per CTA; dk/dv: k once per CTA and each q tile once per CTA for all
+// NG heads; in place in shared memory by the thread that copied the chunk
+// and its table entries, after its own cp.async wait), so p and ds
 // are those of the rotated q and k. The rotation is orthogonal, so the grads of the raw q and k are
 // the grads of the rotated ones rotated back: the f32 dq and dk
 // accumulators get the inverse rotation (sin negated) before their one
@@ -85,95 +102,269 @@
 // f32 kernels the pair is split over lanes tx and tx ^ 1 and meets by a
 // shuffle.
 
-#include "segment_attn_common.cuh"
+#include "segment_attn_dkv.cuh"
 
 namespace {
 
-constexpr int BT = 64;  // rows per tile of the bf16 kernels (q and kv)
-
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16
+// bf16 dq: one CTA per (64-row q tile, HPC q heads of one GQA group), a
+// cp.async ring of K/V tiles, operands by ldmatrix (mma.sync m16n8k16)
 // ---------------------------------------------------------------------------
 
-template <bool kRope>
-__global__ void __launch_bounds__(NT_BF16)
-bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+// Tiles in the ring: t computed, t + 1 prepared, t + 2 in flight. The
+// prologue fills tiles 0 and 1, and the one table buffer holds one tile's
+// rows, so a deeper ring needs both to change (as in the forward).
+constexpr int DQ_STAGES = 3;
+// Each K/V tile in passes of 64 / DQ_NPASS kv columns: a thread holds the f32
+// dq accumulator and one pass's S, dP and bf16(dS). One pass (S and dP of
+// 64 columns live at once) spills; four re-read Q and dO more often.
+constexpr int DQ_NPASS = 2;
+// q heads a RoPE CTA takes where the group allows it (the plain kernel 2)
+constexpr int DQ_ROPE_HPC = 4;
+
+// Bytes of one ring stage: the K and V tiles and the tile's ids.
+__host__ __device__ constexpr int dq_stage_bytes() { return 2 * BT * LDS * 2 + BT * 4; }
+
+// Dynamic shared memory: Q and dO of the CTA's heads, the ring, and (kRope)
+// one buffer of table rows (q's 64 rows, then each K tile's 64).
+template <bool kRope, int HPC>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  return 2 * HPC * BT * LDS * 2 + DQ_STAGES * dq_stage_bytes() + (kRope ? 2 * BT * PMAX * 4 : 0);
+}
+
+struct DqStage {
+  __nv_bfloat16* k;
+  __nv_bfloat16* v;
+  int* ids;
+};
+
+__device__ __forceinline__ DqStage dq_stage(unsigned char* base) {
+  DqStage st;
+  st.k = reinterpret_cast<__nv_bfloat16*>(base);
+  st.v = st.k + BT * LDS;
+  st.ids = reinterpret_cast<int*>(st.v + BT * LDS);
+  return st;
+}
+
+// HPC q heads of one group per CTA, 4 warps a head, each warp 16 q rows of
+// one head. Every staged K/V tile (and kRope its rotation) serves HPC * 64
+// (row, head) pairs; the kv interval is the q tile's, shared by its heads.
+template <bool kRope, int HPC>
+__global__ void __launch_bounds__(HPC * 128, HPC == 3 ? 1 : 4 / HPC)
+bwd_dq_pipe(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
             const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
             const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             __nv_bfloat16* __restrict__ dq, int S, int Sk, int hq, int hkv, float scale,
             Rope rq, Rope rk) {
-  __shared__ __align__(16) __nv_bfloat16 k_s[BT * LDS];  // also stages the Q tile
-  __shared__ __align__(16) __nv_bfloat16 v_s[BT * LDS];  // also stages the dO tile
-  __shared__ int segq_s[BT];
-  __shared__ int segk_s[BT];
+  constexpr int NT = HPC * 128;
+  constexpr int NS = DQ_STAGES;
+  constexpr int SB = dq_stage_bytes();
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int range_s[2];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [HPC][BT][LDS]
+  __nv_bfloat16* do_s = q_s + HPC * BT * LDS;                   // [HPC][BT][LDS]
+  unsigned char* ring = smem + 2 * HPC * BT * LDS * 2;
+  float* tcos = reinterpret_cast<float*>(ring + NS * SB);  // kRope: [BT][PMAX]
+  float* tsin = tcos + BT * PMAX;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int rep = hq / hkv, splits = rep / HPC;
+  const int hk = blockIdx.y / splits;
+  const int h0 = hk * rep + (blockIdx.y % splits) * HPC;  // the CTA's first q head
+  const int hw = warp >> 2;                               // this warp's head, h0 + hw
+  const int r0 = (warp & 3) * 16;                         // its rows r0 + g, r0 + g + 8
   const int q0 = blockIdx.x * BT;
   const int q1 = min(q0 + BT, S);
-  const int h = blockIdx.y;
-  const int hk = h / (hq / hkv);
   const int ldq = hq * D, ldk = hkv * D;
-  const int r0 = warp * 16 + g;  // this thread's rows in the tile: r0 and r0 + 8
 
-  if (tid == 0) segment_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
-  if (tid < BT) segq_s[tid] = (q0 + tid < S) ? remap(seg_q[q0 + tid]) : NO_ROW_Q;
-  load_tiles_bf16<kRope>(k_s, q, v_s, dout, q0, S, ldq, h * D, rq);
-  __syncthreads();
-  uint32_t qa[4][4], doa[4][4];
-  load_a_frags(qa, k_s, r0, t2);
-  load_a_frags(doa, v_s, r0, t2);
+  // per stage: `ready` completes when every thread has finished its copies
+  // of the stage's tile (NT arrivals), `empty` when every thread is done
+  // computing on it; so a warp may run a tile ahead of the slowest one
+  __shared__ uint64_t ready[NS], empty[NS];
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&ready[i], NT);
+      mbar_init(&empty[i], NT);
+    }
+  }
+  issue_rows<NT, BT, HPC>(q_s, q, q0, S, ldq, h0 * D, tid);
+  issue_rows<NT, BT, HPC>(do_s, dout, q0, S, ldq, h0 * D, tid);
+  if constexpr (kRope) issue_tables<NT, BT>(tcos, tsin, q0, S, rq, tid);
+  cp_async_commit();
+  // this thread's rows r0 + g, r0 + g + 8 of head h0 + hw: ids, lse in log2
+  // units (p = 2^(s scale log2e - lse log2e), one ex2.approx) and delta
+  constexpr float L2E = 1.4426950408889634f;
+  int sq0, sq1;
+  float ls0, ls1, dl0, dl1;
+  {
+    const int row0 = q0 + r0 + g, row1 = row0 + 8, h = h0 + hw;
+    sq0 = row0 < S ? remap(seg_q[row0]) : NO_ROW_Q;
+    sq1 = row1 < S ? remap(seg_q[row1]) : NO_ROW_Q;
+    ls0 = row0 < S ? lse[(size_t)row0 * hq + h] * L2E : 0.f;
+    ls1 = row1 < S ? lse[(size_t)row1 * hq + h] * L2E : 0.f;
+    dl0 = row0 < S ? delta[(size_t)row0 * hq + h] : 0.f;
+    dl1 = row1 < S ? delta[(size_t)row1 * hq + h] : 0.f;
+  }
+  segment_interval_warps(seg_q, seg_k, q0, q1, Sk, range_s);  // its barrier also
+  const int lo = range_s[0], hi = range_s[1];                  // publishes the inits
+  const int ntiles = (hi - lo + BT - 1) / BT;
 
-  const int row0 = q0 + r0, row1 = row0 + 8;
-  const int sq0 = segq_s[r0], sq1 = segq_s[r0 + 8];
-  const float lse0 = row0 < S ? lse[(size_t)row0 * hq + h] : 0.f;
-  const float lse1 = row1 < S ? lse[(size_t)row1 * hq + h] : 0.f;
-  const float dl0 = row0 < S ? delta[(size_t)row0 * hq + h] : 0.f;
-  const float dl1 = row1 < S ? delta[(size_t)row1 * hq + h] : 0.f;
-  const int lo = range_s[0], hi = range_s[1];
+  // tile t's K, V, ids (and kRope: table rows, into the one table buffer)
+  // into stage t % NS; no commit
+  auto issue = [&](int t) {
+    if (t < ntiles) {
+      const DqStage st = dq_stage(ring + (t % NS) * SB);
+      const int kv0 = lo + t * BT;
+      issue_rows<NT, BT, 1>(st.k, k, kv0, hi, ldk, hk * D, tid);
+      issue_rows<NT, BT, 1>(st.v, v, kv0, hi, ldk, hk * D, tid);
+      if (tid < BT && kv0 + tid < hi) cp_async4(&st.ids[tid], seg_k + kv0 + tid, true);
+      if constexpr (kRope) issue_tables<NT, BT>(tcos, tsin, kv0, hi, rk, tid_fresh());
+    }
+  };
+  // this thread's copies of tile t have landed: finish them (rotate its K
+  // chunks, remap its id) and say so
+  auto prep = [&](int t) {
+    if (t < ntiles) {
+      const DqStage st = dq_stage(ring + (t % NS) * SB);
+      const int kv0 = lo + t * BT;
+      if constexpr (kRope) rotate_own<NT, BT, 1>(st.k, kv0, hi, tcos, tsin, rk.P, tid_fresh());
+      if (tid < BT) st.ids[tid] = kv0 + tid < hi ? remap(st.ids[tid]) : NO_ROW_K;
+      mbar_arrive(&ready[t % NS]);
+    }
+  };
+
+  // Q (rotated once, for all HPC heads) and dO, then tiles 0 and 1; a
+  // tile's table rows go in only after the previous user of this thread's
+  // table entries is done
+  if constexpr (kRope) {
+    cp_async_wait<0>();
+    rotate_own<NT, BT, HPC>(q_s, q0, S, tcos, tsin, rq.P, tid);
+    issue(0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    prep(0);
+    issue(1);
+    cp_async_commit();
+  } else {
+    issue(0);
+    issue(1);
+    cp_async_commit();
+    cp_async_wait<0>();
+    prep(0);
+  }
+  __syncthreads();  // Q (rotated) and dO are whole
+  const __nv_bfloat16* qs = q_s + hw * BT * LDS;
+  const __nv_bfloat16* dos = do_s + hw * BT * LDS;
 
   float acc[8][4];
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
 
-  for (int kv0 = lo; kv0 < hi; kv0 += BT) {
-    __syncthreads();  // the previous tile is consumed
-    load_tiles_bf16<kRope>(k_s, k, v_s, v, kv0, hi, ldk, hk * D, rk);
-    if (tid < BT) segk_s[tid] = (kv0 + tid < hi) ? remap(seg_k[kv0 + tid]) : NO_ROW_K;
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_abt(s, qa, k_s, g, t2);    // S = Q K^T
-    mma_abt(dp, doa, v_s, g, t2);  // dP = dO V^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int sk0 = segk_s[nt * 8 + t2], sk1 = segk_s[nt * 8 + t2 + 1];
-      const float p0 = sq0 == sk0 ? expf(s[nt][0] * scale - lse0) : 0.f;
-      const float p1 = sq0 == sk1 ? expf(s[nt][1] * scale - lse0) : 0.f;
-      const float p2 = sq1 == sk0 ? expf(s[nt][2] * scale - lse1) : 0.f;
-      const float p3 = sq1 == sk1 ? expf(s[nt][3] * scale - lse1) : 0.f;
-      s[nt][0] = p0 * (dp[nt][0] - dl0) * scale;  // dS, in place
-      s[nt][1] = p1 * (dp[nt][1] - dl0) * scale;
-      s[nt][2] = p2 * (dp[nt][2] - dl1) * scale;
-      s[nt][3] = p3 * (dp[nt][3] - dl1) * scale;
+  constexpr int CP = 64 / DQ_NPASS, NTP = CP / 8, KSP = CP / 16;
+  const float sl2 = scale * L2E;
+  for (int t = 0; t < ntiles; ++t) {
+    // tile t + 1 was issued before tile t - 1 was computed: finish it; then
+    // put tile t + NS - 1 in flight into the stage of tile t - 1, once every
+    // thread is done with that
+    cp_async_wait<0>();
+    prep(t + 1);
+    if (t + NS - 1 < ntiles) {
+      if (t >= 1) mbar_wait(&empty[(t - 1) % NS], ((t - 1) / NS) & 1);
+      issue(t + NS - 1);
     }
-    uint32_t dsa[4][4];
-    c_to_a(dsa, s);                // bf16(dS)
-    mma_ab(acc, dsa, k_s, g, t2);  // dQ += dS K
-  }
+    cp_async_commit();
+    mbar_wait(&ready[t % NS], (t / NS) & 1);
+    const DqStage st = dq_stage(ring + (t % NS) * SB);
+    // the ids are non-decreasing, so rows whose id is the tile's first and
+    // last row's see no masked column here: no compares
+    const bool all = st.ids[0] == st.ids[BT - 1] && st.ids[0] == sq0 && sq0 == sq1;
 
+    // unrolled, the plain instantiation spills a few bytes at 128 registers
+    // (ptxas's choice; the RoPE one does not): it runs its passes rolled
+#pragma unroll(kRope ? DQ_NPASS : 1)
+    for (int c = 0; c < DQ_NPASS; ++c) {  // kv columns c * CP .. + CP - 1
+      float s[NTP][4], dp[NTP][4];
+#pragma unroll
+      for (int n = 0; n < NTP; ++n) {
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk2 = 0; kk2 < 2; ++kk2) {  // S = Q K^T, dP = dO V^T
+        uint32_t a[2][4];
+        ldsm_x4(a[0], &qs[(r0 + (lane & 15)) * LDS + kk2 * 32 + (lane >> 4) * 8]);
+        ldsm_x4(a[1], &qs[(r0 + (lane & 15)) * LDS + kk2 * 32 + 16 + (lane >> 4) * 8]);
+#pragma unroll
+        for (int n = 0; n < NTP; ++n) {
+          uint32_t b[4];
+          ldsm_x4(b, &st.k[((c * NTP + n) * 8 + (lane & 7)) * LDS + kk2 * 32 + (lane >> 3) * 8]);
+          mma_bf16(s[n], a[0], b);
+          mma_bf16(s[n], a[1], b + 2);
+        }
+        ldsm_x4(a[0], &dos[(r0 + (lane & 15)) * LDS + kk2 * 32 + (lane >> 4) * 8]);
+        ldsm_x4(a[1], &dos[(r0 + (lane & 15)) * LDS + kk2 * 32 + 16 + (lane >> 4) * 8]);
+#pragma unroll
+        for (int n = 0; n < NTP; ++n) {
+          uint32_t b[4];
+          ldsm_x4(b, &st.v[((c * NTP + n) * 8 + (lane & 7)) * LDS + kk2 * 32 + (lane >> 3) * 8]);
+          mma_bf16(dp[n], a[0], b);
+          mma_bf16(dp[n], a[1], b + 2);
+        }
+      }
+      // p = 2^(s scale log2e - lse log2e), masked; dS = p (dP - delta) scale,
+      // rounded to bf16 as A fragments (n-tiles 2j, 2j+1 -> k step j)
+      uint32_t dsa[KSP][4];
+#pragma unroll
+      for (int n = 0; n < NTP; ++n) {
+        float p0 = fast_exp2(fmaf(s[n][0], sl2, -ls0));
+        float p1 = fast_exp2(fmaf(s[n][1], sl2, -ls0));
+        float p2 = fast_exp2(fmaf(s[n][2], sl2, -ls1));
+        float p3 = fast_exp2(fmaf(s[n][3], sl2, -ls1));
+        if (!all) {
+          const int c0 = (c * NTP + n) * 8 + t2;
+          const int sk0 = st.ids[c0], sk1 = st.ids[c0 + 1];
+          if (sq0 != sk0) p0 = 0.f;
+          if (sq0 != sk1) p1 = 0.f;
+          if (sq1 != sk0) p2 = 0.f;
+          if (sq1 != sk1) p3 = 0.f;
+        }
+        dsa[n >> 1][(n & 1) * 2 + 0] =
+            pack_bf16(p0 * (dp[n][0] - dl0) * scale, p1 * (dp[n][1] - dl0) * scale);
+        dsa[n >> 1][(n & 1) * 2 + 1] =
+            pack_bf16(p2 * (dp[n][2] - dl1) * scale, p3 * (dp[n][3] - dl1) * scale);
+      }
+#pragma unroll
+      for (int j = 0; j < KSP; ++j) {  // dQ += bf16(dS) K: K rows are the k dim
+#pragma unroll
+        for (int dt2 = 0; dt2 < 4; ++dt2) {
+          uint32_t b[4];
+          ldsm_x4_t(b, &st.k[((c * KSP + j) * 16 + (lane & 15)) * LDS + dt2 * 16 + (lane >> 4) * 8]);
+          mma_bf16(acc[2 * dt2], dsa[j], b);
+          mma_bf16(acc[2 * dt2 + 1], dsa[j], b + 2);
+        }
+      }
+    }
+    mbar_arrive(&empty[t % NS]);
+  }
+  cp_async_wait<0>();  // only empty groups can be left
+
+  // this thread's rows and head, afresh (not held across the loop)
+  const int tf = tid_fresh();
+  const int t2f = (tf & 3) * 2, h = h0 + (tf >> 7);
+  const int row0 = q0 + ((tf >> 5) & 3) * 16 + ((tf & 31) >> 2), row1 = row0 + 8;
   if constexpr (kRope) {  // back to the raw q: pair dt * 4 + t2 / 2 of each row
 #pragma unroll
     for (int dt = 0; dt < 8; ++dt) {
-      if (row0 < S) inv_rot_acc(acc[dt][0], acc[dt][1], rq, row0, dt * 4 + (t2 >> 1));
-      if (row1 < S) inv_rot_acc(acc[dt][2], acc[dt][3], rq, row1, dt * 4 + (t2 >> 1));
+      if (row0 < S) inv_rot_acc(acc[dt][0], acc[dt][1], rq, row0, dt * 4 + (t2f >> 1));
+      if (row1 < S) inv_rot_acc(acc[dt][2], acc[dt][3], rq, row1, dt * 4 + (t2f >> 1));
     }
   }
 #pragma unroll
   for (int dt = 0; dt < 8; ++dt) {
-    const int col = h * D + dt * 8 + t2;
+    const int col = h * D + dt * 8 + t2f;
     if (row0 < S)
       *reinterpret_cast<uint32_t*>(dq + (size_t)row0 * ldq + col) = pack_bf16(acc[dt][0], acc[dt][1]);
     if (row1 < S)
@@ -181,339 +372,49 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 dk/dv: one CTA per (64-row kv tile, kv head), NG warp groups over the
-// group's q heads, a cp.async ring of (q tile, NG heads) units
-// ---------------------------------------------------------------------------
-
-constexpr int DKV_STAGES = 2;  // units in the ring: u computed, u+1 in flight
-
-// Bytes of one ring stage: the Q and dO tiles of NG heads, their lse and
-// delta, and the q ids.
-template <int NG>
-__host__ __device__ constexpr int dkv_stage_bytes() {
-  return NG * 2 * BT * LDS * 2 + NG * 2 * BT * 4 + BT * 4;
-}
-
-// Dynamic shared memory: K and V, the ring, and (kRope) one buffer of table
-// rows (k's 64 rows, then each unit's q rows).
-template <bool kRope, int NG>
-__host__ __device__ constexpr int dkv_smem_bytes() {
-  return 2 * BT * LDS * 2 + DKV_STAGES * dkv_stage_bytes<NG>() + (kRope ? 2 * BT * PMAX * 4 : 0);
-}
-
-struct DkvStage {
-  __nv_bfloat16* q;   // [NG][BT][LDS]
-  __nv_bfloat16* dO;  // [NG][BT][LDS]
-  float* lse;         // [NG][BT]
-  float* delta;       // [NG][BT]
-  int* ids;           // [BT]
-};
-
-template <int NG>
-__device__ __forceinline__ DkvStage dkv_stage(unsigned char* base) {
-  DkvStage st;
-  st.q = reinterpret_cast<__nv_bfloat16*>(base);
-  st.dO = st.q + NG * BT * LDS;
-  st.lse = reinterpret_cast<float*>(st.dO + NG * BT * LDS);
-  st.delta = st.lse + NG * BT;
-  st.ids = reinterpret_cast<int*>(st.delta + NG * BT);
-  return st;
-}
-
-template <bool kRope, int NG>
-__global__ void __launch_bounds__(NG * 128, NG == 3 ? 1 : 4 / NG)
-bwd_dkv_pipe(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
-             const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int Sk,
-             int hq, int hkv, float scale, Rope rq, Rope rk) {
-  constexpr int NT = NG * 128;
-  constexpr int SB = dkv_stage_bytes<NG>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int range_s[2];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [BT][LDS]
-  __nv_bfloat16* v_s = k_s + BT * LDS;
-  unsigned char* ring = smem + 2 * BT * LDS * 2;
-  float* tcos = reinterpret_cast<float*>(ring + DKV_STAGES * SB);  // kRope: [BT][PMAX]
-  float* tsin = tcos + BT * PMAX;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int grp = warp >> 2;       // warp group: head grp of each unit's NG heads
-  const int r0 = (warp & 3) * 16;  // this warp's kv rows in the tile: r0 + g, r0 + g + 8
-  const int k0 = blockIdx.x * BT;
-  const int k1 = min(k0 + BT, Sk);
-  const int hk = blockIdx.y;
-  const int rep = hq / hkv, chunks = rep / NG;
-  const int ldq = hq * D, ldk = hkv * D;
-
-  issue_rows<NT, BT, 1>(k_s, k, k0, Sk, ldk, hk * D, tid);
-  issue_rows<NT, BT, 1>(v_s, v, k0, Sk, ldk, hk * D, tid);
-  if constexpr (kRope) issue_tables<NT, BT>(tcos, tsin, k0, Sk, rk, tid);
-  cp_async_commit();
-  const int row0 = k0 + r0 + g, row1 = row0 + 8;
-  const int sk0 = row0 < Sk ? remap(seg_k[row0]) : NO_ROW_K;
-  const int sk1 = row1 < Sk ? remap(seg_k[row1]) : NO_ROW_K;
-  segment_interval_warps(seg_k, seg_q, k0, k1, S, range_s);
-  const int lo = range_s[0], hi = range_s[1];
-  // units: q tile outer, chunk of NG heads inner (one chunk unless Hq/Hkv > 4)
-  const int nunits = (hi - lo + BT - 1) / BT * chunks;
-
-  // unit u into stage u % DKV_STAGES; always one commit
-  auto issue_unit = [&](int u) {
-    if (u < nunits) {
-      const DkvStage st = dkv_stage<NG>(ring + (u % DKV_STAGES) * SB);
-      const int qs0 = lo + (u / chunks) * BT;
-      const int h0 = hk * rep + (u % chunks) * NG;
-      issue_rows<NT, BT, NG>(st.q, q, qs0, hi, ldq, h0 * D, tid);
-      issue_rows<NT, BT, NG>(st.dO, dout, qs0, hi, ldq, h0 * D, tid);
-      if (tid < NG * BT) {
-        const int hh = tid / BT, r = tid % BT;
-        const bool ok = qs0 + r < hi;
-        const size_t off = ok ? (size_t)(qs0 + r) * hq + h0 + hh : 0;
-        cp_async4(&st.lse[tid], lse + off, ok);
-        cp_async4(&st.delta[tid], delta + off, ok);
-      }
-      if (tid < BT && qs0 + tid < hi) cp_async4(&st.ids[tid], seg_q + qs0 + tid, true);
-    }
-    cp_async_commit();
-  };
-  // kRope: unit u's q table rows into the one table buffer; one commit
-  auto issue_tab = [&](int u) {
-    if constexpr (kRope) {
-      if (u < nunits) issue_tables<NT, BT>(tcos, tsin, lo + (u / chunks) * BT, hi, rq, tid);
-      cp_async_commit();
-    }
-  };
-  // finish this thread's copies of unit u, once they have landed: rotate its
-  // Q chunks, remap its id; a barrier then publishes the whole unit
-  auto prep = [&](int u) {
-    if (u < nunits) {
-      const DkvStage st = dkv_stage<NG>(ring + (u % DKV_STAGES) * SB);
-      const int qs0 = lo + (u / chunks) * BT;
-      if constexpr (kRope) rotate_own<NT, BT, NG>(st.q, qs0, hi, tcos, tsin, rq.P, tid);
-      if (tid < BT) st.ids[tid] = qs0 + tid < hi ? remap(st.ids[tid]) : NO_ROW_Q;
-    }
-  };
-
-  issue_unit(0);
-  if constexpr (kRope) {
-    cp_async_wait<1>();  // K, V and k's table rows
-    rotate_own<NT, BT, 1>(k_s, k0, Sk, tcos, tsin, rk.P, tid);
-    issue_tab(0);
-  }
-  cp_async_wait<0>();
-  prep(0);
-
-  float dka[8][4], dva[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    dka[dt][0] = dka[dt][1] = dka[dt][2] = dka[dt][3] = 0.f;
-    dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
-  }
-
-  // passes of CP q columns: n-tiles NTP * hp .. + NTP - 1, k steps KSP * hp ..
-  // + KSP - 1 of the products over q; a thread holds the two f32
-  // accumulators and one pass's P^T and dP^T
-  constexpr int NPASS = 4, CP = 64 / NPASS, NTP = CP / 8, KSP = CP / 16;
-  constexpr float L2E = 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
-  const float sl2 = scale * L2E;
-  for (int u = 0; u < nunits; ++u) {
-    // unit u is whole and prepared; the other stage and this thread's table
-    // entries are free
-    __syncthreads();
-    issue_tab(u + 1);
-    issue_unit(u + 1);
-    const DkvStage st = dkv_stage<NG>(ring + (u % DKV_STAGES) * SB);
-    const __nv_bfloat16* qs = st.q + grp * BT * LDS;
-    const __nv_bfloat16* dos = st.dO + grp * BT * LDS;
-    const float* lse_s = st.lse + grp * BT;
-    const float* delta_s = st.delta + grp * BT;
-
-#pragma unroll 1
-    for (int hp = 0; hp < NPASS; ++hp) {
-      float p[NTP][4], dp[NTP][4];
-      uint32_t fa[KSP][4];
-#pragma unroll
-      for (int n = 0; n < NTP; ++n) {
-        p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-      }
-#pragma unroll
-      for (int kk2 = 0; kk2 < 2; ++kk2) {  // S^T = K Q^T: kv rows x q columns
-        uint32_t ka[2][4];
-        ldsm_x4(ka[0], &k_s[(r0 + (lane & 15)) * LDS + kk2 * 32 + (lane >> 4) * 8]);
-        ldsm_x4(ka[1], &k_s[(r0 + (lane & 15)) * LDS + kk2 * 32 + 16 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int n = 0; n < NTP; ++n) {
-          uint32_t b[4];
-          ldsm_x4(b, &qs[((hp * NTP + n) * 8 + (lane & 7)) * LDS + kk2 * 32 + (lane >> 3) * 8]);
-          mma_bf16(p[n], ka[0], b);
-          mma_bf16(p[n], ka[1], b + 2);
-        }
-      }
-      // p = exp(s - lse) as 2^(s log2e - lse log2e); the q ids are
-      // non-decreasing, so a kv row whose id is the tile's first and last
-      // q row's sees no masked column here, and needs no compares
-      const bool all = st.ids[0] == st.ids[BT - 1] && st.ids[0] == sk0 && sk0 == sk1;
-#pragma unroll
-      for (int n = 0; n < NTP; ++n) {
-        const int c0 = (hp * NTP + n) * 8 + t2, c1 = c0 + 1;
-        const float la = lse_s[c0] * L2E, lb = lse_s[c1] * L2E;
-        p[n][0] = fast_exp2(fmaf(p[n][0], sl2, -la));
-        p[n][1] = fast_exp2(fmaf(p[n][1], sl2, -lb));
-        p[n][2] = fast_exp2(fmaf(p[n][2], sl2, -la));
-        p[n][3] = fast_exp2(fmaf(p[n][3], sl2, -lb));
-        if (!all) {
-          const int sqa = st.ids[c0], sqb = st.ids[c1];
-          if (sk0 != sqa) p[n][0] = 0.f;
-          if (sk0 != sqb) p[n][1] = 0.f;
-          if (sk1 != sqa) p[n][2] = 0.f;
-          if (sk1 != sqb) p[n][3] = 0.f;
-        }
-        fa[n >> 1][(n & 1) * 2 + 0] = pack_bf16(p[n][0], p[n][1]);  // bf16(P^T)
-        fa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[n][2], p[n][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < KSP; ++j) {  // dV += P^T dO
-#pragma unroll
-        for (int dt2 = 0; dt2 < 4; ++dt2) {
-          uint32_t b[4];
-          ldsm_x4_t(b, &dos[((hp * KSP + j) * 16 + (lane & 15)) * LDS + dt2 * 16 + (lane >> 4) * 8]);
-          mma_bf16(dva[2 * dt2], fa[j], b);
-          mma_bf16(dva[2 * dt2 + 1], fa[j], b + 2);
-        }
-      }
-#pragma unroll
-      for (int kk2 = 0; kk2 < 2; ++kk2) {  // dP^T = V dO^T
-        uint32_t va[2][4];
-        ldsm_x4(va[0], &v_s[(r0 + (lane & 15)) * LDS + kk2 * 32 + (lane >> 4) * 8]);
-        ldsm_x4(va[1], &v_s[(r0 + (lane & 15)) * LDS + kk2 * 32 + 16 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int n = 0; n < NTP; ++n) {
-          uint32_t b[4];
-          ldsm_x4(b, &dos[((hp * NTP + n) * 8 + (lane & 7)) * LDS + kk2 * 32 + (lane >> 3) * 8]);
-          mma_bf16(dp[n], va[0], b);
-          mma_bf16(dp[n], va[1], b + 2);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NTP; ++n) {  // dS^T, then bf16(dS^T)
-        const int c0 = (hp * NTP + n) * 8 + t2;
-        const float da = delta_s[c0], db = delta_s[c0 + 1];
-        const float d0 = p[n][0] * (dp[n][0] - da) * scale;
-        const float d1 = p[n][1] * (dp[n][1] - db) * scale;
-        const float d2 = p[n][2] * (dp[n][2] - da) * scale;
-        const float d3 = p[n][3] * (dp[n][3] - db) * scale;
-        fa[n >> 1][(n & 1) * 2 + 0] = pack_bf16(d0, d1);
-        fa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(d2, d3);
-      }
-#pragma unroll
-      for (int j = 0; j < KSP; ++j) {  // dK += dS^T Q
-#pragma unroll
-        for (int dt2 = 0; dt2 < 4; ++dt2) {
-          uint32_t b[4];
-          ldsm_x4_t(b, &qs[((hp * KSP + j) * 16 + (lane & 15)) * LDS + dt2 * 16 + (lane >> 4) * 8]);
-          mma_bf16(dka[2 * dt2], fa[j], b);
-          mma_bf16(dka[2 * dt2 + 1], fa[j], b + 2);
-        }
-      }
-    }
-
-    cp_async_wait<0>();  // unit u + 1 and its table rows (issued this iteration)
-    prep(u + 1);
-  }
-
-  // the group's sum, in a fixed order: groups 1..NG-1 leave their partial
-  // f32 sums in the (now idle) ring, group 0 adds them in turn, then rounds
-  // once; no atomics, so two launches give the same bits
-  cp_async_wait<0>();
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(ring);  // [NG - 1][4 warps][64 values][32 lanes]
-  if (grp > 0) {
-    float* mine = red + ((grp - 1) * 4 + (warp & 3)) * 64 * 32 + lane;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        mine[(dt * 4 + i) * 32] = dka[dt][i];
-        mine[(32 + dt * 4 + i) * 32] = dva[dt][i];
-      }
-  }
-  __syncthreads();
-  if (grp > 0) return;
-  for (int gg = 1; gg < NG; ++gg) {
-    const float* part = red + ((gg - 1) * 4 + warp) * 64 * 32 + lane;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        dka[dt][i] += part[(dt * 4 + i) * 32];
-        dva[dt][i] += part[(32 + dt * 4 + i) * 32];
-      }
-  }
-
-  if constexpr (kRope) {  // back to the raw k; dv is unrotated
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      if (row0 < Sk) inv_rot_acc(dka[dt][0], dka[dt][1], rk, row0, dt * 4 + (t2 >> 1));
-      if (row1 < Sk) inv_rot_acc(dka[dt][2], dka[dt][3], rk, row1, dt * 4 + (t2 >> 1));
-    }
-  }
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int col = hk * D + dt * 8 + t2;
-    if (row0 < Sk) {
-      *reinterpret_cast<uint32_t*>(dk + (size_t)row0 * ldk + col) = pack_bf16(dka[dt][0], dka[dt][1]);
-      *reinterpret_cast<uint32_t*>(dv + (size_t)row0 * ldk + col) = pack_bf16(dva[dt][0], dva[dt][1]);
-    }
-    if (row1 < Sk) {
-      *reinterpret_cast<uint32_t*>(dk + (size_t)row1 * ldk + col) = pack_bf16(dka[dt][2], dka[dt][3]);
-      *reinterpret_cast<uint32_t*>(dv + (size_t)row1 * ldk + col) = pack_bf16(dva[dt][2], dva[dt][3]);
-    }
-  }
-}
-
-template <bool kRope, int NG>
-int launch_dkv_pipe(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                    const int* seg_q, const int* seg_k, const __nv_bfloat16* dout,
-                    const float* lse, const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
-                    int S, int Sk, int hq, int hkv, float scale, Rope rq, Rope rk,
-                    cudaStream_t st) {
-  constexpr int smem = dkv_smem_bytes<kRope, NG>();
-  static_assert((NG - 1) * 4 * 64 * 32 * 4 <= DKV_STAGES * dkv_stage_bytes<NG>(),
-                "the partial sums must fit in the ring");
-  auto kern = bwd_dkv_pipe<kRope, NG>;
+template <bool kRope, int HPC>
+int launch_dq_pipe(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                   const int* seg_q, const int* seg_k, const __nv_bfloat16* dout,
+                   const float* lse, const float* delta, __nv_bfloat16* dq, int S, int Sk,
+                   int hq, int hkv, float scale, Rope rq, Rope rk, cudaStream_t st) {
+  constexpr int smem = dq_smem_bytes<kRope, HPC>();
+  auto kern = bwd_dq_pipe<kRope, HPC>;
   const cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<dim3((Sk + BT - 1) / BT, hkv), NG * 128, smem, st>>>(
-      q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq, hkv, scale, rq, rk);
+  const dim3 grid((S + BT - 1) / BT, hkv * (hq / hkv / HPC));
+  kern<<<grid, HPC * 128, smem, st>>>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq,
+                                      hkv, scale, rq, rk);
   return static_cast<int>(cudaGetLastError());
 }
 
-// warp groups a CTA runs: the largest of 4, 3, 2 that divides the group, else 1
+// q heads a CTA takes, from the group's Hq/Hkv: RoPE prefers DQ_ROPE_HPC
+// (each K tile's table rows are copied and the tile rotated once per CTA),
+// the plain kernel 2 (two CTAs an SM); then 3, 2, else 1. HPC does not change
+// a (row, head)'s arithmetic: every CTA takes its 64-row q tile's kv tiles
+// in ascending order.
 template <bool kRope>
-int launch_dkv_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                    const int* seg_q, const int* seg_k, const __nv_bfloat16* dout,
-                    const float* lse, const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
-                    int S, int Sk, int hq, int hkv, float scale, Rope rq, Rope rk,
-                    cudaStream_t st) {
+int launch_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                   const int* seg_q, const int* seg_k, const __nv_bfloat16* dout,
+                   const float* lse, const float* delta, __nv_bfloat16* dq, int S, int Sk,
+                   int hq, int hkv, float scale, Rope rq, Rope rk, cudaStream_t st) {
   const int rep = hq / hkv;
-  if (rep % 4 == 0)
-    return launch_dkv_pipe<kRope, 4>(q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq,
-                                     hkv, scale, rq, rk, st);
+  if (kRope && rep % DQ_ROPE_HPC == 0)
+    return launch_dq_pipe<kRope, DQ_ROPE_HPC>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S,
+                                              Sk, hq, hkv, scale, rq, rk, st);
+  if (!kRope && rep % 2 == 0)
+    return launch_dq_pipe<kRope, 2>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq, hkv,
+                                    scale, rq, rk, st);
   if (rep % 3 == 0)
-    return launch_dkv_pipe<kRope, 3>(q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq,
-                                     hkv, scale, rq, rk, st);
+    return launch_dq_pipe<kRope, 3>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq, hkv,
+                                    scale, rq, rk, st);
   if (rep % 2 == 0)
-    return launch_dkv_pipe<kRope, 2>(q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq,
-                                     hkv, scale, rq, rk, st);
-  return launch_dkv_pipe<kRope, 1>(q, k, v, seg_q, seg_k, dout, lse, delta, dk, dv, S, Sk, hq,
-                                   hkv, scale, rq, rk, st);
+    return launch_dq_pipe<kRope, 2>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq, hkv,
+                                    scale, rq, rk, st);
+  return launch_dq_pipe<kRope, 1>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq, hkv,
+                                  scale, rq, rk, st);
 }
+
 
 // ---------------------------------------------------------------------------
 // f32: fp32 FMA. 32-row tiles, 256 threads: thread (ty, tx) owns tile rows
@@ -777,11 +678,11 @@ int launch_dq(const void* q, const void* k, const void* v, const int* seg_q, con
               int hq, int hkv, float scale, int is_bf16, Rope rq, Rope rk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    bwd_dq_bf16<kRope><<<dim3((S + BT - 1) / BT, hq), NT_BF16, 0, st>>>(
+    return launch_dq_bf16<kRope>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
         static_cast<const __nv_bfloat16*>(dout), lse, delta,
-        static_cast<__nv_bfloat16*>(dq), S, Sk, hq, hkv, scale, rq, rk);
+        static_cast<__nv_bfloat16*>(dq), S, Sk, hq, hkv, scale, rq, rk, st);
   } else {
     bwd_dq_f32<kRope><<<dim3((S + BF - 1) / BF, hq), 256, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),

@@ -1,5 +1,5 @@
 // Segment-masked GQA flash attention, the v1 kernels, for Hopper (sm_90a):
-// forward, dq and per-q-head dk/dv.
+// forward, dq and dk/dv.
 //
 // Replaces the TPU kernels of titok_tpu/ops/flash_attention.py
 // (attn_impl 'flash_v1'): `_fwd_kernel` reached through `_flash_fwd`, and
@@ -17,42 +17,52 @@
 //            ds_ij = p_ij * (dO_i . v_j - delta_i) * scale;
 //            dq_i = sum_j bf16(ds_ij) k_j;
 //            PER Q HEAD h: dk_j^h = sum_i bf16(ds_ij) q_i, dv_j^h = sum_i bf16(p_ij) dO_i,
-//            each rounded to the input dtype. The sum over each GQA group is
-//            a torch op outside the kernel (as JAX sums dk_h, dv_h in XLA), so
-//            in bf16 each head's dk/dv is rounded before the group sum; the
-//            row 2 kernel instead sums the group in fp32 registers.
+//            each rounded to the input dtype, then summed over each GQA
+//            group (JAX sums its kernel's dk_h, dv_h in XLA). So in bf16 each
+//            head's dk/dv is rounded before the group sum; the row 2 kernel
+//            instead sums the group in fp32 and rounds once.
 // bf16 roundings happen where the JAX kernels `.astype` (p, ds); in f32
 // nothing is rounded. Pad slots (id 0) are remapped to 2^30 on load.
 //
-// v1's own design, kept:
-// - One CTA per (q tile, q head) for the forward and dq, and per (kv tile,
-//   q head) for dk/dv, reading the [S, H*64] row-major buffers by stride
-//   (the JAX wrapper transposes to [H, S, D]; nothing is copied here).
+// The forward and dq, v1's own design:
+// - One CTA per (q tile, q head), reading the [S, H*64] row-major buffers
+//   by stride (the JAX wrapper transposes to [H, S, D]; nothing is copied).
 // - Tile skipping by tile-pair interval overlap: qmm / kmm are int32
 //   [n_tiles, 2] (min, max) of the remapped ids per q tile and per kv tile,
 //   computed by torch ops before the launch (JAX `_block_minmax` in XLA);
 //   a (q tile, kv tile) pair runs only if the intervals overlap. Each CTA
-//   walks every tile of the other side and skips the rest (no compressed
-//   grid, no per-CTA exact interval as in row 1-2).
+//   walks every tile of the other side and skips the rest.
 // - No padding of S to a tile multiple: rows at or past S are masked (their
 //   ids are sentinels that match nothing) and never written.
+// - Tiles: bf16 64 x 64 (q and kv); f32 forward 64 q x 32 kv rows; f32
+//   backward 32 x 32. The wrapper computes qmm / kmm at these sizes and
+//   passes them; an entry refuses other sizes.
+// - bf16 on mma.sync m16n8k16 (bf16 in, fp32 accumulate), Q (and dO) held
+//   as A fragments, K/V tiles staged through registers between barriers.
 //
-// Tiles: bf16 64 x 64 (q and kv); f32 forward 64 q x 32 kv rows; f32
-// backward 32 x 32. The wrapper computes qmm / kmm at these sizes and
-// passes them; an entry refuses other sizes.
+// The bf16 dk/dv is the pipelined kernel of the row 2 backward,
+// `bwd_dkv_pipe<false, NG, true>` (segment_attn_dkv.cuh): one CTA per
+// (64-row kv tile, kv head) finds the exact q interval of its tile by a
+// search (it reads no qmm / kmm), NG warp groups share K and V and take one
+// q head each of a (q tile, NG heads) unit from a 2-stage cp.async ring,
+// operands by ldmatrix, p by one ex2.approx. Its kV1 flag rounds each
+// head's f32 sums to bf16 before the group's heads are added, in head
+// order, and the sum rounded once: it writes the group-summed dk/dv
+// [S, Hkv*64] itself, half the bytes of per-head outputs, and the wrapper
+// runs no group sum. Where a group has more heads than warp groups (Hq/Hkv
+// > 4, as 8/1), the heads go in chunks of NG, and each chunk's rounded
+// heads are folded into a running sum in shared memory. The f32 dk/dv
+// keeps v1's design and writes each q head's dk/dv [S, Hq*64], summed over
+// each group by the wrapper.
 //
 // What bounds it on the H100: the same work as rows 1-2 (useful FLOPs on
 // the block-diagonal part of S x S: forward 2, dq 3, dk/dv 4 products of
 // S x S x 64 per q head; at the bench shape, S 6144 in ten 576-row
 // segments, heads 4/2, bf16: 3.4 + 5.1 + 6.8 GFLOP, 3.4 / 5.2 / 6.9 us at
-// 989 TFLOP/s) against bytes that take 3-6 us at 3.35 TB/s, plus dk/dv's
-// per-head [S, Hq*64] outputs (twice the bytes of a group-summed dk/dv).
-// Compute-bound on paper; bf16 on mma.sync m16n8k16 (bf16 in, fp32
-// accumulate), f32 on fp32 FMA (TF32 cannot hold the f32 limits). A
-// simple, correct first port: no wgmma, TMA or cp.async pipelining, and the
-// skipped tiles still cost a loop trip each.
+// 989 TFLOP/s) against bytes that take 3-6 us at 3.35 TB/s. Compute-bound
+// on paper; f32 on fp32 FMA (TF32 cannot hold the f32 limits).
 
-#include "segment_attn_common.cuh"
+#include "segment_attn_dkv.cuh"
 
 namespace {
 
@@ -263,106 +273,6 @@ v1_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
       *reinterpret_cast<uint32_t*>(dq + (size_t)row0 * ldq + col) = pack_bf16(acc[dt][0], acc[dt][1]);
     if (row1 < S)
       *reinterpret_cast<uint32_t*>(dq + (size_t)row1 * ldq + col) = pack_bf16(acc[dt][2], acc[dt][3]);
-  }
-}
-
-// dk/dv of ONE q head h for one kv tile: the CTA holds K and V of kv head
-// h / rep as mma A fragments and walks the q tiles whose ids overlap.
-// Output [S, hq*64]: this head's dk/dv, rounded to bf16.
-__global__ void __launch_bounds__(NT_BF16)
-v1_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-                const int2* __restrict__ qmm, const int2* __restrict__ kmm,
-                const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk_h,
-                __nv_bfloat16* __restrict__ dv_h, int S, int hq, int hkv, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 q_s[T * LDS];   // also stages the K tile
-  __shared__ __align__(16) __nv_bfloat16 do_s[T * LDS];  // also stages the V tile
-  __shared__ float lse_s[T];
-  __shared__ float delta_s[T];
-  __shared__ int segq_s[T];
-  __shared__ int segk_s[T];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int k0 = blockIdx.x * T;
-  const int h = blockIdx.y;
-  const int hk = h / (hq / hkv);
-  const int ldq = hq * D, ldk = hkv * D;
-  const int nq = (S + T - 1) / T;
-  const int2 kr = kmm[blockIdx.x];
-  const int r0 = warp * 16 + g;  // this thread's kv rows in the tile: r0 and r0 + 8
-
-  if (tid < T) segk_s[tid] = (k0 + tid < S) ? remap(seg[k0 + tid]) : NO_ROW_K;
-  load_tiles_bf16(q_s, k, do_s, v, k0, S, ldk, hk * D);
-  __syncthreads();
-  uint32_t ka[4][4], va[4][4];
-  load_a_frags(ka, q_s, r0, t2);
-  load_a_frags(va, do_s, r0, t2);
-  const int sk0 = segk_s[r0], sk1 = segk_s[r0 + 8];
-
-  float dka[8][4], dva[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    dka[dt][0] = dka[dt][1] = dka[dt][2] = dka[dt][3] = 0.f;
-    dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
-  }
-
-  for (int i = 0; i < nq; ++i) {
-    if (!overlaps(kr, qmm[i])) continue;
-    const int qs0 = i * T;
-    __syncthreads();  // the previous tile (or the K/V staging) is consumed
-    load_tiles_bf16(q_s, q, do_s, dout, qs0, S, ldq, h * D);
-    if (tid < T) {
-      const bool ok = qs0 + tid < S;
-      segq_s[tid] = ok ? remap(seg[qs0 + tid]) : NO_ROW_Q;
-      lse_s[tid] = ok ? lse[(size_t)(qs0 + tid) * hq + h] : 0.f;
-      delta_s[tid] = ok ? delta[(size_t)(qs0 + tid) * hq + h] : 0.f;
-    }
-    __syncthreads();
-
-    float p[8][4];
-    mma_abt(p, ka, q_s, g, t2);  // S^T = K Q^T: kv rows x q columns
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int c0 = nt * 8 + t2, c1 = c0 + 1;
-      const int sqa = segq_s[c0], sqb = segq_s[c1];
-      const float la = lse_s[c0], lb = lse_s[c1];
-      p[nt][0] = sk0 == sqa ? expf(p[nt][0] * scale - la) : 0.f;
-      p[nt][1] = sk0 == sqb ? expf(p[nt][1] * scale - lb) : 0.f;
-      p[nt][2] = sk1 == sqa ? expf(p[nt][2] * scale - la) : 0.f;
-      p[nt][3] = sk1 == sqb ? expf(p[nt][3] * scale - lb) : 0.f;
-    }
-    uint32_t fa[4][4];
-    c_to_a(fa, p);                 // bf16(P^T)
-    mma_ab(dva, fa, do_s, g, t2);  // dV += P^T dO
-
-    float dpt[8][4];
-    mma_abt(dpt, va, do_s, g, t2);  // dP^T = V dO^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const float da = delta_s[nt * 8 + t2], db = delta_s[nt * 8 + t2 + 1];
-      p[nt][0] = p[nt][0] * (dpt[nt][0] - da) * scale;  // dS^T, in place
-      p[nt][1] = p[nt][1] * (dpt[nt][1] - db) * scale;
-      p[nt][2] = p[nt][2] * (dpt[nt][2] - da) * scale;
-      p[nt][3] = p[nt][3] * (dpt[nt][3] - db) * scale;
-    }
-    c_to_a(fa, p);                // bf16(dS^T)
-    mma_ab(dka, fa, q_s, g, t2);  // dK += dS^T Q
-  }
-
-  const int row0 = k0 + r0, row1 = row0 + 8;
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int col = h * D + dt * 8 + t2;
-    if (row0 < S) {
-      *reinterpret_cast<uint32_t*>(dk_h + (size_t)row0 * ldq + col) = pack_bf16(dka[dt][0], dka[dt][1]);
-      *reinterpret_cast<uint32_t*>(dv_h + (size_t)row0 * ldq + col) = pack_bf16(dva[dt][0], dva[dt][1]);
-    }
-    if (row1 < S) {
-      *reinterpret_cast<uint32_t*>(dk_h + (size_t)row1 * ldq + col) = pack_bf16(dka[dt][2], dka[dt][3]);
-      *reinterpret_cast<uint32_t*>(dv_h + (size_t)row1 * ldq + col) = pack_bf16(dva[dt][2], dva[dt][3]);
-    }
   }
 }
 
@@ -760,29 +670,35 @@ extern "C" int flash_segment_attn_v1_bwd_dq(const void* q, const void* k, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// dk_h, dv_h [S, hq*64]: the dk and dv of each q head (not summed over the
-// GQA group), each rounded to the input dtype.
+// dk/dv from q, dO [S, hq*64], k/v, ids, the tile intervals (bf16 64/64,
+// f32 32/32), lse and delta [S, hq] f32. bf16: dk, dv [S, hkv*64], each q
+// head's share rounded to bf16, then summed over its group in f32 in head
+// order and rounded once (the tile intervals are not read: the kernel
+// searches the ids). f32: dk_h, dv_h [S, hq*64], each q head's share, which
+// the caller sums over each group.
 extern "C" int flash_segment_attn_v1_bwd_dkv(const void* q, const void* k, const void* v,
                                              const int* seg, const int* qmm, const int* kmm,
                                              int tq, int tk, const void* dout, const float* lse,
-                                             const float* delta, void* dk_h, void* dv_h, int S,
+                                             const float* delta, void* dk, void* dv, int S,
                                              int hq, int hkv, float scale, int is_bf16,
                                              void* stream) {
   if (!tiles_ok(is_bf16, tq, tk, FB, FB)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int2* qm = reinterpret_cast<const int2*>(qmm);
-  const int2* km = reinterpret_cast<const int2*>(kmm);
-  if (is_bf16) {
-    v1_bwd_dkv_bf16<<<dim3((S + T - 1) / T, hq), NT_BF16, 0, st>>>(
+  if (is_bf16)
+    return launch_dkv_bf16<false, true>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), seg, qm, km,
-        static_cast<const __nv_bfloat16*>(dout), lse, delta, static_cast<__nv_bfloat16*>(dk_h),
-        static_cast<__nv_bfloat16*>(dv_h), S, hq, hkv, scale);
-  } else {
-    v1_bwd_dkv_f32<<<dim3((S + FB - 1) / FB, hq), 256, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), seg, qm, km, static_cast<const float*>(dout), lse, delta,
-        static_cast<float*>(dk_h), static_cast<float*>(dv_h), S, hq, hkv, scale);
-  }
+        static_cast<const __nv_bfloat16*>(v), seg, seg, static_cast<const __nv_bfloat16*>(dout),
+        lse, delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, S, hq,
+        hkv, scale, Rope{}, Rope{}, st);
+  v1_bwd_dkv_f32<<<dim3((S + FB - 1) / FB, hq), 256, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      seg, reinterpret_cast<const int2*>(qmm), reinterpret_cast<const int2*>(kmm),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), S, hq, hkv, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+// 1: the bf16 dk/dv entry writes dk, dv summed over each group ([S, hkv*64]);
+// builds without this symbol wrote each q head's ([S, hq*64]). Read by the
+// A/B tool, which times builds of either kind.
+extern "C" int flash_segment_attn_v1_dkv_summed() { return 1; }

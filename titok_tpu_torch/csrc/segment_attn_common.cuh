@@ -2,8 +2,9 @@
 // search over non-decreasing segment ids, the bf16 mma.sync helpers and the
 // RoPE rotation of the kernels' `kRope` instantiations.
 //
-// Included by flash_segment_attn_fwd.cu and flash_segment_attn_bwd.cu; each
-// builds into its own library, so everything here has internal linkage.
+// Included by flash_segment_attn_fwd.cu and, through segment_attn_dkv.cuh,
+// by flash_segment_attn_bwd.cu and flash_segment_attn_v1.cu; each builds
+// into its own library, so everything here has internal linkage.
 
 #pragma once
 
@@ -104,23 +105,6 @@ __device__ __forceinline__ void inv_rot_acc(float& x0, float& x1, const Rope& rp
   }
 }
 
-// 8 bf16 values of row `row` (4 pairs, the first pair `pair0`) rotated in
-// fp32 and rounded back to bf16, as the tile is staged.
-__device__ __forceinline__ uint4 rot8_bf16(uint4 v, const Rope& rp, int row, int pair0) {
-  uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (pair0 + i < rp.P) {
-      const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-      float x0 = __low2float(b), x1 = __high2float(b);
-      const size_t t = (size_t)row * rp.P + pair0 + i;
-      rot_pair(x0, x1, rp.cos[t], rp.sin[t]);
-      w[i] = pack_bf16(x0, x1);
-    }
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
 // Copy ROWS rows of one head (64 f32 each) into a padded smem tile, one
 // float2 (one pair) at a time, rotating each pair by `rp`; rows at or past
 // `valid` are zero.
@@ -179,30 +163,23 @@ constexpr int NT_BF16 = 128;  // threads of every bf16 kernel (4 warps)
 // Copy 64 rows of one head (64 bf16 each) from a [*, ld] buffer into a
 // [64][LDS] smem tile with 16-byte loads; rows at or past `valid` are zero.
 // The trip count is fixed, so the loop unrolls and all loads are in flight.
-// kRope: each pair is rotated by `rp` (row row0 + r) as it is staged.
-template <bool kRope = false>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               int row0, int valid, int ld, int col0,
-                                               const Rope& rp = Rope{}) {
+                                               int row0, int valid, int ld, int col0) {
 #pragma unroll
   for (int e = threadIdx.x; e < 64 * D / 8; e += NT_BF16) {
     const int r = e >> 3, c = (e & 7) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < valid) {
+    if (row0 + r < valid)
       val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + col0 + c);
-      if constexpr (kRope) val = rot8_bf16(val, rp, row0 + r, c >> 1);
-    }
     *reinterpret_cast<uint4*>(&dst[r * LDS + c]) = val;
   }
 }
 
 // The same for two buffers of one layout (K and V, Q and dO) in one loop,
-// so the loads of both tiles are issued together. kRope rotates `a` only.
-template <bool kRope = false>
+// so the loads of both tiles are issued together.
 __device__ __forceinline__ void load_tiles_bf16(__nv_bfloat16* dst_a, const __nv_bfloat16* src_a,
                                                 __nv_bfloat16* dst_b, const __nv_bfloat16* src_b,
-                                                int row0, int valid, int ld, int col0,
-                                                const Rope& rp = Rope{}) {
+                                                int row0, int valid, int ld, int col0) {
 #pragma unroll
   for (int e = threadIdx.x; e < 64 * D / 8; e += NT_BF16) {
     const int r = e >> 3, c = (e & 7) * 8;
@@ -211,7 +188,6 @@ __device__ __forceinline__ void load_tiles_bf16(__nv_bfloat16* dst_a, const __nv
       const size_t off = (size_t)(row0 + r) * ld + col0 + c;
       a = *reinterpret_cast<const uint4*>(src_a + off);
       b = *reinterpret_cast<const uint4*>(src_b + off);
-      if constexpr (kRope) a = rot8_bf16(a, rp, row0 + r, c >> 1);
     }
     *reinterpret_cast<uint4*>(&dst_a[r * LDS + c]) = a;
     *reinterpret_cast<uint4*>(&dst_b[r * LDS + c]) = b;
@@ -277,9 +253,9 @@ __device__ __forceinline__ void c_to_a(uint32_t (*pa)[4], float (*c)[4]) {
 }
 
 // ---------------------------------------------------------------------------
-// The pipelined kernels' pieces (the forward and the dk/dv kernel): a ring of
-// tiles filled by cp.async, fragments by ldmatrix, the interval found by a
-// 32-way warp search. The helpers above stay for the dq and v1 kernels.
+// The pipelined kernels' pieces (the forward, dq and dk/dv kernels): a ring
+// of tiles filled by cp.async, fragments by ldmatrix, the interval found by
+// a 32-way warp search. The helpers above stay for the v1 forward and dq.
 // ---------------------------------------------------------------------------
 
 constexpr int PMAX = 32;  // table columns staged per row (P <= 32)
@@ -505,8 +481,8 @@ __device__ __forceinline__ void issue_tables(float* cos_s, float* sin_s, int row
 
 // Rotate in place, in shared memory, the chunks this thread copied with
 // `issue_rows` (same loop), by the table entries it copied with
-// `issue_tables`; as rot8_bf16 does, so the result is apply_rotary_emb's bit
-// for bit.
+// `issue_tables`: each pair rotated in fp32 by `rot_pair` and rounded back
+// to bf16, so the result is apply_rotary_emb's bit for bit.
 template <int NT, int ROWS, int NH>
 __device__ __forceinline__ void rotate_own(__nv_bfloat16* dst, int row0, int valid,
                                            const float* cos_s, const float* sin_s, int P, int tid) {

@@ -6,11 +6,15 @@ Port of the JAX package's ``titok_tpu/ops/flash_attention.py``: the forward
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (the ``custom_vjp`` of
 ``_flash``) become ``csrc/flash_segment_attn_v1.cu``. It computes the
 function of ``flash_attention_mh`` for q, k and v of one length, with v1's
-own design: per-tile [min, max] ids computed here by torch ops (JAX's
-``_block_minmax``), tile pairs skipped where those intervals do not
-overlap, and dk/dv computed for each q head and rounded to the input dtype
-before the sum over each GQA group, which is a torch op here as it is an
-XLA op in JAX. The source notes say what bounds the kernels on the H100.
+own design for the forward and dq: per-tile [min, max] ids computed here
+by torch ops (JAX's ``_block_minmax``), tile pairs skipped where those
+intervals do not overlap. dk/dv is computed for each q head and rounded to
+the input dtype before the sum over each GQA group (JAX sums in XLA): the
+bf16 kernel is the multi-head backward's pipelined dk/dv kernel
+(``csrc/segment_attn_dkv.cuh``) with that rounding, and writes the group
+sums itself; the f32 kernel writes each head's dk/dv and :func:`group_sum`
+adds them here. The source notes say
+what bounds the kernels on the H100.
 
 - :func:`flash_segment_attention` — the entry point ``attn_impl:
   flash_v1`` reaches. With grad enabled and an input that requires grad
@@ -192,15 +196,11 @@ def flash_segment_attention_bwd_reference(
     return dq, group_sum(dk_h, Hkv), group_sum(dv_h, Hkv)
 
 
-@functools.cache
-def _kernels():
-    """The three C entry points of ``csrc/flash_segment_attn_v1.cu`` (fwd,
-    dq, dkv), built at first use. Each takes q, k, v, the ids, the q and kv
-    tile intervals and their tile sizes, then its own buffers, then S, the
-    head counts, the scale, the dtype flag and the stream."""
-    from titok_tpu_torch.ops import _build
-
-    lib = _build.load("flash_segment_attn_v1")
+def bind_v1(lib: ctypes.CDLL):
+    """The three C entry points of a ``flash_segment_attn_v1`` library (fwd,
+    dq, dkv) with their argument types. Each takes q, k, v, the ids, the q
+    and kv tile intervals and their tile sizes, then its own buffers, then
+    S, the head counts, the scale, the dtype flag and the stream."""
     fns = (lib.flash_segment_attn_v1_fwd, lib.flash_segment_attn_v1_bwd_dq,
            lib.flash_segment_attn_v1_bwd_dkv)
     for fn, n_ptr in zip(fns, (2, 4, 5)):
@@ -208,6 +208,15 @@ def _kernels():
             ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fns
+
+
+@functools.cache
+def _kernels():
+    """:func:`bind_v1` of ``csrc/flash_segment_attn_v1.cu``, built at first
+    use."""
+    from titok_tpu_torch.ops import _build
+
+    return bind_v1(_build.load("flash_segment_attn_v1"))
 
 
 def _key(q: torch.Tensor) -> str:
@@ -271,19 +280,23 @@ def launch_bwd_dq(q, k, v, seg, qmm, kmm, dout, lse, delta, scale) -> torch.Tens
 
 def launch_bwd_dkv(q, k, v, seg, qmm, kmm, dout, lse, delta,
                    scale) -> tuple[torch.Tensor, torch.Tensor]:
-    """The dk/dv kernel on the tile intervals of ``TILES['dkv']``: each q
-    head's ``(dk_h, dv_h)``, ``[S, Hq, D]`` in the input dtype."""
+    """The dk/dv kernel (the f32 one on the tile intervals of
+    ``TILES['dkv']``; the bf16 one searches the ids and reads none): bf16
+    ``(dk, dv)`` ``[S, Hkv, D]``, each q head's share rounded to bf16 and
+    then summed over its group, as :func:`group_sum` sums them; f32 each q
+    head's ``(dk_h, dv_h)``, ``[S, Hq, D]``."""
     key, tiles, S, Hq, Hkv, stream = _common(q, k, v, seg, qmm, kmm, "dkv")
-    dk_h, dv_h = torch.empty_like(q), torch.empty_like(q)
+    like = k if key == "bf16" else q
+    dk, dv = torch.empty_like(like), torch.empty_like(like)
     with torch.cuda.device(q.device):
         err = _kernels()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
                             qmm.data_ptr(), kmm.data_ptr(), *tiles, dout.data_ptr(),
-                            lse.data_ptr(), delta.data_ptr(), dk_h.data_ptr(), dv_h.data_ptr(),
+                            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                             S, Hq, Hkv, float(scale), int(key == "bf16"), stream)
     if err != 0:
         raise RuntimeError(f"flash_segment_attn_v1_bwd_dkv launch failed: CUDA error {err}")
     launches[f"v1_bwd_dkv_{key}"] += 1
-    return dk_h, dv_h
+    return dk, dv
 
 
 def _intervals(seg: torch.Tensor, tiles: tuple[int, int]):
@@ -304,8 +317,8 @@ def _fwd(q, k, v, segment_ids, scale=None) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _bwd(q, k, v, segment_ids, out, lse, dout,
          scale=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)``: the dq and dk/dv kernels and the group sum for CUDA
-    tensors, the plain version for CPU tensors."""
+    """``(dq, dk, dv)``: the dq and dk/dv kernels for CUDA tensors (and in
+    f32 the group sum), the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_segment_attention_bwd_reference(q, k, v, segment_ids, out, lse, dout, scale)
     _check_bwd(q, out, lse, dout)
@@ -314,8 +327,10 @@ def _bwd(q, k, v, segment_ids, out, lse, dout,
     tiles = TILES["dq"][_key(q)]  # dq and dk/dv share their tiles
     qmm, kmm = _intervals(segment_ids, tiles)
     dq = launch_bwd_dq(q, k, v, segment_ids, qmm, kmm, dout, lse, delta, scale)
-    dk_h, dv_h = launch_bwd_dkv(q, k, v, segment_ids, qmm, kmm, dout, lse, delta, scale)
-    return dq, group_sum(dk_h, k.shape[1]), group_sum(dv_h, k.shape[1])
+    dk, dv = launch_bwd_dkv(q, k, v, segment_ids, qmm, kmm, dout, lse, delta, scale)
+    if q.dtype == torch.float32:  # the f32 kernel's per-head grads
+        dk, dv = group_sum(dk, k.shape[1]), group_sum(dv, k.shape[1])
+    return dq, dk, dv
 
 
 class _FlashSegmentAttnV1(torch.autograd.Function):

@@ -1,11 +1,14 @@
 """A/B of two builds of the segment-attention kernels at their C entries.
 
-    python -m titok_tpu_torch.tools.compare_attn OLD_CSRC NEW_CSRC [--rounds 2] [--reps 100]
+    python -m titok_tpu_torch.tools.compare_attn OLD_CSRC NEW_CSRC [VARIANT_CSRC ...] \
+        [--rounds 2] [--reps 100]
 
-OLD_CSRC and NEW_CSRC are directories that each hold
-``flash_segment_attn_fwd.cu``, ``flash_segment_attn_bwd.cu`` and the
-``segment_attn_common.cuh`` they include, for example an older commit's
-``titok_tpu_torch/csrc`` unpacked into the git-ignored ``.scratch/``::
+OLD_CSRC, NEW_CSRC and any variants (copies of a ``csrc`` with one knob
+changed, named by their directory) are directories that each hold
+``flash_segment_attn_fwd.cu``, ``flash_segment_attn_bwd.cu``,
+``flash_segment_attn_v1.cu`` and the headers they include, for example an
+older commit's ``titok_tpu_torch/csrc`` unpacked into the git-ignored
+``.scratch/``::
 
     git archive <rev> titok_tpu_torch/csrc | tar -x -C .scratch/old
 
@@ -13,13 +16,17 @@ Each is built with the flags of ``ops/_build.py``. At three shapes (the
 bench shape: S 6144, ten 576-row segments, heads 4/2; the base_vq serving
 layout, S 4096 with segments 513, 1040, 416, 832, 608, at heads 12/4; the
 large serving layout, the same ids at heads 16/4) it times the bf16 entries
-``flash_segment_attn_fwd``, ``flash_segment_attn_rope_fwd``,
-``flash_segment_attn_bwd_dkv`` and ``flash_segment_attn_rope_bwd_dkv``, and
-the two dq entries as a control, on fixed buffers (RoPE tables of random
-angles, P 30), in the order OLD, NEW, NEW, OLD each round, with CUDA events
-over ``--reps`` launches. Prints each build's ``-Xptxas -v`` lines, each
-time, the means, NEW/OLD, the bound and the share of bound, and the largest
-difference between the two builds' outputs. Needs a CUDA card and nvcc.
+of every kind in ``KINDS``: the forward, dk/dv and dq entries, plain and
+RoPE, and the v1 dk/dv entry, on fixed buffers (RoPE tables of random
+angles, P 30), in the order OLD, NEW, (variants, variants reversed,) NEW,
+OLD each round, with CUDA events over ``--reps`` launches. A build whose
+v1 bf16 dk/dv writes each q head's grads (it lacks
+``flash_segment_attn_v1_dkv_summed``) is timed with the two ``group_sum``
+ops the wrapper runs after it, and each v1 entry is also timed alone.
+Prints each build's ``-Xptxas -v`` lines, each time, the means, each
+build's time over OLD's, the bound and the share of bound, and the largest
+difference between each build's outputs and OLD's (dk/dv summed over each
+group). Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -27,19 +34,22 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from titok_tpu_torch.ops import _build
+from titok_tpu_torch.ops.flash_attention import bind_v1, group_sum, tile_minmax
 from titok_tpu_torch.ops.flash_attention_mh import bind_bwd, bind_fwd
 
 # H100 SXM, dense (NVIDIA data sheet): bf16 tensor cores, fp32 FMA, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 D, P = 64, 30
-KINDS = ("fwd", "rope_fwd", "dkv", "rope_dkv", "dq", "rope_dq")
+KINDS = ("fwd", "rope_fwd", "dkv", "rope_dkv", "dq", "rope_dq", "v1_dkv")
 
 
 def _segments(lengths, S):
@@ -62,12 +72,13 @@ def bound_ms(kind: str, seg: np.ndarray, hq: int, hkv: int) -> tuple[float, str]
     of S x Sk x D over live segments) at the bf16 peak, plus for rope the
     rotations (6 fp32 FLOP a pair: q and k once each, and the inverse of dq
     or dk) at the fp32 peak; or the bytes each input read once and each
-    output written once; the larger, as ``chip_smoke.py`` counts them."""
+    output written once (dk/dv summed over each group, v1's too); the
+    larger, as ``chip_smoke.py`` counts them."""
     S = len(seg)
     _, counts = np.unique(seg[seg != 0], return_counts=True)
     live = float((counts.astype(np.float64) ** 2).sum())
     rope = kind.startswith("rope_")
-    base = kind.removeprefix("rope_")
+    base = kind.removeprefix("rope_").removeprefix("v1_")
     flops = 2.0 * {"fwd": 2, "dq": 3, "dkv": 4}[base] * D * hq * live
     rot = 6.0 * P * (S * hq + S * hkv + {"fwd": 0, "dq": S * hq, "dkv": S * hkv}[base])
     qb, kb = S * hq * D * 2, S * hkv * D * 2
@@ -82,18 +93,20 @@ def bound_ms(kind: str, seg: np.ndarray, hq: int, hkv: int) -> tuple[float, str]
 
 
 def _build_pair(label: str, csrc: str):
-    """Build a directory's two sources; ``(entries by kind, ptxas lines)``."""
+    """Build a directory's three sources; ``(entries by kind, whether its v1
+    bf16 dk/dv sums each group, ptxas lines)``."""
     libs, lines = {}, []
-    for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd"):
+    for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd", "flash_segment_attn_v1"):
         info = _build._build_one(f"cmp_{label}_{name}", os.path.join(csrc, f"{name}.cu"))
         libs[name] = ctypes.CDLL(info["path"])
         lines += [ln.strip() for ln in info["ptxas"].splitlines()
                   if "entry function" in ln or "spill" in ln or "Used" in ln]
     fwd, rope_fwd = bind_fwd(libs["flash_segment_attn_fwd"])
     dq, dkv, rope_dq, rope_dkv = bind_bwd(libs["flash_segment_attn_bwd"])
+    v1 = libs["flash_segment_attn_v1"]
     fns = {"fwd": fwd, "rope_fwd": rope_fwd, "dkv": dkv, "rope_dkv": rope_dkv, "dq": dq,
-           "rope_dq": rope_dq}
-    return fns, lines
+           "rope_dq": rope_dq, "v1_dkv": bind_v1(v1)[2]}
+    return fns, hasattr(v1, "flash_segment_attn_v1_dkv_summed"), lines
 
 
 def _demangle(lines):
@@ -120,14 +133,18 @@ def _ms(fn, args, reps: int) -> float:
 
 class Case:
     """Fixed bf16 inputs of one shape and, per build, the output buffers of
-    every kind; ``args(kind, label)`` is the C entry's argument tuple."""
+    every kind; ``args(kind, label)`` is the C entry's argument tuple,
+    ``runner(kind, label)`` what a caller of that build runs: the entry, and
+    for a per-head v1 dk/dv the wrapper's two group sums after it.
+    ``summed`` tells, per build label, whether its v1 bf16 dk/dv entry sums
+    each group itself."""
 
-    def __init__(self, seg_np, hq, hkv, fns_new, seed=1):
+    def __init__(self, seg_np, hq, hkv, fns_new, summed, seed=1):
         dev = torch.device("cuda")
         S = len(seg_np)
         g = torch.Generator(device=dev).manual_seed(seed)
         bf = torch.bfloat16
-        self.S, self.hq, self.hkv = S, hq, hkv
+        self.S, self.hq, self.hkv, self.summed = S, hq, hkv, summed
         self.q = torch.randn(S, hq, D, generator=g, device=dev).to(bf)
         self.k = torch.randn(S, hkv, D, generator=g, device=dev).to(bf)
         self.v = torch.randn(S, hkv, D, generator=g, device=dev).to(bf)
@@ -135,8 +152,10 @@ class Case:
         ang = torch.rand(S, P, generator=g, device=dev) * (2 * np.pi)
         self.cos, self.sin = ang.cos().contiguous(), ang.sin().contiguous()
         self.seg = torch.from_numpy(seg_np).to(dev)
+        self.mm = tile_minmax(self.seg, 64)  # v1's bf16 q and kv tile intervals
         self.stream = torch.cuda.current_stream().cuda_stream
         self.outs = {}
+        self.sums = {}  # per label: a per-head v1 dk/dv after the group sums
         # lse and delta of each forward (NEW build's), inputs of the backward
         self.fwd_state = {}
         for rope in (False, True):
@@ -173,51 +192,99 @@ class Case:
                                   torch.empty(self.S, self.hq, device=self.q.device))
             elif base == "dq":
                 self.outs[key] = (torch.empty_like(self.q),)
+            elif base == "v1_dkv" and not self.summed[label]:
+                self.outs[key] = (torch.empty_like(self.q), torch.empty_like(self.q))
             else:
                 self.outs[key] = (torch.empty_like(self.k), torch.empty_like(self.v))
         outs = self.outs[key]
         if base == "fwd":
             return self._fwd_args(rope, *outs)
         lse, delta = self.fwd_state[rope]
-        return tuple(self._ptrs(rope) + [self.do.data_ptr(), lse.data_ptr(), delta.data_ptr()]
-                     + [t.data_ptr() for t in outs] + self._tail())
+        bwd_in = [self.do.data_ptr(), lse.data_ptr(), delta.data_ptr()]
+        if base == "v1_dkv":
+            return (self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(), self.seg.data_ptr(),
+                    self.mm.data_ptr(), self.mm.data_ptr(), 64, 64, *bwd_in,
+                    *(t.data_ptr() for t in outs), self.S, self.hq, self.hkv,
+                    float(D ** -0.5), 1, self.stream)
+        return tuple(self._ptrs(rope) + bwd_in + [t.data_ptr() for t in outs] + self._tail())
 
-    def max_diff(self, kind: str) -> float:
-        return max((a.float() - b.float()).abs().max().item()
-                   for a, b in zip(self.outs[(kind, "old")], self.outs[(kind, "new")]))
+    def runner(self, fns: dict, kind: str, label: str):
+        """``(fn, args)`` of what the wrapper of build ``label`` runs."""
+        fn, args = fns[kind], self.args(kind, label)
+        if kind != "v1_dkv" or self.summed[label]:
+            return fn, args
+        dk_h, dv_h = self.outs[(kind, label)]
+
+        def entry_and_group_sums(*a):
+            err = fn(*a)
+            self.sums[label] = (group_sum(dk_h, self.hkv), group_sum(dv_h, self.hkv))
+            return err
+
+        return entry_and_group_sums, args
+
+    def max_diff(self, kind: str, label: str) -> float:
+        """Largest |difference| between build ``label``'s outputs and OLD's."""
+        got = [self.sums.get(lb, self.outs[(kind, lb)]) if kind == "v1_dkv"
+               else self.outs[(kind, lb)] for lb in ("old", label)]
+        return max((a.float() - b.float()).abs().max().item() for a, b in zip(*got))
+
+
+def _label(csrc: str) -> str:
+    """A variant's label: its directory's name, as an identifier."""
+    return re.sub(r"\W", "_", os.path.basename(os.path.normpath(csrc)))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old", help="csrc directory of the OLD build")
-    ap.add_argument("new", help="csrc directory of the NEW build")
+    ap.add_argument("new", nargs="+", help="csrc directory of the NEW build, then of any variants")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=100)
     a = ap.parse_args(argv)
+    names = ["old", "new"] + [_label(d) for d in a.new[1:]]
+    if len(set(names)) != len(names):
+        ap.error(f"variant directories need distinct names other than old and new: {names}")
+    builds = dict(zip(names, [a.old, *a.new]))
     if not torch.cuda.is_available():
         print("needs a CUDA card")
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())
-    fns = {}
-    for label, csrc in (("old", a.old), ("new", a.new)):
-        fns[label], lines = _build_pair(label, csrc)
-        print(f"{label}: {csrc}\n  " + "\n  ".join(_demangle(lines)))
+    fns, summed = {}, {}
+    with ThreadPoolExecutor(len(builds)) as ex:  # one thread a build, its nvcc runs
+        built = list(ex.map(_build_pair, builds, builds.values()))
+    for (label, csrc), (fns_b, summed_b, lines) in zip(builds.items(), built):
+        fns[label], summed[label] = fns_b, summed_b
+        print(f"{label}: {csrc} (v1 bf16 dk/dv {'summed' if summed[label] else 'per head'})\n  "
+              + "\n  ".join(_demangle(lines)))
+    print("v1_dkv: each build as its wrapper runs it (a per-head entry with its group sums), "
+          "then each entry alone")
+    order = list(builds) + list(builds)[::-1]
     for sname, (seg_np, hq, hkv) in SHAPES.items():
-        case = Case(seg_np, hq, hkv, fns["new"])
+        case = Case(seg_np, hq, hkv, fns["new"], summed)
         for kind in KINDS:
-            times = {"old": [], "new": []}
+            times = {label: [] for label in builds}
+            alone = {label: [] for label in builds}  # v1 dk/dv: each entry alone
             for _ in range(a.rounds):
-                for label in ("old", "new", "new", "old"):
-                    times[label].append(_ms(fns[label][kind], case.args(kind, label), a.reps))
+                for label in order:
+                    times[label].append(_ms(*case.runner(fns[label], kind, label), a.reps))
+                    if kind == "v1_dkv":
+                        alone[label].append(_ms(fns[label][kind], case.args(kind, label), a.reps))
             bound, by = bound_ms(kind, seg_np, hq, hkv)
-            mo, mn = float(np.mean(times["old"])), float(np.mean(times["new"]))
-            print(f"{sname} {kind}: old {mo:.5f} ms ({', '.join(f'{t:.5f}' for t in times['old'])})"
-                  f"; new {mn:.5f} ms ({', '.join(f'{t:.5f}' for t in times['new'])}); "
-                  f"new/old {mn / mo:.4f}; bound {bound:.5f} ms ({by}), share old "
-                  f"{100 * bound / mo:.2f} % new {100 * bound / mn:.2f} %; outputs "
-                  f"max|new-old| {case.max_diff(kind):.3e}")
+            mo = float(np.mean(times["old"]))
+            parts = []
+            for label, ts in times.items():
+                m = float(np.mean(ts))
+                part = f"{label} {m:.5f} ms ({', '.join(f'{t:.5f}' for t in ts)})"
+                if kind == "v1_dkv":
+                    part += f", entry alone {float(np.mean(alone[label])):.5f} ms"
+                if label != "old":
+                    part += (f", {label}/old {m / mo:.4f}, share {100 * bound / m:.2f} %, "
+                             f"outputs max|{label}-old| {case.max_diff(kind, label):.3e}")
+                parts.append(part)
+            print(f"{sname} {kind}: bound {bound:.5f} ms ({by}), share old "
+                  f"{100 * bound / mo:.2f} %; " + "; ".join(parts))
         del case
         torch.cuda.empty_cache()
     return 0
