@@ -74,13 +74,15 @@ toolkit. Phases, in order; any failure exits non-zero:
 12. the three v1 attention kernels (``attn_impl: flash_v1``) against their
    plain versions, bf16 and f32: the bench shape, the base_vq serving
    layout at heads 12/4, 16/4 and 8/1, a ragged packing, the tiny stacked
-   discriminator buffer (24,752 rows); group-summed dk/dv (bf16: the
+   discriminator buffer (24,752 rows), the bench shape and the ragged
+   packing at 4/4 (one head a group); group-summed dk/dv (bf16: the
    kernel sums each group, each q head rounded first) and, in f32, the
-   per-head dk/dv; the forward against the row 1 kernel; planted faults
-   (the last overlapping kv tile skipped, dk/dv of one q head of each
-   group, p not rounded before p.v, lse with the wrong scale) that the
-   gates must reject; the four times at the bench shape and the base_vq
-   layout at 12/4;
+   per-head dk/dv; the forward against the row 1 kernel (bf16: bit for bit
+   where every segment starts at a multiple of 64) and the bf16 dq against
+   the row 2 dq, bit for bit; planted faults (the last overlapping kv tile
+   skipped, dk/dv of one q head of each group, p not rounded before p.v,
+   lse with the wrong scale) that the gates must reject; the four times at
+   the bench shape and the base_vq layout at 12/4;
 13. the trainer: ``Trainer(cfg).fit()`` of ``configs/tiny_fsq16k.yaml`` at
    full width through the v1 kernels (synthetic data, LPIPS off), 8 steps
    with eval at 4 and 8 and checkpoints every 4: launches per step and in
@@ -519,6 +521,21 @@ def _gate_line(rows) -> str:
                      f"rms ratio {rel:.2e}" for n, e, m, need, rel in rows)
 
 
+def _last_kv_tile_skipped(seg):
+    """(q ids, k ids) on seg's device with which a kernel skips the last 64
+    kv rows of every segment: those rows get ids of their own (2i+2 after
+    2i+1), which no q row carries."""
+    import torch
+
+    s_np = seg.cpu().numpy()
+    q_ids = np.where(s_np > 0, 2 * s_np - 1, 0).astype(np.int32)
+    k_ids = q_ids.copy()
+    for sid in np.unique(s_np[s_np > 0]):
+        rows = np.nonzero(s_np == sid)[0]
+        k_ids[rows[-64:]] = 2 * sid
+    return torch.from_numpy(q_ids).to(seg.device), torch.from_numpy(k_ids).to(seg.device)
+
+
 def _planted_faults(q, k, v, seg, out, lse, do, want, dname, hq, hkv):
     """The gate against kernels with a planted fault, at the bench shape:
     each fault is made by the kernel itself on altered inputs, by scaling
@@ -540,17 +557,9 @@ def _planted_faults(q, k, v, seg, out, lse, do, want, dname, hq, hkv):
     keep = (torch.arange(hq, device=q.device) % rep == 0).to(do.dtype)
     one = fa._bwd(q, k, v, seg, out, lse, (do * keep[None, :, None]).contiguous())
     faults["dv summed over one q head of each group"] = (good[0], good[1], one[2])
-    # the last 64 kv rows of every segment skipped: those rows get ids of
-    # their own (2i+2 after 2i+1), which no q row carries
-    s_np = seg.cpu().numpy()
-    q_ids = np.where(s_np > 0, 2 * s_np - 1, 0).astype(np.int32)
-    k_ids = q_ids.copy()
-    for sid in np.unique(s_np[s_np > 0]):
-        rows = np.nonzero(s_np == sid)[0]
-        k_ids[rows[-64:]] = 2 * sid
+    q_ids, k_ids = _last_kv_tile_skipped(seg)
     faults["last kv tile of every segment skipped"] = fa._bwd(
-        q, k, v, torch.from_numpy(q_ids).to(q.device), out, lse, do,
-        k_segment_ids=torch.from_numpy(k_ids).to(q.device))
+        q, k, v, q_ids, out, lse, do, k_segment_ids=k_ids)
     if dname == "bf16":
         # p and ds left in f32 (not rounded to bf16 before their products)
         f = fa.flash_segment_attention_mh_bwd_reference(
@@ -1891,7 +1900,7 @@ def v1_fwd_gate(out, lse, r_out, r_lse, dname):
 
 def _skip_last_tiles(qmm, kmm):
     """kv tile intervals with the last kv tile that overlaps each q tile
-    made to overlap nothing: what a kernel that stops one tile early
+    made to overlap nothing: what an f32 kernel that stops one tile early
     computes. Exact at tile-aligned layouts (the bench shape)."""
     import torch
 
@@ -1903,9 +1912,18 @@ def _skip_last_tiles(qmm, kmm):
     return out
 
 
+def _starts_aligned(seg_np, tile=64) -> bool:
+    """Whether every run of equal ids (pad included) starts at a multiple
+    of ``tile``: then the v1 forward's kv tiles, aligned to row 0, are the
+    row 1 forward's, which start where each q tile's interval starts."""
+    starts = np.flatnonzero(np.diff(seg_np, prepend=seg_np[:1] - 1))
+    return bool((starts % tile == 0).all())
+
+
 def phase_v1_kernels(card: str, train_cfg) -> dict:
     """The three v1 kernels against their plain versions, bf16 and f32;
-    the forward against the row 1 kernel; planted faults; times."""
+    the forward against the row 1 kernel and, in bf16, the dq against the
+    row 2 dq; planted faults; times."""
     import torch
     import torch.nn.functional as F
 
@@ -1926,6 +1944,11 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
         ("base_vq serving layout 8/1", BASE_SEG, 8, 1),
         ("ragged 1..1892 4/2", segments([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299), 4, 2),
         (f"tiny stacked disc 4x{sd} 4/2", disc_seg, 4, 2),
+        # one head a group: the bf16 forward takes 128 q rows a CTA, the dq
+        # one head; aligned (row 1's bits), and ragged (segments from 1 row,
+        # starting mid-tile, the last tile of S part pad)
+        ("bench 10x576 4/4", bench_seg, 4, 4),
+        ("ragged 1..1892 4/4", segments([1, 2, 63, 64, 65, 127, 1892, 700, 5, 333], 3299), 4, 4),
     ]
     res = {f"{k}_{d}": {"max_abs_err": 0.0} for k in ("fwd", "dq", "dkv") for d in ("bf16", "f32")}
 
@@ -1939,14 +1962,15 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
     def kernels(q, k, v, seg, do, fwd_kmm=None, bwd_kmm=None, lse_scale=1.0):
         """The three kernels through their C entries' wrappers: (out, lse,
         (dq, dk, dv)), dk/dv summed over each group in bf16 and per q head
-        in f32; ``*_kmm`` replace the kv tile intervals (the bf16 dk/dv
-        reads none), ``lse_scale`` scales the lse the forward hands on."""
+        in f32; ``*_kmm`` replace the f32 kv tile intervals (the bf16
+        kernels read none), ``lse_scale`` scales the lse the forward hands
+        on."""
         key = "bf16" if q.dtype == torch.bfloat16 else "f32"
         scale = D ** -0.5
-        fq, fk = f1._intervals(seg, f1.TILES["fwd"][key])
+        fq, fk = f1._intervals(seg, "fwd", key)
         out, lse = f1.launch_fwd(q, k, v, seg, fq, fk if fwd_kmm is None else fwd_kmm, scale)
         lse = lse * lse_scale
-        bq, bk = f1._intervals(seg, f1.TILES["dq"][key])
+        bq, bk = f1._intervals(seg, "dq", key)
         bk = bk if bwd_kmm is None else bwd_kmm
         delta = fa._delta(out, do)
         dq = f1.launch_bwd_dq(q, k, v, seg, bq, bk, do, lse, delta, scale)
@@ -1978,19 +2002,30 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             # the kernel's group sums (each head rounded first, as want_b)
             ok_h, rows_h = bwd_gate(grads, want_h, dname) if dname == "f32" else (True, None)
             ok_b, rows_b = bwd_gate(summed(grads, hkv), want_b, dname)
-            # the row 1 kernel computes the same function (its kv tiles start
-            # where each q tile's interval starts, so p rounds elsewhere)
+            # the row 1 kernel computes the same function; its kv tiles start
+            # where each q tile's interval starts, so p rounds elsewhere, but
+            # where every segment starts at a multiple of 64 the bf16 tiles
+            # are v1's and so are the bits (the same template)
             m_out, m_lse = fa._fwd(q, k, v, seg)
             m32 = m_out.float()
             atol, rtol, lse_atol = TOL[dname]
             ok_m = bool(((out.float() - m32).abs() <= atol + rtol * m32.abs()).all()) and \
                 (lse - m_lse).abs().max().item() <= lse_atol
+            vs_row1 = f"out max|d| {(out.float() - m32).abs().max().item():.3e}"
+            vs_row2 = ""
+            if dname == "bf16":
+                if _starts_aligned(seg_np):
+                    ok_m = ok_m and torch.equal(out, m_out) and torch.equal(lse, m_lse)
+                    vs_row1 += ", bit for bit (segments 64-aligned)"
+                # the v1 bf16 dq is the row 2 dq on one id vector: its bits
+                same_dq = torch.equal(grads[0], fa._bwd(q, k, v, seg, out, lse, do)[0])
+                vs_row2 = f"; dq vs the row 2 dq {'identical' if same_dq else 'DIFFERENT'}"
+                check(same_dq, f"the v1 bf16 dq differs from the row 2 dq: {label}")
             per_head = (f"per-head dk/dv {'ok' if ok_h else 'FAIL'} ({_gate_line(rows_h)}); "
                         if rows_h else "")
             print(f"v1 kernels {dname} {label} S={S}: forward {line_f} {'ok' if ok_f else 'FAIL'}; "
                   f"{per_head}group-summed {'ok' if ok_b else 'FAIL'} ({_gate_line(rows_b)}); vs "
-                  f"the row 1 kernel out max|d| {(out.float() - m32).abs().max().item():.3e} "
-                  f"{'ok' if ok_m else 'FAIL'}")
+                  f"the row 1 kernel {vs_row1} {'ok' if ok_m else 'FAIL'}{vs_row2}")
             check(ok_f and ok_h and ok_b, f"v1 kernels disagree with their plain versions: "
                   f"{dname} {label}")
             check(ok_m, f"the v1 forward disagrees with the row 1 kernel: {dname} {label}")
@@ -2013,13 +2048,27 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
         r_out, r_lse = f1.flash_segment_attention_reference(q, k, v, seg)
         want = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, do)
         fwd_faults, bwd_faults = {}, {}
-        fq, fk = f1._intervals(seg, f1.TILES["fwd"][dname])
-        bq, bk = f1._intervals(seg, f1.TILES["dq"][dname])
-        skip_f, skip_b = _skip_last_tiles(fq, fk), _skip_last_tiles(bq, bk)
-        fwd_faults["the last overlapping kv tile skipped"] = kernels(
-            q, k, v, seg, do, fwd_kmm=skip_f)[:2]
-        bwd_faults["the last overlapping kv/q tile skipped"] = summed(
-            kernels(q, k, v, seg, do, bwd_kmm=skip_b)[2], hkv)
+        if dname == "bf16":
+            # the bf16 kernels read no tile intervals: the fault is made
+            # through the ids, as rows 1-2's is, by the row 1 forward and the
+            # row 2 dq, whose bits the v1 forward and dq give at this layout
+            # (gated above); the last kv tile a q tile overlaps is its
+            # segment's last 64 rows. The dk/dv is v1's own (it never read
+            # the intervals)
+            q_ids, k_ids = _last_kv_tile_skipped(seg)
+            fwd_faults["the last overlapping kv tile skipped"] = fa._fwd(
+                q, k, v, q_ids, k_segment_ids=k_ids)
+            skip_dq = fa._bwd(q, k, v, q_ids, out, lse, do, k_segment_ids=k_ids)[0]
+            bwd_faults["the last overlapping kv/q tile skipped"] = (
+                skip_dq, *summed(grads, hkv)[1:])
+        else:
+            fq, fk = f1._intervals(seg, "fwd", dname)
+            bq, bk = f1._intervals(seg, "dq", dname)
+            skip_f, skip_b = _skip_last_tiles(fq, fk), _skip_last_tiles(bq, bk)
+            fwd_faults["the last overlapping kv tile skipped"] = kernels(
+                q, k, v, seg, do, fwd_kmm=skip_f)[:2]
+            bwd_faults["the last overlapping kv/q tile skipped"] = summed(
+                kernels(q, k, v, seg, do, bwd_kmm=skip_b)[2], hkv)
         # the kernel itself with dO, and so delta, zero on every q head but
         # the first of each group: its dk/dv are then that head's alone
         keep = (torch.arange(hq, device=dev) % (hq // hkv) == 0).to(dtype)
@@ -2056,8 +2105,12 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             seg = torch.from_numpy(seg_np).to(dev)
             out, lse = f1._fwd(q, k, v, seg)
             delta = fa._delta(out, do)
-            fq, fk = f1._intervals(seg, f1.TILES["fwd"][dname])
-            bq, bk = f1._intervals(seg, f1.TILES["dq"][dname])
+            # the C entries' interval arguments: f32 its tiles' intervals,
+            # bf16 none (the kernels search the ids)
+            mm = {kind: f1._intervals(seg, kind, dname) for kind in ("fwd", "dq")}
+            ivals = {kind: (None, None, 0, 0) if dname == "bf16" else
+                     (mm[kind][0].data_ptr(), mm[kind][1].data_ptr(), *f1.TILES[kind])
+                     for kind in mm}
             o2, l2 = torch.empty_like(q), torch.empty_like(lse)
             # dk/dv: bf16 summed over each group, f32 per q head
             dq = torch.empty_like(q)
@@ -2065,15 +2118,13 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             stream = torch.cuda.current_stream().cuda_stream
             tail = (S, hq, hkv, float(D ** -0.5), int(dname == "bf16"), stream)
             head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr())
-            ft, bt = f1.TILES["fwd"][dname], f1.TILES["dq"][dname]
             bwd_in = (do.data_ptr(), lse.data_ptr(), delta.data_ptr())
-            ms = {"fwd": cuda_ms(lambda: fwd_fn(*head, fq.data_ptr(), fk.data_ptr(), *ft,
-                                                o2.data_ptr(), l2.data_ptr(), *tail), reps=100),
-                  "dq": cuda_ms(lambda: dq_fn(*head, bq.data_ptr(), bk.data_ptr(), *bt, *bwd_in,
-                                              dq.data_ptr(), *tail), reps=100),
-                  "dkv": cuda_ms(lambda: dkv_fn(*head, bq.data_ptr(), bk.data_ptr(), *bt, *bwd_in,
-                                                dk_h.data_ptr(), dv_h.data_ptr(), *tail),
-                                 reps=100)}
+            ms = {"fwd": cuda_ms(lambda: fwd_fn(*head, *ivals["fwd"], o2.data_ptr(),
+                                                l2.data_ptr(), *tail), reps=100),
+                  "dq": cuda_ms(lambda: dq_fn(*head, *ivals["dq"], *bwd_in, dq.data_ptr(),
+                                              *tail), reps=100),
+                  "dkv": cuda_ms(lambda: dkv_fn(*head, *ivals["dq"], *bwd_in, dk_h.data_ptr(),
+                                                dv_h.data_ptr(), *tail), reps=100)}
             check(torch.equal(o2, out), "the timed forward launches changed their output")
             wrap_fwd = cuda_ms(lambda: f1._fwd(q, k, v, seg), reps=100)
             wrap_bwd = cuda_ms(lambda: f1._bwd(q, k, v, seg, out, lse, do), reps=100)
@@ -2118,7 +2169,7 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
                   f"kernels, group sums) {wrap_bwd:.4f} ms; plain forward {plain_fwd:.4f} ms, "
                   f"plain backward {plain_bwd:.4f} ms; library (SDPA, bool mask) forward "
                   f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms")
-            del q, k, v, do, out, lse, delta, o2, l2, dq, dk_h, dv_h, qb, kb, vb, ob, mask
+            del q, k, v, do, out, lse, delta, o2, l2, dq, dk_h, dv_h, qb, kb, vb, ob, mask, mm
         torch.cuda.empty_cache()
     return res
 

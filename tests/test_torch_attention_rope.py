@@ -36,6 +36,18 @@ from titok_tpu.ops.flash_attention_mh import (  # noqa: E402
 from titok_tpu_torch.ops import flash_attention_mh as fa  # noqa: E402
 from titok_tpu_torch.ops.attention import segment_attention  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these tiny shapes: the default (one a core)
+    makes every small op a parallel region, which crawls when parallel test
+    workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (S, Hq, Hkv, segment lengths, P): P = 30 is the model's (head dim 64, 3
 # grid axes); P = 16 leaves 16 pairs to pass through
 CASES = [

@@ -17,7 +17,7 @@ def test_bound_matches_chip_smoke(shape, kind):
     seg, hq, hkv = ca.SHAPES[shape]
     S, D = len(seg), 64
     got, by = ca.bound_ms(kind, seg, hq, hkv)
-    base = kind.removeprefix("rope_").removeprefix("v1_")  # v1 dk/dv: the same work
+    base = kind.removeprefix("rope_").removeprefix("v1_")  # v1: the same work as rows 1-2
     if kind.startswith("rope_"):
         want, want_by, _, _ = chip_smoke.rope_bound_ms(seg, seg, hq, hkv, D, "bf16", base,
                                                        ca.P, False)

@@ -42,6 +42,17 @@ from titok_tpu_torch.training.train_step import TrainStepBuilder  # noqa: E402
 from titok_tpu_torch.training.trainer import synthetic_batches  # noqa: E402
 from titok_tpu_torch.weights import from_flax_params  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these tiny shapes: the default (one a core)
+    makes every small op a parallel region, which crawls when parallel test
+    workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 SLICE = {
     "tokenizer.model.fsq_levels": [8, 8, 8, 6, 5],
     "training.main.attn_impl": "flash_rope",

@@ -197,6 +197,31 @@ def test_flash_v1_on_cpu_launches_no_kernel(rng):
         f1.flash_segment_attention_reference(q, k[:200], v[:200], seg)
 
 
+def test_bf16_cpu_path_is_the_plain_version_and_launches_nothing(rng, monkeypatch):
+    """bf16 CPU tensors through the entry point and its autograd backward
+    take the plain versions, bit for bit: no kernel is built or launched
+    and no tile intervals are computed."""
+    def unreachable(*a, **k):
+        raise AssertionError("the CPU path reached a kernel or its tile intervals")
+
+    monkeypatch.setattr(f1, "_kernels", unreachable)
+    monkeypatch.setattr(f1, "tile_minmax", unreachable)
+    q, k, v, seg = _inputs(rng, *CASES["S300 4/2 ragged pad"])
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    tseg = torch.from_numpy(seg)
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32)).to(torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    before = dict(fa.launches)
+    out = f1.flash_segment_attention(*leaves, tseg)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert fa.launches == before
+    want_out, want_lse = f1.flash_segment_attention_reference(tq, tk, tv, tseg)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, want_out)
+    want = f1.flash_segment_attention_bwd_reference(tq, tk, tv, tseg, want_out, want_lse, do)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
 def test_tile_minmax_pads_the_last_tile():
     seg = torch.tensor([1, 1, 2, 2, 2, 0, 0], dtype=torch.int32)
     got = f1.tile_minmax(seg, 4)

@@ -672,6 +672,11 @@ V1_CASES = {
     "one row": ([1], 1, 4, 2),
     "all pad": ([], 100, 4, 2),
     "MHA 4/4": ([50, 70], 130, 4, 4),
+    # one head a group (the bf16 forward's 128-row q tiles): 64-aligned, and
+    # segments that start mid-tile, the first tile's lo rounded to row 0, a
+    # last tile of S that is part pad
+    "bench 10x576 4/4": ([576] * 10, 6144, 4, 4),
+    "mid-tile 4/4": ([37, 100, 64, 27, 600, 1, 63, 90], 1030, 4, 4),
 }
 
 
@@ -694,6 +699,64 @@ def test_v1_wrappers_raise_on_cuda_instead_of_falling_back(cuda):
     qmm = f1.tile_minmax(seg, 64)
     with pytest.raises(ValueError, match="tiles of 32 rows"):
         f1.launch_fwd(q, k, v, seg, qmm, qmm, 0.125)  # the f32 forward's kv tiles are 32
+
+
+# the bf16 v1 forward and dq are the row 1 forward and the row 2 dq
+# templates: the dq the same function on one id vector, so the same bits
+# everywhere; the forward with its kv tiles aligned to row 0, so the same
+# bits where every segment starts at a multiple of 64
+V1_ALIGNED = {
+    "bench 10x576 4/2": ([576] * 10, 6144, 4, 2),
+    "64-aligned 12/4": ([64, 128, 640, 192, 1024], 2112, 12, 4),
+    "64-aligned 4/4": ([64, 128, 640, 192, 1024], 2112, 4, 4),
+    "64-aligned 8/1": ([64, 128, 640, 192, 1024], 2112, 8, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(V1_ALIGNED) + ["ragged 1..1892, pad", "mid-tile 4/4"])
+def test_v1_bf16_dq_is_the_row2_dq_and_forward_row1_where_aligned(cuda, case):
+    from titok_tpu_torch.ops import flash_attention as f1
+
+    lengths, S, hq, hkv = V1_ALIGNED[case] if case in V1_ALIGNED else V1_CASES[case]
+    seg = _segments(lengths, S).to(cuda)
+    q, k, v = _inputs(cuda, torch.bfloat16, S, hq, hkv, seed=41)
+    dout = torch.randn(S, hq, 64, generator=torch.Generator(device=cuda).manual_seed(42),
+                       device=cuda).to(torch.bfloat16)
+    out, lse = f1._fwd(q, k, v, seg)
+    m_out, m_lse = fa._fwd(q, k, v, seg)
+    if case in V1_ALIGNED:
+        assert torch.equal(out, m_out) and torch.equal(lse, m_lse)
+    else:  # p rounds against other maxima: the row 1 limits
+        _assert_close(out, lse, m_out, m_lse, torch.bfloat16)
+    assert torch.equal(f1._bwd(q, k, v, seg, out, lse, dout)[0],
+                       fa._bwd(q, k, v, seg, out, lse, dout)[0])
+
+
+def test_v1_bf16_wrappers_compute_no_tile_intervals(cuda, monkeypatch):
+    """The bf16 v1 kernels search the ids: the forward and the backward
+    (through autograd, as the model calls them) run with ``tile_minmax``
+    made to raise, and an entry given tile intervals refuses them; f32
+    still computes and reads them."""
+    from titok_tpu_torch.ops import flash_attention as f1
+
+    def no_intervals(*a, **k):
+        raise AssertionError("tile_minmax ran on the bf16 path")
+
+    monkeypatch.setattr(f1, "tile_minmax", no_intervals)
+    seg = _segments([100, 200, 28], 400).to(cuda)
+    q, k, v = (x.requires_grad_() for x in _inputs(cuda, torch.bfloat16, 400, 4, 2, seed=43))
+    fa.reset_launches()
+    out = f1.flash_segment_attention(q, k, v, seg)
+    grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert fa.launches == {**{n: 0 for n in fa.launches}, "v1_bf16": 1, "v1_bwd_dq_bf16": 1,
+                           "v1_bwd_dkv_bf16": 1}
+    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+    mm = torch.zeros((7, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="read no tile intervals"):
+        f1.launch_fwd(q.detach(), k.detach(), v.detach(), seg, mm, mm, 0.125)
+    with pytest.raises(AssertionError, match="bf16 path"):  # f32 computes them
+        f1._fwd(q.detach().float(), k.detach().float(), v.detach().float(), seg)
 
 
 def test_flash_v1_train_step_launches(cuda):

@@ -39,6 +39,17 @@ from titok_tpu_torch.training.trainer import synthetic_batches  # noqa: E402
 from titok_tpu_torch.weights import from_flax_train_state  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these tiny shapes: the default (one a core)
+    makes every small op a parallel region, which crawls when parallel test
+    workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("warm,total,lr,elr", [(2, 100, 1e-3, 1e-4), (0, 10, 3e-4, 0.0),
                                                (5, 6, 1e-4, 1e-5)])
 def test_lr_schedule_matches_jax(warm, total, lr, elr):

@@ -103,318 +103,9 @@
 // shuffle.
 
 #include "segment_attn_dkv.cuh"
+#include "segment_attn_dq.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// bf16 dq: one CTA per (64-row q tile, HPC q heads of one GQA group), a
-// cp.async ring of K/V tiles, operands by ldmatrix (mma.sync m16n8k16)
-// ---------------------------------------------------------------------------
-
-// Tiles in the ring: t computed, t + 1 prepared, t + 2 in flight. The
-// prologue fills tiles 0 and 1, and the one table buffer holds one tile's
-// rows, so a deeper ring needs both to change (as in the forward).
-constexpr int DQ_STAGES = 3;
-// Each K/V tile in passes of 64 / DQ_NPASS kv columns: a thread holds the f32
-// dq accumulator and one pass's S, dP and bf16(dS). One pass (S and dP of
-// 64 columns live at once) spills; four re-read Q and dO more often.
-constexpr int DQ_NPASS = 2;
-// q heads a RoPE CTA takes where the group allows it (the plain kernel 2)
-constexpr int DQ_ROPE_HPC = 4;
-
-// Bytes of one ring stage: the K and V tiles and the tile's ids.
-__host__ __device__ constexpr int dq_stage_bytes() { return 2 * BT * LDS * 2 + BT * 4; }
-
-// Dynamic shared memory: Q and dO of the CTA's heads, the ring, and (kRope)
-// one buffer of table rows (q's 64 rows, then each K tile's 64).
-template <bool kRope, int HPC>
-__host__ __device__ constexpr int dq_smem_bytes() {
-  return 2 * HPC * BT * LDS * 2 + DQ_STAGES * dq_stage_bytes() + (kRope ? 2 * BT * PMAX * 4 : 0);
-}
-
-struct DqStage {
-  __nv_bfloat16* k;
-  __nv_bfloat16* v;
-  int* ids;
-};
-
-__device__ __forceinline__ DqStage dq_stage(unsigned char* base) {
-  DqStage st;
-  st.k = reinterpret_cast<__nv_bfloat16*>(base);
-  st.v = st.k + BT * LDS;
-  st.ids = reinterpret_cast<int*>(st.v + BT * LDS);
-  return st;
-}
-
-// HPC q heads of one group per CTA, 4 warps a head, each warp 16 q rows of
-// one head. Every staged K/V tile (and kRope its rotation) serves HPC * 64
-// (row, head) pairs; the kv interval is the q tile's, shared by its heads.
-template <bool kRope, int HPC>
-__global__ void __launch_bounds__(HPC * 128, HPC == 3 ? 1 : 4 / HPC)
-bwd_dq_pipe(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg_q,
-            const int* __restrict__ seg_k, const __nv_bfloat16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            __nv_bfloat16* __restrict__ dq, int S, int Sk, int hq, int hkv, float scale,
-            Rope rq, Rope rk) {
-  constexpr int NT = HPC * 128;
-  constexpr int NS = DQ_STAGES;
-  constexpr int SB = dq_stage_bytes();
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int range_s[2];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [HPC][BT][LDS]
-  __nv_bfloat16* do_s = q_s + HPC * BT * LDS;                   // [HPC][BT][LDS]
-  unsigned char* ring = smem + 2 * HPC * BT * LDS * 2;
-  float* tcos = reinterpret_cast<float*>(ring + NS * SB);  // kRope: [BT][PMAX]
-  float* tsin = tcos + BT * PMAX;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int rep = hq / hkv, splits = rep / HPC;
-  const int hk = blockIdx.y / splits;
-  const int h0 = hk * rep + (blockIdx.y % splits) * HPC;  // the CTA's first q head
-  const int hw = warp >> 2;                               // this warp's head, h0 + hw
-  const int r0 = (warp & 3) * 16;                         // its rows r0 + g, r0 + g + 8
-  const int q0 = blockIdx.x * BT;
-  const int q1 = min(q0 + BT, S);
-  const int ldq = hq * D, ldk = hkv * D;
-
-  // per stage: `ready` completes when every thread has finished its copies
-  // of the stage's tile (NT arrivals), `empty` when every thread is done
-  // computing on it; so a warp may run a tile ahead of the slowest one
-  __shared__ uint64_t ready[NS], empty[NS];
-  if (tid == 0) {
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      mbar_init(&ready[i], NT);
-      mbar_init(&empty[i], NT);
-    }
-  }
-  issue_rows<NT, BT, HPC>(q_s, q, q0, S, ldq, h0 * D, tid);
-  issue_rows<NT, BT, HPC>(do_s, dout, q0, S, ldq, h0 * D, tid);
-  if constexpr (kRope) issue_tables<NT, BT>(tcos, tsin, q0, S, rq, tid);
-  cp_async_commit();
-  // this thread's rows r0 + g, r0 + g + 8 of head h0 + hw: ids, lse in log2
-  // units (p = 2^(s scale log2e - lse log2e), one ex2.approx) and delta
-  constexpr float L2E = 1.4426950408889634f;
-  int sq0, sq1;
-  float ls0, ls1, dl0, dl1;
-  {
-    const int row0 = q0 + r0 + g, row1 = row0 + 8, h = h0 + hw;
-    sq0 = row0 < S ? remap(seg_q[row0]) : NO_ROW_Q;
-    sq1 = row1 < S ? remap(seg_q[row1]) : NO_ROW_Q;
-    ls0 = row0 < S ? lse[(size_t)row0 * hq + h] * L2E : 0.f;
-    ls1 = row1 < S ? lse[(size_t)row1 * hq + h] * L2E : 0.f;
-    dl0 = row0 < S ? delta[(size_t)row0 * hq + h] : 0.f;
-    dl1 = row1 < S ? delta[(size_t)row1 * hq + h] : 0.f;
-  }
-  segment_interval_warps(seg_q, seg_k, q0, q1, Sk, range_s);  // its barrier also
-  const int lo = range_s[0], hi = range_s[1];                  // publishes the inits
-  const int ntiles = (hi - lo + BT - 1) / BT;
-
-  // tile t's K, V, ids (and kRope: table rows, into the one table buffer)
-  // into stage t % NS; no commit
-  auto issue = [&](int t) {
-    if (t < ntiles) {
-      const DqStage st = dq_stage(ring + (t % NS) * SB);
-      const int kv0 = lo + t * BT;
-      issue_rows<NT, BT, 1>(st.k, k, kv0, hi, ldk, hk * D, tid);
-      issue_rows<NT, BT, 1>(st.v, v, kv0, hi, ldk, hk * D, tid);
-      if (tid < BT && kv0 + tid < hi) cp_async4(&st.ids[tid], seg_k + kv0 + tid, true);
-      if constexpr (kRope) issue_tables<NT, BT>(tcos, tsin, kv0, hi, rk, tid_fresh());
-    }
-  };
-  // this thread's copies of tile t have landed: finish them (rotate its K
-  // chunks, remap its id) and say so
-  auto prep = [&](int t) {
-    if (t < ntiles) {
-      const DqStage st = dq_stage(ring + (t % NS) * SB);
-      const int kv0 = lo + t * BT;
-      if constexpr (kRope) rotate_own<NT, BT, 1>(st.k, kv0, hi, tcos, tsin, rk.P, tid_fresh());
-      if (tid < BT) st.ids[tid] = kv0 + tid < hi ? remap(st.ids[tid]) : NO_ROW_K;
-      mbar_arrive(&ready[t % NS]);
-    }
-  };
-
-  // Q (rotated once, for all HPC heads) and dO, then tiles 0 and 1; a
-  // tile's table rows go in only after the previous user of this thread's
-  // table entries is done
-  if constexpr (kRope) {
-    cp_async_wait<0>();
-    rotate_own<NT, BT, HPC>(q_s, q0, S, tcos, tsin, rq.P, tid);
-    issue(0);
-    cp_async_commit();
-    cp_async_wait<0>();
-    prep(0);
-    issue(1);
-    cp_async_commit();
-  } else {
-    issue(0);
-    issue(1);
-    cp_async_commit();
-    cp_async_wait<0>();
-    prep(0);
-  }
-  __syncthreads();  // Q (rotated) and dO are whole
-  const __nv_bfloat16* qs = q_s + hw * BT * LDS;
-  const __nv_bfloat16* dos = do_s + hw * BT * LDS;
-
-  float acc[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  constexpr int CP = 64 / DQ_NPASS, NTP = CP / 8, KSP = CP / 16;
-  const float sl2 = scale * L2E;
-  for (int t = 0; t < ntiles; ++t) {
-    // tile t + 1 was issued before tile t - 1 was computed: finish it; then
-    // put tile t + NS - 1 in flight into the stage of tile t - 1, once every
-    // thread is done with that
-    cp_async_wait<0>();
-    prep(t + 1);
-    if (t + NS - 1 < ntiles) {
-      if (t >= 1) mbar_wait(&empty[(t - 1) % NS], ((t - 1) / NS) & 1);
-      issue(t + NS - 1);
-    }
-    cp_async_commit();
-    mbar_wait(&ready[t % NS], (t / NS) & 1);
-    const DqStage st = dq_stage(ring + (t % NS) * SB);
-    // the ids are non-decreasing, so rows whose id is the tile's first and
-    // last row's see no masked column here: no compares
-    const bool all = st.ids[0] == st.ids[BT - 1] && st.ids[0] == sq0 && sq0 == sq1;
-
-    // unrolled, the plain instantiation spills a few bytes at 128 registers
-    // (ptxas's choice; the RoPE one does not): it runs its passes rolled
-#pragma unroll(kRope ? DQ_NPASS : 1)
-    for (int c = 0; c < DQ_NPASS; ++c) {  // kv columns c * CP .. + CP - 1
-      float s[NTP][4], dp[NTP][4];
-#pragma unroll
-      for (int n = 0; n < NTP; ++n) {
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-        dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-      }
-#pragma unroll
-      for (int kk2 = 0; kk2 < 2; ++kk2) {  // S = Q K^T, dP = dO V^T
-        uint32_t a[2][4];
-        ldsm_x4(a[0], &qs[(r0 + (lane & 15)) * LDS + kk2 * 32 + (lane >> 4) * 8]);
-        ldsm_x4(a[1], &qs[(r0 + (lane & 15)) * LDS + kk2 * 32 + 16 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int n = 0; n < NTP; ++n) {
-          uint32_t b[4];
-          ldsm_x4(b, &st.k[((c * NTP + n) * 8 + (lane & 7)) * LDS + kk2 * 32 + (lane >> 3) * 8]);
-          mma_bf16(s[n], a[0], b);
-          mma_bf16(s[n], a[1], b + 2);
-        }
-        ldsm_x4(a[0], &dos[(r0 + (lane & 15)) * LDS + kk2 * 32 + (lane >> 4) * 8]);
-        ldsm_x4(a[1], &dos[(r0 + (lane & 15)) * LDS + kk2 * 32 + 16 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int n = 0; n < NTP; ++n) {
-          uint32_t b[4];
-          ldsm_x4(b, &st.v[((c * NTP + n) * 8 + (lane & 7)) * LDS + kk2 * 32 + (lane >> 3) * 8]);
-          mma_bf16(dp[n], a[0], b);
-          mma_bf16(dp[n], a[1], b + 2);
-        }
-      }
-      // p = 2^(s scale log2e - lse log2e), masked; dS = p (dP - delta) scale,
-      // rounded to bf16 as A fragments (n-tiles 2j, 2j+1 -> k step j)
-      uint32_t dsa[KSP][4];
-#pragma unroll
-      for (int n = 0; n < NTP; ++n) {
-        float p0 = fast_exp2(fmaf(s[n][0], sl2, -ls0));
-        float p1 = fast_exp2(fmaf(s[n][1], sl2, -ls0));
-        float p2 = fast_exp2(fmaf(s[n][2], sl2, -ls1));
-        float p3 = fast_exp2(fmaf(s[n][3], sl2, -ls1));
-        if (!all) {
-          const int c0 = (c * NTP + n) * 8 + t2;
-          const int sk0 = st.ids[c0], sk1 = st.ids[c0 + 1];
-          if (sq0 != sk0) p0 = 0.f;
-          if (sq0 != sk1) p1 = 0.f;
-          if (sq1 != sk0) p2 = 0.f;
-          if (sq1 != sk1) p3 = 0.f;
-        }
-        dsa[n >> 1][(n & 1) * 2 + 0] =
-            pack_bf16(p0 * (dp[n][0] - dl0) * scale, p1 * (dp[n][1] - dl0) * scale);
-        dsa[n >> 1][(n & 1) * 2 + 1] =
-            pack_bf16(p2 * (dp[n][2] - dl1) * scale, p3 * (dp[n][3] - dl1) * scale);
-      }
-#pragma unroll
-      for (int j = 0; j < KSP; ++j) {  // dQ += bf16(dS) K: K rows are the k dim
-#pragma unroll
-        for (int dt2 = 0; dt2 < 4; ++dt2) {
-          uint32_t b[4];
-          ldsm_x4_t(b, &st.k[((c * KSP + j) * 16 + (lane & 15)) * LDS + dt2 * 16 + (lane >> 4) * 8]);
-          mma_bf16(acc[2 * dt2], dsa[j], b);
-          mma_bf16(acc[2 * dt2 + 1], dsa[j], b + 2);
-        }
-      }
-    }
-    mbar_arrive(&empty[t % NS]);
-  }
-  cp_async_wait<0>();  // only empty groups can be left
-
-  // this thread's rows and head, afresh (not held across the loop)
-  const int tf = tid_fresh();
-  const int t2f = (tf & 3) * 2, h = h0 + (tf >> 7);
-  const int row0 = q0 + ((tf >> 5) & 3) * 16 + ((tf & 31) >> 2), row1 = row0 + 8;
-  if constexpr (kRope) {  // back to the raw q: pair dt * 4 + t2 / 2 of each row
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      if (row0 < S) inv_rot_acc(acc[dt][0], acc[dt][1], rq, row0, dt * 4 + (t2f >> 1));
-      if (row1 < S) inv_rot_acc(acc[dt][2], acc[dt][3], rq, row1, dt * 4 + (t2f >> 1));
-    }
-  }
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int col = h * D + dt * 8 + t2f;
-    if (row0 < S)
-      *reinterpret_cast<uint32_t*>(dq + (size_t)row0 * ldq + col) = pack_bf16(acc[dt][0], acc[dt][1]);
-    if (row1 < S)
-      *reinterpret_cast<uint32_t*>(dq + (size_t)row1 * ldq + col) = pack_bf16(acc[dt][2], acc[dt][3]);
-  }
-}
-
-template <bool kRope, int HPC>
-int launch_dq_pipe(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                   const int* seg_q, const int* seg_k, const __nv_bfloat16* dout,
-                   const float* lse, const float* delta, __nv_bfloat16* dq, int S, int Sk,
-                   int hq, int hkv, float scale, Rope rq, Rope rk, cudaStream_t st) {
-  constexpr int smem = dq_smem_bytes<kRope, HPC>();
-  auto kern = bwd_dq_pipe<kRope, HPC>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((S + BT - 1) / BT, hkv * (hq / hkv / HPC));
-  kern<<<grid, HPC * 128, smem, st>>>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq,
-                                      hkv, scale, rq, rk);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// q heads a CTA takes, from the group's Hq/Hkv: RoPE prefers DQ_ROPE_HPC
-// (each K tile's table rows are copied and the tile rotated once per CTA),
-// the plain kernel 2 (two CTAs an SM); then 3, 2, else 1. HPC does not change
-// a (row, head)'s arithmetic: every CTA takes its 64-row q tile's kv tiles
-// in ascending order.
-template <bool kRope>
-int launch_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                   const int* seg_q, const int* seg_k, const __nv_bfloat16* dout,
-                   const float* lse, const float* delta, __nv_bfloat16* dq, int S, int Sk,
-                   int hq, int hkv, float scale, Rope rq, Rope rk, cudaStream_t st) {
-  const int rep = hq / hkv;
-  if (kRope && rep % DQ_ROPE_HPC == 0)
-    return launch_dq_pipe<kRope, DQ_ROPE_HPC>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S,
-                                              Sk, hq, hkv, scale, rq, rk, st);
-  if (!kRope && rep % 2 == 0)
-    return launch_dq_pipe<kRope, 2>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq, hkv,
-                                    scale, rq, rk, st);
-  if (rep % 3 == 0)
-    return launch_dq_pipe<kRope, 3>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq, hkv,
-                                    scale, rq, rk, st);
-  if (rep % 2 == 0)
-    return launch_dq_pipe<kRope, 2>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq, hkv,
-                                    scale, rq, rk, st);
-  return launch_dq_pipe<kRope, 1>(q, k, v, seg_q, seg_k, dout, lse, delta, dq, S, Sk, hq, hkv,
-                                  scale, rq, rk, st);
-}
-
 
 // ---------------------------------------------------------------------------
 // f32: fp32 FMA. 32-row tiles, 256 threads: thread (ty, tx) owns tile rows

@@ -15,8 +15,6 @@
 
 namespace {
 
-constexpr int BT = 64;  // rows per tile of the bf16 backward kernels (q and kv)
-
 // ---------------------------------------------------------------------------
 // bf16 dk/dv: one CTA per (64-row kv tile, kv head), NG warp groups over the
 // group's q heads, a cp.async ring of (q tile, NG heads) units

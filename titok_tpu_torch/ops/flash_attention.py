@@ -5,16 +5,22 @@ Port of the JAX package's ``titok_tpu/ops/flash_attention.py``: the forward
 ``_flash_fwd`` → ``_fwd_kernel`` and the backward ``_flash_bwd`` →
 ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (the ``custom_vjp`` of
 ``_flash``) become ``csrc/flash_segment_attn_v1.cu``. It computes the
-function of ``flash_attention_mh`` for q, k and v of one length, with v1's
-own design for the forward and dq: per-tile [min, max] ids computed here
-by torch ops (JAX's ``_block_minmax``), tile pairs skipped where those
-intervals do not overlap. dk/dv is computed for each q head and rounded to
-the input dtype before the sum over each GQA group (JAX sums in XLA): the
-bf16 kernel is the multi-head backward's pipelined dk/dv kernel
-(``csrc/segment_attn_dkv.cuh``) with that rounding, and writes the group
-sums itself; the f32 kernel writes each head's dk/dv and :func:`group_sum`
-adds them here. The source notes say
-what bounds the kernels on the H100.
+function of ``flash_attention_mh`` for q, k and v of one length; what is
+v1's own is where the forward rounds p (against the running max after each
+64-row kv tile aligned to row 0 of S) and that dk/dv is computed for each q
+head and rounded to the input dtype before the sum over each GQA group (JAX
+sums in XLA).
+
+The bf16 kernels are instantiations of the multi-head kernels' pipelined
+templates (``csrc/segment_attn_{fwd,dq,dkv}.cuh``): each CTA searches the
+ids for its exact interval, so the wrapper computes no tile intervals. The
+forward's kv tiles are aligned to row 0 as above; dq is the multi-head dq;
+dk/dv rounds each head before the group sum and writes the group sums
+itself. The f32 kernels keep v1's own design: per-tile [min, max] ids
+computed here by torch ops (:func:`tile_minmax`, JAX's ``_block_minmax``),
+tile pairs skipped where those intervals do not overlap, each q head's
+dk/dv summed over its group by :func:`group_sum`. The source notes say what
+bounds the kernels on the H100.
 
 - :func:`flash_segment_attention` — the entry point ``attn_impl:
   flash_v1`` reaches. With grad enabled and an input that requires grad
@@ -29,7 +35,8 @@ what bounds the kernels on the H100.
   so in bf16 it rounds p where the kernel does; the backward rounds each q
   head's dk/dv before the group sum.
 - :func:`launch_fwd`, :func:`launch_bwd_dq`, :func:`launch_bwd_dkv` — the
-  kernels' C entries on given tile intervals (:func:`tile_minmax`).
+  kernels' C entries; in f32 on given tile intervals (:func:`tile_minmax`),
+  in bf16 on none.
 
 Launches are counted in ``flash_attention_mh.launches`` under ``v1_*``.
 """
@@ -51,12 +58,12 @@ from titok_tpu_torch.ops.flash_attention_mh import (
     launches,
 )
 
-# tile rows (q, kv) of each kernel, as csrc/flash_segment_attn_v1.cu has them
-TILES = {"fwd": {"bf16": (64, 64), "f32": (64, 32)},
-         "dq": {"bf16": (64, 64), "f32": (32, 32)},
-         "dkv": {"bf16": (64, 64), "f32": (32, 32)}}
-# the kv tile of the bf16 forward: where the kernel rounds p against a new max
-BLOCK = TILES["fwd"]["bf16"][1]
+# tile rows (q, kv) of each f32 kernel, as csrc/flash_segment_attn_v1.cu has
+# them; the bf16 kernels read no tile intervals
+TILES = {"fwd": (64, 32), "dq": (32, 32), "dkv": (32, 32)}
+# the kv tile of the bf16 forward, aligned to row 0: where the kernel rounds p
+# against a new max
+BLOCK = 64
 # ids of the rows that complete the last tile (JAX pads S with 2^30 + 1)
 TAIL_ID = PAD_ID + 1
 # elements of one dense f32 [q rows, S] block in the plain versions (256 MiB)
@@ -199,8 +206,9 @@ def flash_segment_attention_bwd_reference(
 def bind_v1(lib: ctypes.CDLL):
     """The three C entry points of a ``flash_segment_attn_v1`` library (fwd,
     dq, dkv) with their argument types. Each takes q, k, v, the ids, the q
-    and kv tile intervals and their tile sizes, then its own buffers, then
-    S, the head counts, the scale, the dtype flag and the stream."""
+    and kv tile intervals and their tile sizes (read by the f32 kernels
+    only), then its own buffers, then S, the head counts, the scale, the
+    dtype flag and the stream."""
     fns = (lib.flash_segment_attn_v1_fwd, lib.flash_segment_attn_v1_bwd_dq,
            lib.flash_segment_attn_v1_bwd_dkv)
     for fn, n_ptr in zip(fns, (2, 4, 5)):
@@ -226,14 +234,18 @@ def _key(q: torch.Tensor) -> str:
 def _check_mm(S: int, tiles: tuple[int, int], qmm: torch.Tensor, kmm: torch.Tensor, device):
     for name, mm, tile in (("qmm", qmm, tiles[0]), ("kmm", kmm, tiles[1])):
         want = (-(-S // tile), 2)
-        if mm.shape != want or mm.dtype != torch.int32 or mm.device != device \
+        if mm is None or mm.shape != want or mm.dtype != torch.int32 or mm.device != device \
                 or not mm.is_contiguous():
+            got = "None" if mm is None else f"{tuple(mm.shape)} {mm.dtype} {mm.device}"
             raise ValueError(f"{name} must be contiguous int32 {want} on {device} (tiles of "
-                             f"{tile} rows), got {tuple(mm.shape)} {mm.dtype} {mm.device}")
+                             f"{tile} rows), got {got}")
 
 
 def _common(q, k, v, seg, qmm, kmm, kind):
-    """Checks of a launch; returns (key, tiles, S, Hq, Hkv, stream)."""
+    """Checks of a launch; returns (key, the entry's interval arguments
+    (qmm, kmm, q tile, kv tile), S, Hq, Hkv, stream). The f32 kernels read
+    the tile intervals ``TILES[kind]``; the bf16 kernels search the ids, read
+    none, and are given none."""
     if q.device.type != "cuda":
         raise ValueError(f"the v1 kernels run on CUDA tensors, got {q.device}")
     S, Hq, _ = q.shape
@@ -241,22 +253,27 @@ def _common(q, k, v, seg, qmm, kmm, kind):
         raise ValueError(f"v1 attention needs Sq == Sk, got {S} and {k.shape[0]}")
     _check(q, k, v, seg, seg)
     key = _key(q)
-    tiles = TILES[kind][key]
-    _check_mm(S, tiles, qmm, kmm, q.device)
-    return key, tiles, S, Hq, k.shape[1], torch.cuda.current_stream(q.device).cuda_stream
+    if key == "bf16":
+        if qmm is not None or kmm is not None:
+            raise ValueError("the bf16 v1 kernels search the ids and read no tile intervals")
+        mm = (None, None, 0, 0)
+    else:
+        _check_mm(S, TILES[kind], qmm, kmm, q.device)
+        mm = (qmm.data_ptr(), kmm.data_ptr(), *TILES[kind])
+    return key, mm, S, Hq, k.shape[1], torch.cuda.current_stream(q.device).cuda_stream
 
 
 def launch_fwd(q, k, v, seg, qmm, kmm, scale) -> tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel on CUDA tensors and the tile intervals ``qmm`` /
-    ``kmm`` (``TILES['fwd']``): ``(out, lse [S, Hq] f32)``."""
-    key, tiles, S, Hq, Hkv, stream = _common(q, k, v, seg, qmm, kmm, "fwd")
+    """The forward kernel on CUDA tensors: ``(out, lse [S, Hq] f32)``. f32:
+    on the tile intervals ``qmm`` / ``kmm`` of ``TILES['fwd']``; bf16: both
+    ``None``."""
+    key, mm, S, Hq, Hkv, stream = _common(q, k, v, seg, qmm, kmm, "fwd")
     out = torch.empty_like(q)
     lse = torch.empty((S, Hq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _kernels()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-                            qmm.data_ptr(), kmm.data_ptr(), *tiles, out.data_ptr(),
-                            lse.data_ptr(), S, Hq, Hkv, float(scale), int(key == "bf16"),
-                            stream)
+        err = _kernels()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), *mm,
+                            out.data_ptr(), lse.data_ptr(), S, Hq, Hkv, float(scale),
+                            int(key == "bf16"), stream)
     if err != 0:
         raise RuntimeError(f"flash_segment_attn_v1_fwd launch failed: CUDA error {err}")
     launches[f"v1_{key}"] += 1
@@ -264,14 +281,14 @@ def launch_fwd(q, k, v, seg, qmm, kmm, scale) -> tuple[torch.Tensor, torch.Tenso
 
 
 def launch_bwd_dq(q, k, v, seg, qmm, kmm, dout, lse, delta, scale) -> torch.Tensor:
-    """The dq kernel on the tile intervals of ``TILES['dq']``."""
-    key, tiles, S, Hq, Hkv, stream = _common(q, k, v, seg, qmm, kmm, "dq")
+    """The dq kernel (f32 on the tile intervals of ``TILES['dq']``; bf16
+    on none)."""
+    key, mm, S, Hq, Hkv, stream = _common(q, k, v, seg, qmm, kmm, "dq")
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _kernels()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-                            qmm.data_ptr(), kmm.data_ptr(), *tiles, dout.data_ptr(),
-                            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), S, Hq, Hkv,
-                            float(scale), int(key == "bf16"), stream)
+        err = _kernels()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), *mm,
+                            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                            S, Hq, Hkv, float(scale), int(key == "bf16"), stream)
     if err != 0:
         raise RuntimeError(f"flash_segment_attn_v1_bwd_dq launch failed: CUDA error {err}")
     launches[f"v1_bwd_dq_{key}"] += 1
@@ -280,27 +297,29 @@ def launch_bwd_dq(q, k, v, seg, qmm, kmm, dout, lse, delta, scale) -> torch.Tens
 
 def launch_bwd_dkv(q, k, v, seg, qmm, kmm, dout, lse, delta,
                    scale) -> tuple[torch.Tensor, torch.Tensor]:
-    """The dk/dv kernel (the f32 one on the tile intervals of
-    ``TILES['dkv']``; the bf16 one searches the ids and reads none): bf16
-    ``(dk, dv)`` ``[S, Hkv, D]``, each q head's share rounded to bf16 and
-    then summed over its group, as :func:`group_sum` sums them; f32 each q
-    head's ``(dk_h, dv_h)``, ``[S, Hq, D]``."""
-    key, tiles, S, Hq, Hkv, stream = _common(q, k, v, seg, qmm, kmm, "dkv")
+    """The dk/dv kernel (f32 on the tile intervals of ``TILES['dkv']``;
+    bf16 on none): bf16 ``(dk, dv)`` ``[S, Hkv, D]``, each q head's share
+    rounded to bf16 and then summed over its group, as :func:`group_sum`
+    sums them; f32 each q head's ``(dk_h, dv_h)``, ``[S, Hq, D]``."""
+    key, mm, S, Hq, Hkv, stream = _common(q, k, v, seg, qmm, kmm, "dkv")
     like = k if key == "bf16" else q
     dk, dv = torch.empty_like(like), torch.empty_like(like)
     with torch.cuda.device(q.device):
-        err = _kernels()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-                            qmm.data_ptr(), kmm.data_ptr(), *tiles, dout.data_ptr(),
-                            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                            S, Hq, Hkv, float(scale), int(key == "bf16"), stream)
+        err = _kernels()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), *mm,
+                            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                            dv.data_ptr(), S, Hq, Hkv, float(scale), int(key == "bf16"), stream)
     if err != 0:
         raise RuntimeError(f"flash_segment_attn_v1_bwd_dkv launch failed: CUDA error {err}")
     launches[f"v1_bwd_dkv_{key}"] += 1
     return dk, dv
 
 
-def _intervals(seg: torch.Tensor, tiles: tuple[int, int]):
-    """(qmm, kmm) of one id vector at the q and kv tile sizes."""
+def _intervals(seg: torch.Tensor, kind: str, key: str):
+    """(qmm, kmm) of one id vector for the ``kind`` kernel: at the f32
+    kernel's q and kv tile sizes, ``(None, None)`` for bf16."""
+    if key == "bf16":
+        return None, None
+    tiles = TILES[kind]
     qmm = tile_minmax(seg, tiles[0])
     return qmm, (qmm if tiles[1] == tiles[0] else tile_minmax(seg, tiles[1]))
 
@@ -311,8 +330,7 @@ def _fwd(q, k, v, segment_ids, scale=None) -> tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
         return flash_segment_attention_reference(q, k, v, segment_ids, scale)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    return launch_fwd(q, k, v, segment_ids,
-                      *_intervals(segment_ids, TILES["fwd"][_key(q)]), scale)
+    return launch_fwd(q, k, v, segment_ids, *_intervals(segment_ids, "fwd", _key(q)), scale)
 
 
 def _bwd(q, k, v, segment_ids, out, lse, dout,
@@ -324,10 +342,9 @@ def _bwd(q, k, v, segment_ids, out, lse, dout,
     _check_bwd(q, out, lse, dout)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     delta = _delta(out, dout)
-    tiles = TILES["dq"][_key(q)]  # dq and dk/dv share their tiles
-    qmm, kmm = _intervals(segment_ids, tiles)
-    dq = launch_bwd_dq(q, k, v, segment_ids, qmm, kmm, dout, lse, delta, scale)
-    dk, dv = launch_bwd_dkv(q, k, v, segment_ids, qmm, kmm, dout, lse, delta, scale)
+    mm = _intervals(segment_ids, "dq", _key(q))  # dq and dk/dv share their tiles
+    dq = launch_bwd_dq(q, k, v, segment_ids, *mm, dout, lse, delta, scale)
+    dk, dv = launch_bwd_dkv(q, k, v, segment_ids, *mm, dout, lse, delta, scale)
     if q.dtype == torch.float32:  # the f32 kernel's per-head grads
         dk, dv = group_sum(dk, k.shape[1]), group_sum(dv, k.shape[1])
     return dq, dk, dv

@@ -17,16 +17,21 @@ bench shape: S 6144, ten 576-row segments, heads 4/2; the base_vq serving
 layout, S 4096 with segments 513, 1040, 416, 832, 608, at heads 12/4; the
 large serving layout, the same ids at heads 16/4) it times the bf16 entries
 of every kind in ``KINDS``: the forward, dk/dv and dq entries, plain and
-RoPE, and the v1 dk/dv entry, on fixed buffers (RoPE tables of random
-angles, P 30), in the order OLD, NEW, (variants, variants reversed,) NEW,
-OLD each round, with CUDA events over ``--reps`` launches. A build whose
-v1 bf16 dk/dv writes each q head's grads (it lacks
-``flash_segment_attn_v1_dkv_summed``) is timed with the two ``group_sum``
-ops the wrapper runs after it, and each v1 entry is also timed alone.
-Prints each build's ``-Xptxas -v`` lines, each time, the means, each
-build's time over OLD's, the bound and the share of bound, and the largest
-difference between each build's outputs and OLD's (dk/dv summed over each
-group). Needs a CUDA card and nvcc.
+RoPE, and the v1 forward, dq and dk/dv entries, on fixed buffers (RoPE
+tables of random angles, P 30), in the order OLD, NEW, (variants, variants
+reversed,) NEW, OLD each round, with CUDA events over ``--reps`` launches.
+Each v1 entry is timed as its build's wrapper runs it, and alone: a build
+whose v1 bf16 forward and dq read tile intervals (it lacks
+``flash_segment_attn_v1_bf16_searches``) with the ``tile_minmax`` its
+wrapper ran before each launch, one whose v1 bf16 dk/dv writes each q
+head's grads (it lacks ``flash_segment_attn_v1_dkv_summed``) with the two
+``group_sum`` ops its wrapper ran after it. Every build gets the same
+arguments (the tile intervals too, which a build that searches the ids
+does not read). Prints each build's ``-Xptxas -v`` lines, each time, the
+means and medians (one late sample of a few µs of host or clock noise moves
+a mean), each build's time over OLD's, the bound and the share of bound, and
+the largest difference between each build's outputs and OLD's (dk/dv
+summed over each group). Needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ from titok_tpu_torch.ops.flash_attention_mh import bind_bwd, bind_fwd
 # H100 SXM, dense (NVIDIA data sheet): bf16 tensor cores, fp32 FMA, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 D, P = 64, 30
-KINDS = ("fwd", "rope_fwd", "dkv", "rope_dkv", "dq", "rope_dq", "v1_dkv")
+KINDS = ("fwd", "rope_fwd", "dkv", "rope_dkv", "dq", "rope_dq", "v1_fwd", "v1_dq",
+         "v1_dkv")
 
 
 def _segments(lengths, S):
@@ -93,8 +99,9 @@ def bound_ms(kind: str, seg: np.ndarray, hq: int, hkv: int) -> tuple[float, str]
 
 
 def _build_pair(label: str, csrc: str):
-    """Build a directory's three sources; ``(entries by kind, whether its v1
-    bf16 dk/dv sums each group, ptxas lines)``."""
+    """Build a directory's three sources; ``(entries by kind, what its v1
+    bf16 entries do: {"summed": its dk/dv sums each group, "searches": its
+    forward and dq read no tile intervals}, ptxas lines)``."""
     libs, lines = {}, []
     for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd", "flash_segment_attn_v1"):
         info = _build._build_one(f"cmp_{label}_{name}", os.path.join(csrc, f"{name}.cu"))
@@ -104,9 +111,12 @@ def _build_pair(label: str, csrc: str):
     fwd, rope_fwd = bind_fwd(libs["flash_segment_attn_fwd"])
     dq, dkv, rope_dq, rope_dkv = bind_bwd(libs["flash_segment_attn_bwd"])
     v1 = libs["flash_segment_attn_v1"]
+    v1_fwd, v1_dq, v1_dkv = bind_v1(v1)
     fns = {"fwd": fwd, "rope_fwd": rope_fwd, "dkv": dkv, "rope_dkv": rope_dkv, "dq": dq,
-           "rope_dq": rope_dq, "v1_dkv": bind_v1(v1)[2]}
-    return fns, hasattr(v1, "flash_segment_attn_v1_dkv_summed"), lines
+           "rope_dq": rope_dq, "v1_fwd": v1_fwd, "v1_dq": v1_dq, "v1_dkv": v1_dkv}
+    flags = {"summed": hasattr(v1, "flash_segment_attn_v1_dkv_summed"),
+             "searches": hasattr(v1, "flash_segment_attn_v1_bf16_searches")}
+    return fns, flags, lines
 
 
 def _demangle(lines):
@@ -134,17 +144,18 @@ def _ms(fn, args, reps: int) -> float:
 class Case:
     """Fixed bf16 inputs of one shape and, per build, the output buffers of
     every kind; ``args(kind, label)`` is the C entry's argument tuple,
-    ``runner(kind, label)`` what a caller of that build runs: the entry, and
-    for a per-head v1 dk/dv the wrapper's two group sums after it.
-    ``summed`` tells, per build label, whether its v1 bf16 dk/dv entry sums
-    each group itself."""
+    ``runner(kind, label)`` what a caller of that build runs: the entry,
+    for a v1 forward or dq that reads tile intervals the ``tile_minmax``
+    before it, for a per-head v1 dk/dv the wrapper's two group sums after
+    it. ``flags`` tells, per build label, what its v1 bf16 entries do
+    (``_build_pair``)."""
 
-    def __init__(self, seg_np, hq, hkv, fns_new, summed, seed=1):
+    def __init__(self, seg_np, hq, hkv, fns_new, flags, seed=1):
         dev = torch.device("cuda")
         S = len(seg_np)
         g = torch.Generator(device=dev).manual_seed(seed)
         bf = torch.bfloat16
-        self.S, self.hq, self.hkv, self.summed = S, hq, hkv, summed
+        self.S, self.hq, self.hkv, self.flags = S, hq, hkv, flags
         self.q = torch.randn(S, hq, D, generator=g, device=dev).to(bf)
         self.k = torch.randn(S, hkv, D, generator=g, device=dev).to(bf)
         self.v = torch.randn(S, hkv, D, generator=g, device=dev).to(bf)
@@ -152,7 +163,8 @@ class Case:
         ang = torch.rand(S, P, generator=g, device=dev) * (2 * np.pi)
         self.cos, self.sin = ang.cos().contiguous(), ang.sin().contiguous()
         self.seg = torch.from_numpy(seg_np).to(dev)
-        self.mm = tile_minmax(self.seg, 64)  # v1's bf16 q and kv tile intervals
+        # the bf16 q and kv tile intervals (64 rows) of builds that read them
+        self.mm = tile_minmax(self.seg, 64)
         self.stream = torch.cuda.current_stream().cuda_stream
         self.outs = {}
         self.sums = {}  # per label: a per-head v1 dk/dv after the group sums
@@ -184,7 +196,7 @@ class Case:
 
     def args(self, kind: str, label: str):
         rope = kind.startswith("rope_")
-        base = kind.removeprefix("rope_")
+        base = kind.removeprefix("rope_").removeprefix("v1_")
         key = (kind, label)
         if key not in self.outs:
             if base == "fwd":
@@ -192,26 +204,31 @@ class Case:
                                   torch.empty(self.S, self.hq, device=self.q.device))
             elif base == "dq":
                 self.outs[key] = (torch.empty_like(self.q),)
-            elif base == "v1_dkv" and not self.summed[label]:
+            elif kind == "v1_dkv" and not self.flags[label]["summed"]:
                 self.outs[key] = (torch.empty_like(self.q), torch.empty_like(self.q))
             else:
                 self.outs[key] = (torch.empty_like(self.k), torch.empty_like(self.v))
-        outs = self.outs[key]
-        if base == "fwd":
-            return self._fwd_args(rope, *outs)
+        outs = [t.data_ptr() for t in self.outs[key]]
         lse, delta = self.fwd_state[rope]
-        bwd_in = [self.do.data_ptr(), lse.data_ptr(), delta.data_ptr()]
-        if base == "v1_dkv":
+        bwd_in = [] if base == "fwd" else [self.do.data_ptr(), lse.data_ptr(), delta.data_ptr()]
+        if kind.startswith("v1_"):  # one id vector, the tile intervals, one length
             return (self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(), self.seg.data_ptr(),
-                    self.mm.data_ptr(), self.mm.data_ptr(), 64, 64, *bwd_in,
-                    *(t.data_ptr() for t in outs), self.S, self.hq, self.hkv,
-                    float(D ** -0.5), 1, self.stream)
-        return tuple(self._ptrs(rope) + bwd_in + [t.data_ptr() for t in outs] + self._tail())
+                    self.mm.data_ptr(), self.mm.data_ptr(), 64, 64, *bwd_in, *outs, self.S,
+                    self.hq, self.hkv, float(D ** -0.5), 1, self.stream)
+        return tuple(self._ptrs(rope) + bwd_in + outs + self._tail())
 
     def runner(self, fns: dict, kind: str, label: str):
         """``(fn, args)`` of what the wrapper of build ``label`` runs."""
         fn, args = fns[kind], self.args(kind, label)
-        if kind != "v1_dkv" or self.summed[label]:
+        if kind in ("v1_fwd", "v1_dq") and not self.flags[label]["searches"]:
+            seg = self.seg
+
+            def intervals_and_entry(*a):
+                mm = tile_minmax(seg, 64)  # the wrapper's, before each launch
+                return fn(*a[:4], mm.data_ptr(), mm.data_ptr(), *a[6:])
+
+            return intervals_and_entry, args
+        if kind != "v1_dkv" or self.flags[label]["summed"]:
             return fn, args
         dk_h, dv_h = self.outs[(kind, label)]
 
@@ -251,37 +268,46 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())
-    fns, summed = {}, {}
+    fns, flags = {}, {}
     with ThreadPoolExecutor(len(builds)) as ex:  # one thread a build, its nvcc runs
         built = list(ex.map(_build_pair, builds, builds.values()))
-    for (label, csrc), (fns_b, summed_b, lines) in zip(builds.items(), built):
-        fns[label], summed[label] = fns_b, summed_b
-        print(f"{label}: {csrc} (v1 bf16 dk/dv {'summed' if summed[label] else 'per head'})\n  "
+    for (label, csrc), (fns_b, flags_b, lines) in zip(builds.items(), built):
+        fns[label], flags[label] = fns_b, flags_b
+        print(f"{label}: {csrc} (v1 bf16 forward and dq "
+              f"{'search the ids' if flags_b['searches'] else 'read tile intervals'}, dk/dv "
+              f"{'summed' if flags_b['summed'] else 'per head'})\n  "
               + "\n  ".join(_demangle(lines)))
-    print("v1_dkv: each build as its wrapper runs it (a per-head entry with its group sums), "
-          "then each entry alone")
+    print("v1_*: each build as its wrapper runs it (tile intervals before a forward or dq that "
+          "reads them, group sums after a per-head dk/dv), then each entry alone")
     order = list(builds) + list(builds)[::-1]
     for sname, (seg_np, hq, hkv) in SHAPES.items():
-        case = Case(seg_np, hq, hkv, fns["new"], summed)
+        case = Case(seg_np, hq, hkv, fns["new"], flags)
         for kind in KINDS:
             times = {label: [] for label in builds}
-            alone = {label: [] for label in builds}  # v1 dk/dv: each entry alone
+            alone = {label: [] for label in builds}  # the v1 entries alone
             for _ in range(a.rounds):
                 for label in order:
                     times[label].append(_ms(*case.runner(fns[label], kind, label), a.reps))
-                    if kind == "v1_dkv":
+                    if kind.startswith("v1_"):
                         alone[label].append(_ms(fns[label][kind], case.args(kind, label), a.reps))
             bound, by = bound_ms(kind, seg_np, hq, hkv)
-            mo = float(np.mean(times["old"]))
+            mo, medo = float(np.mean(times["old"])), float(np.median(times["old"]))
+            medo_alone = float(np.median(alone["old"])) if kind.startswith("v1_") else None
             parts = []
             for label, ts in times.items():
-                m = float(np.mean(ts))
-                part = f"{label} {m:.5f} ms ({', '.join(f'{t:.5f}' for t in ts)})"
-                if kind == "v1_dkv":
-                    part += f", entry alone {float(np.mean(alone[label])):.5f} ms"
+                m, med = float(np.mean(ts)), float(np.median(ts))
+                part = (f"{label} {m:.5f} ms, median {med:.5f} "
+                        f"({', '.join(f'{t:.5f}' for t in ts)})")
+                if kind.startswith("v1_"):
+                    med_alone = float(np.median(alone[label]))
+                    part += (f", entry alone {float(np.mean(alone[label])):.5f} ms, median "
+                             f"{med_alone:.5f}")
+                    if label != "old":
+                        part += f" ({label}/old of the medians alone {med_alone / medo_alone:.4f})"
                 if label != "old":
-                    part += (f", {label}/old {m / mo:.4f}, share {100 * bound / m:.2f} %, "
-                             f"outputs max|{label}-old| {case.max_diff(kind, label):.3e}")
+                    part += (f", {label}/old {m / mo:.4f} (of the medians {med / medo:.4f}), share "
+                             f"{100 * bound / m:.2f} %, outputs max|{label}-old| "
+                             f"{case.max_diff(kind, label):.3e}")
                 parts.append(part)
             print(f"{sname} {kind}: bound {bound:.5f} ms ({by}), share old "
                   f"{100 * bound / mo:.2f} %; " + "; ".join(parts))
