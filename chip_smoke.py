@@ -30,11 +30,15 @@ toolkit. Phases, in order; any failure exits non-zero:
    params, index ranges, ms/step and a profile of one step; then 3 steps
    of the f32 kernel path against the f32 plain path at ``train_seq_len``
    2048 from the same weights, batches and noise;
-6. the VQ nearest-neighbour kernel against its plain version: the base_vq
-   shape (S 4096, N 16384, D 8), a ragged S with small N, a separated
-   codebook, duplicated rows and exact ties, two planted faults (the last
-   codebook tile skipped, ties sent to the highest index) that the gate
-   must reject, and the four times at the base_vq shape;
+6. the VQ nearest-neighbour kernel against its plain version: base_vq's
+   shape (S 4096, N 16384, D 8: a training step, or a serving group padded
+   to 4096 rows), the unpadded S 3409 and 1152 of its request (a), a ragged
+   S with small N, a separated codebook, duplicated codes in a later lane
+   group, warp and cluster rank of the plan, exact ties, two launches bit
+   for bit, a row of NaNs; three planted faults (the last step of codes
+   skipped, ties sent to the highest index, the later cluster rank's copy
+   taken over the earlier's) that the gate must reject; the four times at
+   S 4096;
 7. the EMA-VQ serving path, base_vq at full width (``configs/base_vq.yaml``,
    width 768, 12+12 layers, heads 12/4, codebook 16384 x 8), seeded random
    weights and codebook: encode, forward and decode_indices of 8- and
@@ -249,7 +253,9 @@ def phase_build():
         for line in rec["ptxas"].splitlines():
             if "Compiling entry" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
+            # the VQ source's 16 instantiations: the D 8 one (base_vq) printed
+            shown = name != "vq_nearest" or "ILi8E" in entry
+            if shown and any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"    {line.strip()}")
             stores = re.search(r"(\d+) bytes spill stores", line)
             if stores and int(stores.group(1)) > 0:
@@ -279,12 +285,12 @@ def read_counts() -> dict:
     return {**fa.launches, "vq_f32": vd.launches["f32"]}
 
 
-def _vq_inputs(kind, S, N, D, seed):
+def _vq_inputs(kind, S, N, D, seed, shift=None):
     """z [S, D] and a codebook [N, D] on the card: "normal" (random normal
     both), "separated" (codes 10x apart, z near a random code),
-    "duplicated" (the same with the codebook's second half repeating its
-    first) or "ties" (integer codes, z on the midpoint of two: exactly equal
-    distances)."""
+    "duplicated" (the same with codes [shift, 2 shift) repeating codes
+    [0, shift); shift N // 2 by default) or "ties" (integer codes, z on the
+    midpoint of two: exactly equal distances)."""
     import torch
 
     dev = torch.device("cuda")
@@ -299,7 +305,8 @@ def _vq_inputs(kind, S, N, D, seed):
         return (cb[a] + cb[b]) / 2, cb
     cb = torch.randn(N, D, generator=g, device=dev) * 10.0
     if kind == "duplicated":
-        cb[N // 2:] = cb[: N - N // 2]
+        shift = N // 2 if shift is None else shift
+        cb[shift:2 * shift] = cb[:shift].clone()
     pick = torch.randint(0, N, (S,), generator=g, device=dev)
     return cb[pick] + 0.05 * torch.randn(S, D, generator=g, device=dev), cb
 
@@ -309,75 +316,119 @@ def _vq_line(g) -> str:
             f"{g['same'] * 100:.3f} % (eps {g['eps']})")
 
 
+def vq_bound_ms(S: int, N: int, D: int):
+    """Least time of one VQ search: 2 S N D fp32 FLOP at the FMA peak, or
+    the bytes of z and the codebook read once and idx, dist written once;
+    the larger, with which bounds it, the FLOP and the bytes."""
+    flops = 2.0 * S * N * D
+    nbytes = S * D * 4 + N * D * 4 + S * 8
+    t_ops, t_bytes = flops / PEAK_FLOPS["f32"] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
 def phase_vq_kernel(card: str) -> dict:
-    """The VQ kernel vs its plain version; planted faults; times at the
-    base_vq shape."""
+    """The VQ kernel vs its plain version (base_vq's shape and two unpadded
+    S, ragged, separated, duplicates in a later lane group, warp and cluster
+    rank, exact ties, a row of NaNs, two launches); planted faults; times at
+    base_vq's shape."""
     import torch
 
     from titok_tpu_torch.ops import vq_distance as vd
 
-    cases = [  # (label, kind, S, N, D, exact)
-        ("base_vq 4096x16384x8, normal", "normal", 4096, 16384, 8, False),
-        ("ragged S 3299, N 1000", "normal", 3299, 1000, 8, False),
-        ("ragged S 777, N 37 (under one tile), D 4", "normal", 777, 37, 4, False),
-        ("separated, 4096x16384x8", "separated", 4096, 16384, 8, True),
-        ("duplicated rows across code ranges, 4096x16384x8", "duplicated", 4096, 16384, 8, True),
-        ("exact ties, 2000x500x8", "ties", 2000, 500, 8, True),
+    S, N, D = 4096, 16384, 8
+    p = vd.plan_for(S, N)
+    # where a code's duplicate lands at the base_vq plan: the next lane
+    # group's range, the next warp's, the next cluster rank's
+    group_shift = p.per_range
+    warp_shift = p.per_range * vd.GROUPS
+    rank_shift = p.per_range * vd.GROUPS * p.warps
+    cases = [  # (label, kind, S, N, D, exact, shift)
+        ("base_vq 4096x16384x8, normal", "normal", 4096, 16384, 8, False, None),
+        ("unpadded S 3409x16384x8", "normal", 3409, 16384, 8, False, None),
+        ("unpadded S 1152x16384x8", "normal", 1152, 16384, 8, False, None),
+        ("ragged S 3299, N 1000", "normal", 3299, 1000, 8, False, None),
+        ("ragged S 777, N 37 (under one step), D 4", "normal", 777, 37, 4, False, None),
+        ("separated, 4096x16384x8", "separated", 4096, 16384, 8, True, None),
+        (f"duplicates in the next lane group (+{group_shift})", "duplicated", 4096, 16384, 8,
+         True, group_shift),
+        (f"duplicates in the next warp (+{warp_shift})", "duplicated", 4096, 16384, 8, True,
+         warp_shift),
+        (f"duplicates in the next cluster rank (+{rank_shift})", "duplicated", 4096, 16384, 8,
+         True, rank_shift),
+        ("exact ties, 2000x500x8", "ties", 2000, 500, 8, True, None),
     ]
     err = 0.0
-    for label, kind, S, N, D, exact in cases:
-        z, cb = _vq_inputs(kind, S, N, D, seed=S + N)
+    for label, kind, S_, N_, D_, exact, shift in cases:
+        z, cb = _vq_inputs(kind, S_, N_, D_, seed=S_ + N_, shift=shift)
         idx, dist = vd.vq_nearest(z, cb)
         torch.cuda.synchronize()
         g = vd.gate(z, cb, idx, dist, eps=VQ_EPS, exact=exact)
         ok = g["ok"] and g["same"] >= 0.999
-        if kind == "duplicated":
-            ok = ok and bool((idx < N // 2).all())
-        print(f"vq kernel {label} (P={vd.splits_for(S, N)} code ranges): {_vq_line(g)} "
+        if kind == "duplicated":  # no index in the repeating copy
+            ok = ok and not bool(((idx >= shift) & (idx < 2 * shift)).any())
+        print(f"vq kernel {label} (plan {tuple(vd.plan_for(S_, N_))}): {_vq_line(g)} "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"the VQ kernel disagrees with its plain version: {label}")
         err = max(err, g["abs_err"])
+    # two launches, the same bits; a row of NaNs gives (0, +inf)
+    z, cb = _vq_inputs("normal", S, N, D, seed=S + N)
+    a_i, a_d = vd.vq_nearest(z, cb)
+    b_i, b_d = vd.vq_nearest(z, cb)
+    same_bits = torch.equal(a_i, b_i) and torch.equal(a_d.view(torch.int32), b_d.view(torch.int32))
+    zn = z.clone()
+    zn[5] = float("nan")
+    n_i, n_d = vd.vq_nearest(zn, cb)
+    torch.cuda.synchronize()
+    nan_ok = int(n_i[5]) == 0 and float(n_d[5]) == float("inf")
+    rest_ok = torch.equal(torch.cat([n_i[:5], n_i[6:]]), torch.cat([a_i[:5], a_i[6:]]))
+    print(f"vq kernel: two launches bit for bit {same_bits}; a row of NaNs -> "
+          f"({int(n_i[5])}, {float(n_d[5])}), the other rows unchanged {rest_ok}")
+    check(same_bits, "two launches of the VQ kernel differ")
+    check(nan_ok and rest_ok, "a row of NaNs does not give (0, +inf)")
 
     # planted faults: each made by the kernel itself on altered inputs
-    z, cb = _vq_inputs("normal", 4096, 16384, 8, seed=4096 + 16384)
-    zd, cbd = _vq_inputs("duplicated", 4096, 16384, 8, seed=1)
-    skip = vd.vq_nearest(z, cb[: -vd.TILE_N].contiguous())
+    zd, cbd = _vq_inputs("duplicated", S, N, D, seed=1)
+    zr, cbr = _vq_inputs("duplicated", S, N, D, seed=2, shift=rank_shift)
+    skip = vd.vq_nearest(z, cb[: -vd.TILE].contiguous())
     hi_i, hi_d = vd.vq_nearest(zd, cbd.flip(0).contiguous())
+    # the later cluster rank's copy taken: the kernel on the codebook with
+    # the first rank's copies out of reach, so its cross-rank reduction
+    # takes the second rank's, gated against the tied codebook
+    far = cbr.clone()
+    far[:rank_shift] += 1e4
+    rk_i, rk_d = vd.vq_nearest(zr, far)
+    later = bool(((rk_i >= rank_shift) & (rk_i < 2 * rank_shift)).any())
+    check(later, "the planted cross-rank fault did not take the later rank's copies")
     faults = {
-        "the last codebook tile skipped": vd.gate(z, cb, *skip, eps=VQ_EPS),
+        f"the last step of {vd.TILE} codes skipped": vd.gate(z, cb, *skip, eps=VQ_EPS),
         "ties sent to the highest index": vd.gate(
             zd, cbd, (cbd.shape[0] - 1 - hi_i).to(torch.int32), hi_d, eps=VQ_EPS, exact=True),
+        "the later cluster rank's copy taken": vd.gate(zr, cbr, rk_i, rk_d, eps=VQ_EPS,
+                                                       exact=True),
     }
     for name, g in faults.items():
         print(f"  planted fault, {name}: {'PASSED' if g['ok'] else 'REJECTED'} ({_vq_line(g)})")
         check(not g["ok"], f"the VQ gate passes a planted fault: {name}")
 
-    # times at the base_vq shape: the kernel at its C entry on fixed buffers
-    S, N, D = 4096, 16384, 8
-    cn = vd.code_norms(cb)
-    P = vd.splits_for(S, N)
-    part_d = torch.empty((P, S), device=z.device)
-    part_i = torch.empty((P, S), dtype=torch.int32, device=z.device)
+    # times at base_vq's shape: the kernel at its C entry on fixed buffers,
+    # through the wrapper, the plain version and one library call
     idx = torch.empty(S, dtype=torch.int32, device=z.device)
     dist = torch.empty(S, device=z.device)
-    args = (z.data_ptr(), cb.data_ptr(), cn.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
-            idx.data_ptr(), dist.data_ptr(), S, N, D, P, torch.cuda.current_stream().cuda_stream)
+    args = (z.data_ptr(), cb.data_ptr(), idx.data_ptr(), dist.data_ptr(), S, N, D, p.warps,
+            p.cluster, p.per_range, torch.cuda.current_stream().cuda_stream)
     kernel_ms = cuda_ms(lambda: vd._kernel()(*args), reps=200)
     wrapper_ms = cuda_ms(lambda: vd.vq_nearest(z, cb), reps=200)
     plain_ms = cuda_ms(lambda: vd.vq_nearest_reference(z, cb), reps=5, warmup=1)
     # yardstick only, never called by the port: the dense distance matrix
     # and argmin in fp32 (TF32 is off), one [S, N] matrix in device memory
+    cn = vd.code_norms(cb)
     library_ms = cuda_ms(lambda: (cn[None, :] - 2.0 * (z @ cb.T)).argmin(1), reps=20)
-    flops = 2.0 * S * N * D
-    nbytes = S * D * 4 + N * D * 4 + N * 4 + S * 8
-    t_ops, t_bytes = flops / PEAK_FLOPS["f32"] * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-    print(f"timing vq kernel base_vq S={S} N={N} D={D} [{card}]: kernel {kernel_ms:.4f} ms "
-          f"(through the wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, library (dense "
-          f"fp32 matmul + argmin) {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}; "
-          f"{flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.3f} MB), share of bound "
-          f"{bound_ms / kernel_ms:.4f}")
-    del part_d, part_i
+    bound_ms, bound_by, flops, nbytes = vq_bound_ms(S, N, D)
+    print(f"timing vq kernel base_vq S={S} N={N} D={D} plan {tuple(p)} ({p.ctas} CTAs) [{card}]: "
+          f"kernel {kernel_ms:.5f} ms (through the wrapper {wrapper_ms:.5f} ms), plain "
+          f"{plain_ms:.4f} ms, library (dense fp32 matmul + argmin) {library_ms:.4f} ms, bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by}; {flops / 1e9:.3f} GFLOP fp32, "
+          f"{nbytes / 1e6:.3f} MB), share of bound {bound_ms / kernel_ms:.4f}")
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
@@ -886,7 +937,7 @@ def print_breakdown(prof, title: str, wall_ms: float, top: int) -> None:
         return
     print(f"breakdown of {title} device busy {busy:.3f} ms ({busy / wall_ms * 100:.1f} % of "
           f"wall); top device events, then the port's own kernels below them:")
-    own = ("fwd_bf16_pipe", "fwd_f32_fma", "bwd_dq_", "bwd_dkv_", "vq_partial", "vq_reduce",
+    own = ("fwd_bf16_pipe", "fwd_f32_fma", "bwd_dq_", "bwd_dkv_", "vq_nearest_kernel",
            "v1_fwd_", "v1_bwd_")
     for i, (key, dev_ms, count) in enumerate(rows):
         if i < top or any(k in key for k in own):

@@ -36,3 +36,21 @@ def test_shapes_are_the_three_layouts():
     assert base[1:] == (12, 4) and large[1:] == (16, 4)
     for seg in (base[0], large[0]):
         assert np.array_equal(seg, chip_smoke.BASE_SEG)
+
+
+@pytest.mark.parametrize("S", ca.VQ_SHAPES)
+def test_vq_bound_matches_chip_smoke(S):
+    """The VQ kind's bound at base_vq's shape and the two smaller S is
+    ``chip_smoke.py``'s: the FMA peak bounds it."""
+    got, by = ca.vq_bound_ms(S)
+    want, want_by, flops, _ = chip_smoke.vq_bound_ms(S, ca.VQ_N, ca.VQ_D)
+    assert got == pytest.approx(want, rel=1e-12) and by == want_by == "operations"
+    assert flops == 2.0 * S * 16384 * 8
+
+
+def test_vq_old_build_splits():
+    """The code ranges a two-launch build's wrapper chose: 32 at every
+    base_vq shape, so 8, 7 and 3 row blocks of 512 give 256, 224 and 96
+    CTAs."""
+    assert [ca._old_vq_splits(S, ca.VQ_N) for S in ca.VQ_SHAPES] == [32, 32, 32]
+    assert ca._old_vq_splits(100, 300) == 1

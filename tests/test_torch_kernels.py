@@ -303,7 +303,7 @@ def test_train_step_launches_both_backward_kernels(cuda):
 VQ_EPS = 1e-6
 
 
-def _vq_inputs(dev, kind, S, N, D, seed=0):
+def _vq_inputs(dev, kind, S, N, D, seed=0, shift=None):
     g = torch.Generator(device=dev).manual_seed(seed)
     if kind == "normal":
         return (torch.randn(S, D, generator=g, device=dev),
@@ -314,27 +314,42 @@ def _vq_inputs(dev, kind, S, N, D, seed=0):
         b = torch.randint(0, N, (S,), generator=g, device=dev)
         return (cb[a] + cb[b]) / 2, cb
     cb = torch.randn(N, D, generator=g, device=dev) * 10.0
-    if kind == "duplicated":  # the second half repeats the first
-        cb[N // 2:] = cb[: N - N // 2]
+    if kind == "duplicated":  # codes [shift, 2 shift) repeat codes [0, shift)
+        shift = N // 2 if shift is None else shift
+        cb[shift:2 * shift] = cb[:shift].clone()
     pick = torch.randint(0, N, (S,), generator=g, device=dev)
     return cb[pick] + 0.05 * torch.randn(S, D, generator=g, device=dev), cb
 
 
+def _vq_shifts():
+    """Where a code's duplicate lands at the base_vq plan: the next lane
+    group's range, the next warp's, the next cluster rank's."""
+    p = vd.plan_for(4096, 16384)
+    return {"group": p.per_range, "warp": p.per_range * vd.GROUPS,
+            "rank": p.per_range * vd.GROUPS * p.warps}
+
+
 VQ_CASES = {
-    "base_vq 4096x16384x8": ("normal", 4096, 16384, 8, False),
-    "ragged S 3299, N 1000": ("normal", 3299, 1000, 8, False),
-    "tiny N 1": ("normal", 300, 1, 8, True),
-    "N 37 under one tile, D 4": ("normal", 777, 37, 4, False),
-    "separated": ("separated", 4096, 16384, 8, True),
-    "duplicated rows": ("duplicated", 4096, 16384, 8, True),
-    "exact ties": ("ties", 2000, 500, 8, True),
+    "base_vq 4096x16384x8": ("normal", 4096, 16384, 8, False, None),
+    "unpadded S 3409x16384x8": ("normal", 3409, 16384, 8, False, None),
+    "unpadded S 1152x16384x8": ("normal", 1152, 16384, 8, False, None),
+    "ragged S 3299, N 1000": ("normal", 3299, 1000, 8, False, None),
+    "tiny N 1": ("normal", 300, 1, 8, True, None),
+    "N 37 under one step, D 4": ("normal", 777, 37, 4, False, None),
+    "separated": ("separated", 4096, 16384, 8, True, None),
+    "duplicated rows": ("duplicated", 4096, 16384, 8, True, None),
+    "duplicates in the next lane group": ("duplicated", 4096, 16384, 8, True, "group"),
+    "duplicates in the next warp": ("duplicated", 4096, 16384, 8, True, "warp"),
+    "duplicates in the next cluster rank": ("duplicated", 4096, 16384, 8, True, "rank"),
+    "exact ties": ("ties", 2000, 500, 8, True, None),
 }
 
 
 @pytest.mark.parametrize("case", list(VQ_CASES))
 def test_vq_kernel_matches_plain(cuda, case):
-    kind, S, N, D, exact = VQ_CASES[case]
-    z, cb = _vq_inputs(cuda, kind, S, N, D)
+    kind, S, N, D, exact, where = VQ_CASES[case]
+    shift = _vq_shifts()[where] if where else None
+    z, cb = _vq_inputs(cuda, kind, S, N, D, shift=shift)
     before = vd.launches["f32"]
     idx, dist = vd.vq_nearest(z, cb)
     torch.cuda.synchronize()
@@ -343,21 +358,46 @@ def test_vq_kernel_matches_plain(cuda, case):
     g = vd.gate(z, cb, idx, dist, eps=VQ_EPS, exact=exact)
     assert g["ok"], g
     assert g["same"] >= 0.999, g
-    if kind == "duplicated":
-        assert bool((idx < N // 2).all())
+    if kind == "duplicated":  # never the repeating copy
+        shift = N // 2 if shift is None else shift
+        assert not bool(((idx >= shift) & (idx < 2 * shift)).any())
+
+
+def test_vq_kernel_same_bits_and_nan_row(cuda):
+    """Two launches give the same bits; a row of NaNs gives (0, +inf) and
+    leaves the other rows as they were."""
+    z, cb = _vq_inputs(cuda, "normal", 4096, 16384, 8)
+    a_i, a_d = vd.vq_nearest(z, cb)
+    b_i, b_d = vd.vq_nearest(z, cb)
+    assert torch.equal(a_i, b_i) and torch.equal(a_d.view(torch.int32), b_d.view(torch.int32))
+    zn = z.clone()
+    zn[5] = float("nan")
+    n_i, n_d = vd.vq_nearest(zn, cb)
+    assert int(n_i[5]) == 0 and float(n_d[5]) == float("inf")
+    keep = torch.arange(4096, device=cuda) != 5
+    assert torch.equal(n_i[keep], a_i[keep]) and torch.equal(n_d[keep], a_d[keep])
 
 
 def test_vq_gate_rejects_planted_faults(cuda):
-    """The kernel run with its last codebook tile skipped, and with ties
-    sent to the highest index (the kernel on the reversed codebook), fails
-    the gate."""
+    """The kernel run with its last step of codes skipped, with ties sent
+    to the highest index (the kernel on the reversed codebook), and with
+    ties across cluster ranks sent to the later rank (the kernel on a
+    codebook whose copies in the first rank are out of reach, so that the
+    cross-rank reduction takes the second rank's), fails the gate."""
     z, cb = _vq_inputs(cuda, "normal", 4096, 16384, 8)
-    skip = vd.vq_nearest(z, cb[: -vd.TILE_N].contiguous())
+    skip = vd.vq_nearest(z, cb[: -vd.TILE].contiguous())
     assert not vd.gate(z, cb, *skip, eps=VQ_EPS)["ok"]
     zd, cbd = _vq_inputs(cuda, "duplicated", 4096, 16384, 8)
     hi_i, hi_d = vd.vq_nearest(zd, cbd.flip(0).contiguous())
     hi_i = (cbd.shape[0] - 1 - hi_i).to(torch.int32)
     assert not vd.gate(zd, cbd, hi_i, hi_d, eps=VQ_EPS, exact=True)["ok"]
+    r = _vq_shifts()["rank"]
+    zr, cbr = _vq_inputs(cuda, "duplicated", 4096, 16384, 8, seed=2, shift=r)
+    far = cbr.clone()
+    far[:r] += 1e4
+    rk_i, rk_d = vd.vq_nearest(zr, far)
+    assert bool(((rk_i >= r) & (rk_i < 2 * r)).any())  # the later rank's copies won
+    assert not vd.gate(zr, cbr, rk_i, rk_d, eps=VQ_EPS, exact=True)["ok"]
 
 
 def test_vq_wrapper_raises_on_cuda_instead_of_falling_back(cuda):

@@ -105,7 +105,38 @@ def test_vq_nearest_gate_rejects_planted_faults(rng):
     assert vd.gate(zd, dup, *vd.vq_nearest_reference(zd, dup), exact=True)["ok"]
     g = vd.gate(zd, dup, hi_i, hi_d, exact=True)
     assert not g["ok"] and g["same"] == 0.0 and g["slack"] == 0.0  # equal distances
-    assert vd.splits_for(4096, 16384) == 32 and vd.splits_for(100, 300) == 1
+
+
+@pytest.mark.parametrize("N", [16384, 1000, 37])
+@pytest.mark.parametrize("S", [4096, 3409, 1152, 777, 1])
+def test_vq_plan(S, N):
+    """The kernel's planner (a pure function): every code in exactly one
+    range, in order; a cluster of at most 8 CTAs, whose CTAs cover all N
+    codes of a row block, and a grid of whole clusters; ranges of at least
+    one step of codes. At N 16384 every CTA has 16 warps and the grid
+    fills the card one CTA an SM: a cluster twice as large would not fit,
+    or the cluster is already 8. base_vq's one shape, S 4096, gets 64 row
+    blocks by clusters of 2."""
+    p = vd.plan_for(S, N)
+    assert 1 <= p.warps <= vd.MAX_WARPS and 1 <= p.cluster <= vd.MAX_CLUSTER
+    assert p.ctas % p.cluster == 0 and p.ctas == p.row_blocks * p.cluster
+    assert p.row_blocks * vd.ROWS >= S > (p.row_blocks - 1) * vd.ROWS
+    assert p.per_range % 4 == 0 and p.ranges == p.cluster * p.warps * vd.GROUPS
+    covered = np.zeros(N, np.int64)
+    prev_end = 0
+    # range r (rank, warp, group order) covers [r * per_range, (r + 1) * per_range) within N
+    for begin, end in ((min(N, r * p.per_range), min(N, (r + 1) * p.per_range))
+                       for r in range(p.ranges)):
+        assert begin == prev_end or begin == end == N  # contiguous, in code order
+        covered[begin:end] += 1
+        prev_end = end
+    assert (covered == 1).all()
+    assert p.ranges == vd.GROUPS or p.per_range >= vd.TILE
+    if N == 16384:
+        assert p.warps == 16
+        assert p.ctas <= vd.NUM_SMS < 2 * p.ctas or p.cluster == vd.MAX_CLUSTER
+    if (S, N) == (4096, 16384):
+        assert p == vd.Plan(warps=16, cluster=2, per_range=256, row_blocks=64)
 
 
 def _jstate(state: dict) -> VQState:

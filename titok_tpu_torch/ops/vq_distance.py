@@ -18,13 +18,17 @@ flips near-ties, and token ids must be stable.
 - :func:`vq_nearest_reference` — the plain version: an explicit fp32 sum
   over D, one product and one add at a time in the order d = 0..D-1, chunk
   by chunk of rows, so it needs no matmul and reads no global TF32 flag.
-- :func:`code_norms` — ``|c_n|²``, computed outside the kernel as JAX does,
-  and read by both.
+- :func:`code_norms` — ``|c_n|²``, the plain version's (outside its dense
+  block, as JAX computes it). The kernel computes its own, in shared
+  memory.
 - :func:`distances_at` — the plain version's distance of given (row, code)
   pairs, bit for bit as :func:`vq_nearest_reference` computes that entry.
+- :func:`plan_for` — how the kernel splits the work of one call, a pure
+  function of ``(S, N)``.
 
-The kernel contracts each product into an FMA; the plain version rounds
-the product first. So the two can pick different codes on a row whose two
+The kernel contracts the products into FMAs (``-2 z·c`` by one multiply
+and D - 1 FMAs, then the norm added); the plain version rounds each
+product first. So the two can pick different codes on a row whose two
 best distances are a few ulp apart. ``tests/test_torch_kernels.py`` and
 ``chip_smoke.py`` hold the kernel to the plain version by
 :func:`gate`, which says how.
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,16 +49,19 @@ import torch
 launches = {"f32": 0}
 # elements of one dense f32 [rows, N] block in the plain version (128 MiB)
 _DENSE_ELEMS = 2**25
-# the kernel's fixed choices (csrc/vq_nearest.cu): rows per thread, threads
-# per CTA, codes per shared-memory tile, and the largest D it takes
+# the kernel's fixed choices (csrc/vq_nearest.cu): rows per thread, lane
+# groups a warp (each on its own codes), rows a CTA, codes a range steps
+# through at a time (one argmin run), the largest D, warps a CTA and CTAs a
+# cluster
 ROWS_PER_THREAD = 4
-THREADS = 128
-TILE_N = 256
+GROUPS = 2
+ROWS = ROWS_PER_THREAD * 32 // GROUPS
+TILE = 32
 MAX_DIM = 16
-# each CTA walks at least this many codes, so splitting N stays worth a CTA
-_MIN_CODES_PER_SPLIT = 512
-# CTAs to aim for: a few per SM of the H100's 132
-_TARGET_CTAS = 4 * 132
+MAX_WARPS = 16
+MAX_CLUSTER = 8
+# the SMs of an H100 SXM
+NUM_SMS = 132
 
 
 def reset_launches() -> None:
@@ -142,18 +150,49 @@ def _kernel():
     from titok_tpu_torch.ops import _build
 
     fn = _build.load("vq_nearest").vq_nearest
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def splits_for(S: int, N: int) -> int:
-    """How many ranges of codes the kernel splits N into: enough CTAs to
-    fill the card when S alone gives few, each range at least
-    ``_MIN_CODES_PER_SPLIT`` codes."""
-    row_blocks = -(-S // (ROWS_PER_THREAD * THREADS))
-    want = -(-_TARGET_CTAS // max(row_blocks, 1))
-    return max(1, min(want, N // _MIN_CODES_PER_SPLIT))
+class Plan(NamedTuple):
+    """How one launch splits ``S`` rows by ``N`` codes. A CTA holds
+    ``ROWS`` rows; its ``warps`` warps, and the ``GROUPS`` lane groups of
+    each, share them. The codes are cut into ``ranges`` contiguous ranges
+    of ``per_range`` codes, one for each (cluster rank, warp, group); a
+    cluster of ``cluster`` CTAs covers all N codes of one row block."""
+
+    warps: int
+    cluster: int
+    per_range: int
+    row_blocks: int
+
+    @property
+    def ctas(self) -> int:
+        return self.row_blocks * self.cluster
+
+    @property
+    def ranges(self) -> int:
+        return self.cluster * self.warps * GROUPS
+
+
+@functools.lru_cache(maxsize=256)
+def plan_for(S: int, N: int, sms: int = NUM_SMS) -> Plan:
+    """The kernel's split of ``S`` rows by ``N`` codes. One CTA of 16 warps
+    fills an SM, so each row block gets the largest cluster, a power of two
+    up to ``MAX_CLUSTER``, whose grid still fits the card one CTA an SM;
+    fewer warps, and a smaller cluster, where a range would hold fewer than
+    ``TILE`` codes. base_vq (S 4096, N 16384): 64 row blocks by clusters of
+    2, 128 CTAs of 16 warps."""
+    blocks = -(-max(S, 1) // ROWS)
+    warps = max(1, min(MAX_WARPS, N // (GROUPS * TILE)))
+    cluster = 1
+    while (2 * cluster <= MAX_CLUSTER and 2 * cluster * blocks <= sms
+           and 2 * cluster * warps * GROUPS * TILE <= N):
+        cluster *= 2
+    ranges = cluster * warps * GROUPS
+    per_range = -(-(-(-N // ranges)) // 4) * 4
+    return Plan(warps, cluster, per_range, blocks)
 
 
 def _check(z: torch.Tensor, codebook: torch.Tensor) -> None:
@@ -190,14 +229,10 @@ def vq_nearest(z: torch.Tensor, codebook: torch.Tensor, impl: str = "auto"):
     dist = torch.empty((S,), dtype=torch.float32, device=z.device)
     if S == 0:
         return idx, dist
-    cn = code_norms(codebook)
-    P = splits_for(S, N)
-    part_d = torch.empty((P, S), dtype=torch.float32, device=z.device)
-    part_i = torch.empty((P, S), dtype=torch.int32, device=z.device)
+    p = plan_for(S, N)
     with torch.cuda.device(z.device):
-        err = _kernel()(z.data_ptr(), codebook.data_ptr(), cn.data_ptr(),
-                        part_d.data_ptr(), part_i.data_ptr(), idx.data_ptr(),
-                        dist.data_ptr(), S, N, D, P,
+        err = _kernel()(z.data_ptr(), codebook.data_ptr(), idx.data_ptr(), dist.data_ptr(),
+                        S, N, D, p.warps, p.cluster, p.per_range,
                         torch.cuda.current_stream(z.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vq_nearest launch failed: CUDA error {err}")

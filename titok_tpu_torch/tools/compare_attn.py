@@ -1,14 +1,14 @@
-"""A/B of two builds of the segment-attention kernels at their C entries.
+"""A/B of two builds of the segment-attention and VQ kernels at their C entries.
 
     python -m titok_tpu_torch.tools.compare_attn OLD_CSRC NEW_CSRC [VARIANT_CSRC ...] \
-        [--rounds 2] [--reps 100]
+        [--rounds 2] [--reps 100] [--kinds fwd dq ... vq]
 
 OLD_CSRC, NEW_CSRC and any variants (copies of a ``csrc`` with one knob
 changed, named by their directory) are directories that each hold
 ``flash_segment_attn_fwd.cu``, ``flash_segment_attn_bwd.cu``,
-``flash_segment_attn_v1.cu`` and the headers they include, for example an
-older commit's ``titok_tpu_torch/csrc`` unpacked into the git-ignored
-``.scratch/``::
+``flash_segment_attn_v1.cu``, ``vq_nearest.cu`` and the headers they
+include, for example an older commit's ``titok_tpu_torch/csrc`` unpacked
+into the git-ignored ``.scratch/``::
 
     git archive <rev> titok_tpu_torch/csrc | tar -x -C .scratch/old
 
@@ -31,7 +31,22 @@ does not read). Prints each build's ``-Xptxas -v`` lines, each time, the
 means and medians (one late sample of a few µs of host or clock noise moves
 a mean), each build's time over OLD's, the bound and the share of bound, and
 the largest difference between each build's outputs and OLD's (dk/dv
-summed over each group). Needs a CUDA card and nvcc.
+summed over each group).
+
+The ``vq`` kind times the VQ search at S 4096, 3409 and 1152 (N 16384, D 8:
+S 4096 is the one shape base_vq runs, a training step or a serving group
+padded to 4096 rows; 3409 and 1152 are its request (a)'s groups unpadded,
+fewer row blocks for the same codebook) in the same order,
+each entry alone and as its build's wrapper runs it: a build with the
+one-launch kernel (it has ``vq_nearest_one_launch``) at the plan of
+``ops/vq_distance.plan_for`` with its two outputs allocated, an older one
+(two launches, scratch [P, S] and the code norms as inputs) with the norms
+computed and its two scratch tensors and two outputs allocated before each
+launch, P as that build's wrapper chose it. It prints the bound and the
+share of bound (``vq_bound_ms``, as ``chip_smoke.py`` counts it) and each
+build's indices and distances against OLD's (indices identical, largest
+distance difference). ``--kinds`` picks kinds (default: all). Needs a CUDA
+card and nvcc.
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ import numpy as np
 import torch
 
 from titok_tpu_torch.ops import _build
+from titok_tpu_torch.ops import vq_distance as vd
 from titok_tpu_torch.ops.flash_attention import bind_v1, group_sum, tile_minmax
 from titok_tpu_torch.ops.flash_attention_mh import bind_bwd, bind_fwd
 
@@ -56,6 +72,9 @@ PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 D, P = 64, 30
 KINDS = ("fwd", "rope_fwd", "dkv", "rope_dkv", "dq", "rope_dq", "v1_fwd", "v1_dq",
          "v1_dkv")
+# the VQ search: base_vq's shape (S 4096), two smaller S, codebook, dim
+VQ_SHAPES = (4096, 3409, 1152)
+VQ_N, VQ_D = 16384, 8
 
 
 def _segments(lengths, S):
@@ -98,12 +117,30 @@ def bound_ms(kind: str, seg: np.ndarray, hq: int, hkv: int) -> tuple[float, str]
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def vq_bound_ms(S: int, N: int = VQ_N, D: int = VQ_D) -> tuple[float, str]:
+    """The least time of one VQ search: 2 S N D fp32 FLOP at the FMA peak,
+    or z and the codebook read once and idx, dist written once; the larger,
+    as ``chip_smoke.py`` counts it."""
+    t_ops = 2.0 * S * N * D / PEAK_F32 * 1e3
+    t_bytes = (S * D * 4 + N * D * 4 + S * 8) / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _old_vq_splits(S: int, N: int) -> int:
+    """The code ranges P a two-launch build's wrapper chose (512 rows a CTA,
+    4 CTAs an SM of 132, at least 512 codes a range)."""
+    want = -(-4 * 132 // max(-(-S // 512), 1))
+    return max(1, min(want, N // 512))
+
+
 def _build_pair(label: str, csrc: str):
-    """Build a directory's three sources; ``(entries by kind, what its v1
+    """Build a directory's four sources; ``(entries by kind, what its v1
     bf16 entries do: {"summed": its dk/dv sums each group, "searches": its
-    forward and dq read no tile intervals}, ptxas lines)``."""
+    forward and dq read no tile intervals}, and whether its VQ search is
+    one launch ("vq_one"), ptxas lines)``."""
     libs, lines = {}, []
-    for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd", "flash_segment_attn_v1"):
+    for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd", "flash_segment_attn_v1",
+                 "vq_nearest"):
         info = _build._build_one(f"cmp_{label}_{name}", os.path.join(csrc, f"{name}.cu"))
         libs[name] = ctypes.CDLL(info["path"])
         lines += [ln.strip() for ln in info["ptxas"].splitlines()
@@ -112,11 +149,76 @@ def _build_pair(label: str, csrc: str):
     dq, dkv, rope_dq, rope_dkv = bind_bwd(libs["flash_segment_attn_bwd"])
     v1 = libs["flash_segment_attn_v1"]
     v1_fwd, v1_dq, v1_dkv = bind_v1(v1)
+    vq = libs["vq_nearest"]
+    vq_one = hasattr(vq, "vq_nearest_one_launch")
+    vq_fn = vq.vq_nearest
+    n_ptr, n_int = (4, 6) if vq_one else (7, 4)
+    vq_fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    vq_fn.restype = ctypes.c_int
     fns = {"fwd": fwd, "rope_fwd": rope_fwd, "dkv": dkv, "rope_dkv": rope_dkv, "dq": dq,
-           "rope_dq": rope_dq, "v1_fwd": v1_fwd, "v1_dq": v1_dq, "v1_dkv": v1_dkv}
+           "rope_dq": rope_dq, "v1_fwd": v1_fwd, "v1_dq": v1_dq, "v1_dkv": v1_dkv, "vq": vq_fn}
     flags = {"summed": hasattr(v1, "flash_segment_attn_v1_dkv_summed"),
-             "searches": hasattr(v1, "flash_segment_attn_v1_bf16_searches")}
+             "searches": hasattr(v1, "flash_segment_attn_v1_bf16_searches"), "vq_one": vq_one}
     return fns, flags, lines
+
+
+class VqCase:
+    """Fixed z [S, D] and codebook [N, D] (f32, seeded) and, per build, its
+    output buffers; ``entry(label)`` is ``(fn, args)`` of the C entry on
+    fixed buffers, ``wrapper(label)`` what the build's wrapper runs."""
+
+    def __init__(self, S: int, fns: dict, flags: dict, seed: int = 1):
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(seed)
+        self.S, self.fns, self.flags = S, fns, flags
+        self.z = torch.randn(S, VQ_D, generator=g, device=dev)
+        self.cb = torch.randn(VQ_N, VQ_D, generator=g, device=dev)
+        self.stream = torch.cuda.current_stream().cuda_stream
+        self.outs = {label: (torch.empty(S, dtype=torch.int32, device=dev),
+                             torch.empty(S, device=dev)) for label in fns}
+        self.cn = vd.code_norms(self.cb)  # an older build's input
+        P = _old_vq_splits(S, VQ_N)
+        self.scratch = (torch.empty((P, S), device=dev),
+                        torch.empty((P, S), dtype=torch.int32, device=dev))
+
+    def _call(self, label, idx, dist, cn=None, scratch=None):
+        z, cb, S = self.z, self.cb, self.S
+        if self.flags[label]["vq_one"]:
+            p = vd.plan_for(S, VQ_N)
+            return self.fns[label]["vq"](z.data_ptr(), cb.data_ptr(), idx.data_ptr(),
+                                         dist.data_ptr(), S, VQ_N, VQ_D, p.warps, p.cluster,
+                                         p.per_range, self.stream)
+        P = scratch[0].shape[0]
+        return self.fns[label]["vq"](z.data_ptr(), cb.data_ptr(), cn.data_ptr(),
+                                     scratch[0].data_ptr(), scratch[1].data_ptr(),
+                                     idx.data_ptr(), dist.data_ptr(), S, VQ_N, VQ_D, P,
+                                     self.stream)
+
+    def entry(self, label: str):
+        idx, dist = self.outs[label]
+        return (lambda: self._call(label, idx, dist, self.cn, self.scratch)), ()
+
+    def wrapper(self, label: str):
+        S, dev = self.S, self.z.device
+
+        def run():
+            idx = torch.empty(S, dtype=torch.int32, device=dev)
+            dist = torch.empty(S, device=dev)
+            if self.flags[label]["vq_one"]:
+                return self._call(label, idx, dist)
+            P = _old_vq_splits(S, VQ_N)
+            cn = vd.code_norms(self.cb)
+            scratch = (torch.empty((P, S), device=dev),
+                       torch.empty((P, S), dtype=torch.int32, device=dev))
+            return self._call(label, idx, dist, cn, scratch)
+
+        return run, ()
+
+    def compare(self, label: str) -> str:
+        """This build's outputs on the fixed buffers against OLD's."""
+        (ia, da), (ib, db) = self.outs["old"], self.outs[label]
+        return (f"indices identical {bool(torch.equal(ia, ib))}, max|dist-old| "
+                f"{(da - db).abs().max().item():.3e}")
 
 
 def _demangle(lines):
@@ -257,6 +359,7 @@ def main(argv=None) -> int:
     ap.add_argument("new", nargs="+", help="csrc directory of the NEW build, then of any variants")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=100)
+    ap.add_argument("--kinds", nargs="+", choices=KINDS + ("vq",), default=KINDS + ("vq",))
     a = ap.parse_args(argv)
     names = ["old", "new"] + [_label(d) for d in a.new[1:]]
     if len(set(names)) != len(names):
@@ -275,14 +378,18 @@ def main(argv=None) -> int:
         fns[label], flags[label] = fns_b, flags_b
         print(f"{label}: {csrc} (v1 bf16 forward and dq "
               f"{'search the ids' if flags_b['searches'] else 'read tile intervals'}, dk/dv "
-              f"{'summed' if flags_b['summed'] else 'per head'})\n  "
+              f"{'summed' if flags_b['summed'] else 'per head'}; VQ "
+              f"{'one launch' if flags_b['vq_one'] else 'two launches'})\n  "
               + "\n  ".join(_demangle(lines)))
     print("v1_*: each build as its wrapper runs it (tile intervals before a forward or dq that "
           "reads them, group sums after a per-head dk/dv), then each entry alone")
     order = list(builds) + list(builds)[::-1]
+    attn_kinds = [k for k in KINDS if k in a.kinds]
     for sname, (seg_np, hq, hkv) in SHAPES.items():
+        if not attn_kinds:
+            break
         case = Case(seg_np, hq, hkv, fns["new"], flags)
-        for kind in KINDS:
+        for kind in attn_kinds:
             times = {label: [] for label in builds}
             alone = {label: [] for label in builds}  # the v1 entries alone
             for _ in range(a.rounds):
@@ -311,6 +418,33 @@ def main(argv=None) -> int:
                 parts.append(part)
             print(f"{sname} {kind}: bound {bound:.5f} ms ({by}), share old "
                   f"{100 * bound / mo:.2f} %; " + "; ".join(parts))
+        del case
+        torch.cuda.empty_cache()
+    if "vq" in a.kinds:
+        print("vq: each build as its wrapper runs it (a two-launch build: the code norms, two "
+              "scratch tensors and the outputs before each launch), then each entry alone")
+    for S in (VQ_SHAPES if "vq" in a.kinds else ()):
+        case = VqCase(S, fns, flags)
+        times = {label: [] for label in builds}
+        alone = {label: [] for label in builds}
+        for _ in range(a.rounds):
+            for label in order:
+                times[label].append(_ms(*case.wrapper(label), a.reps))
+                alone[label].append(_ms(*case.entry(label), a.reps))
+        bound, by = vq_bound_ms(S)
+        med = {lb: float(np.median(ts)) for lb, ts in times.items()}
+        med_alone = {lb: float(np.median(ts)) for lb, ts in alone.items()}
+        parts = []
+        for label in builds:
+            part = (f"{label} as its wrapper runs it, median {med[label]:.5f} ms "
+                    f"({', '.join(f'{t:.5f}' for t in times[label])}), entry alone median "
+                    f"{med_alone[label]:.5f} ms ({', '.join(f'{t:.5f}' for t in alone[label])}), "
+                    f"share of bound alone {100 * bound / med_alone[label]:.2f} %")
+            if label != "old":
+                part += (f", {label}/old of the medians {med[label] / med['old']:.4f}, alone "
+                         f"{med_alone[label] / med_alone['old']:.4f}; {case.compare(label)}")
+            parts.append(part)
+        print(f"vq S={S} N={VQ_N} D={VQ_D}: bound {bound:.5f} ms ({by}); " + "; ".join(parts))
         del case
         torch.cuda.empty_cache()
     return 0
