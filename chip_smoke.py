@@ -74,7 +74,8 @@ toolkit. Phases, in order; any failure exits non-zero:
    the backward), finite metrics, moved params, peak device memory,
    ms/step and a profile of one step; then the same model in f32 at
    ``train_seq_len`` 2048 with remat on and off from the same weights,
-   batches and noise: losses and grads must agree;
+   batches and noise: losses and grads must agree, and the time of the
+   steps after the first (host clock, ending in a synchronize);
 12. the three v1 attention kernels (``attn_impl: flash_v1``) against their
    plain versions, bf16 and f32: the bench shape, the base_vq serving
    layout at heads 12/4, 16/4 and 8/1, a ragged packing, the tiny stacked
@@ -97,13 +98,18 @@ toolkit. Phases, in order; any failure exits non-zero:
    stopped by SIGTERM (exit 143, a checkpoint at the step reached) and
    resumed; then f32 at ``train_seq_len`` 2048, 4 steps straight against
    2 + save + resume + 2 (losses, params, the R1/R2 noise generator);
-14. one JSON line listing every kernel with its numbers; ``launches`` is
+14. the f32 rows of the kernel table: each f32 entry's time, bound and
+   share of bound at the shapes timed above, with the launch shape the
+   library reports (threads, registers, dynamic shared memory, CTAs an SM)
+   for the pipelined forward and dk/dv, and ptxas's registers and shared
+   memory for the dq;
+15. one JSON line listing every kernel with its numbers; ``launches`` is
    the kernel's count on the training path of its dtype (the VQ kernel's:
    the base_vq training path; the rope kernels': the large training path,
    f32 its remat run; the v1 kernels': the trainer's fit, f32 the straight
    f32 run), and ``launches_by_path`` its count on each path, each read
    from counters set to 0 just before that path;
-15. last line: ``{"ok": true, "device": {...}}``.
+16. last line: ``{"ok": true, "device": {...}}``.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -111,6 +117,7 @@ result. It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -937,7 +944,7 @@ def print_breakdown(prof, title: str, wall_ms: float, top: int) -> None:
         return
     print(f"breakdown of {title} device busy {busy:.3f} ms ({busy / wall_ms * 100:.1f} % of "
           f"wall); top device events, then the port's own kernels below them:")
-    own = ("fwd_bf16_pipe", "fwd_f32_fma", "bwd_dq_", "bwd_dkv_", "vq_nearest_kernel",
+    own = ("fwd_bf16_pipe", "fwd_f32_pipe", "bwd_dq_", "bwd_dkv_", "vq_nearest_kernel",
            "v1_fwd_", "v1_bwd_")
     for i, (key, dev_ms, count) in enumerate(rows):
         if i < top or any(k in key for k in own):
@@ -1858,7 +1865,8 @@ def phase_remat_large_f32(card: str) -> dict:
     """configs/large.yaml at full width and depth in f32 (discriminator in
     f32 too) at train_seq_len 2048: the same weights, batches and noise
     through the rope kernels with remat on and off. Losses and the first
-    generator grads must agree within the f32 limits."""
+    generator grads must agree within the f32 limits. Prints the time of
+    the steps after the first."""
     import torch
 
     from titok_tpu_torch.data.packing import to_device
@@ -1871,7 +1879,7 @@ def phase_remat_large_f32(card: str) -> dict:
     noise_gen = torch.Generator(device=dev).manual_seed(3)
     noises = [torch.randn(d.segment_ids.shape[0], b.patches.shape[1], generator=noise_gen,
                           device=dev) for b, d in batches]
-    runs, paths = {}, {}
+    runs, paths, times = {}, {}, {}
     for remat in (True, False):
         cfg = large_config(*over, f"training.main.remat={remat}")
         builder, st, stp = _trainer(cfg, f32_disc=True, card_seed=10)
@@ -1882,13 +1890,17 @@ def phase_remat_large_f32(card: str) -> dict:
         loss, _ = builder.loss_system.generator_loss(recon, bt, dt_)
         grads = [g.detach().clone() for g in torch.autograd.grad(loss, list(st.model.parameters()))]
         del recon, loss
-        losses = []
-        for (b, d), noise in zip(batches, noises):
+        losses, step_ms = [], []
+        for i, ((b, d), noise) in enumerate(zip(batches, noises)):
+            t0 = time.perf_counter()
             st, m, _ = stp(st, to_device(b, dev), to_device(d, dev), noise=noise)
+            torch.cuda.synchronize()
+            if i > 0:  # the steps after the first
+                step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append({k: float(v) for k, v in m.items() if "loss" in k or "penalty" in k})
-        torch.cuda.synchronize()
         counts = read_counts()
         runs[remat] = (grads, losses)
+        times[remat] = float(np.mean(step_ms))
         paths["train_large_f32" if remat else "train_large_f32_no_remat"] = counts
         del builder, st, stp
         torch.cuda.empty_cache()
@@ -1916,6 +1928,9 @@ def phase_remat_large_f32(card: str) -> dict:
     for i in range(len(l0)):
         print(f"  step {i}: remat {l1[i]}")
         print(f"          no remat {l0[i]}")
+    print(f"large f32 S=2048 step time after the first step [{card}]: remat "
+          f"{times[True]:.3f} ms, no remat {times[False]:.3f} ms (host clock, ending in "
+          f"torch.cuda.synchronize())")
     check(lok, "remat and non-remat losses disagree")
     check(gerr <= 1e-4 * gmax, "remat and non-remat grads disagree")
     return paths
@@ -2558,6 +2573,67 @@ def phase_resume_f32(card: str) -> dict:
     return paths
 
 
+def f32_launch_shape(kind: str, hq: int, hkv: int, rope: bool) -> dict:
+    """The launch shape the library reports for the pipelined f32 forward
+    (``kind`` "fwd") or dk/dv ("dkv") at hq / hkv heads: threads,
+    dynamic shared memory, registers, CTAs an SM, heads (or warp groups) a
+    CTA, rows a thread, kv rows a tile, K/V buffers or ring stages."""
+    from titok_tpu_torch.ops import _build
+
+    lib = _build.load("flash_segment_attn_fwd" if kind == "fwd" else "flash_segment_attn_bwd")
+    fn = getattr(lib, f"flash_segment_attn_f32_{kind}_config")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    err = fn(hq, hkv, int(rope), out)
+    check(err == 0, f"flash_segment_attn_f32_{kind}_config failed: CUDA error {err}")
+    keys = ("threads", "smem_bytes", "registers", "ctas_per_sm", "heads", "rows_a_thread",
+            "kv_rows", "stages")
+    return dict(zip(keys, list(out)))
+
+
+def print_f32_table(card: str, kres: dict, bres: dict, rres: dict) -> None:
+    """The f32 rows of the kernel table (PERF.md §6): each f32 entry of rows
+    1-4 at the shapes timed above, its time, bound and share of bound, and
+    its launch shape (the dq: ptxas's registers and static shared memory,
+    256 threads a CTA)."""
+    from titok_tpu_torch.ops import _build
+
+    ptxas = _build.build_info["flash_segment_attn_bwd"]["ptxas"]
+    dq_shape = {}
+    for rope, tag in ((False, "ILb0E"), (True, "ILb1E")):
+        m = re.search(r"bwd_dq_f32" + tag + r"[^\n]*\n(?:[^\n]*\n)*?[^\n]*Used (\d+) registers"
+                      r"[^\n]*?(\d+) bytes smem", ptxas)
+        dq_shape[rope] = (f"256 threads, {m.group(1)} registers, {m.group(2)} B static shared "
+                          f"memory" if m else "registers not found")
+    rows = [("flash_segment_attn_fwd_f32", "fwd", False, kres["f32"], "bench 4/2", (4, 2)),
+            ("flash_segment_attn_fwd_f32", "fwd", False, kres["f32"]["at_base_12_4"],
+             "base_vq 12/4", (12, 4)),
+            ("flash_segment_attn_bwd_dq_f32", "dq", False, bres["dq_f32"], "bench 4/2", (4, 2)),
+            ("flash_segment_attn_bwd_dq_f32", "dq", False, bres["dq_f32"]["at_base_12_4"],
+             "base_vq 12/4", (12, 4)),
+            ("flash_segment_attn_bwd_dkv_f32", "dkv", False, bres["dkv_f32"], "bench 4/2", (4, 2)),
+            ("flash_segment_attn_bwd_dkv_f32", "dkv", False, bres["dkv_f32"]["at_base_12_4"],
+             "base_vq 12/4", (12, 4))]
+    for k in ("fwd", "dq", "dkv"):
+        name = f"flash_segment_attn_rope_{'fwd' if k == 'fwd' else 'bwd_' + k}_f32"
+        rows.append((name, k, True, rres[f"{k}_f32"], "large 16/4", (16, 4)))
+        rows.append((name, k, True, rres[f"{k}_f32"]["at_bench_4_2"], "bench 4/2", (4, 2)))
+    for name, kind, rope, r, layout, (hq, hkv) in rows:
+        if kind == "dq":
+            shape = dq_shape[rope]
+        else:
+            sh = f32_launch_shape(kind, hq, hkv, rope)
+            unit = "heads" if kind == "fwd" else "warp groups"
+            shape = (f"{sh['threads']} threads, {sh['registers']} registers, "
+                     f"{sh['smem_bytes']} B dynamic shared memory, {sh['ctas_per_sm']} CTAs an SM, "
+                     f"{sh['heads']} {unit} a CTA, {sh['rows_a_thread']} rows a thread, "
+                     f"{sh['kv_rows']}-row kv tiles, {sh['stages']} stage(s)")
+        print(f"f32 kernel table row {name} {layout} [{card}]: {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
+              f"{100 * r['bound_ms'] / r['ms']:.1f} %; {shape}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2595,6 +2671,7 @@ def main() -> int:
         paths.update(phase_trainer(card))
         phase_trainer_cli(card)
         paths.update(phase_resume_f32(card))
+        print_f32_table(card, kres, bres, rres)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

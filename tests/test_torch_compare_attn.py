@@ -12,21 +12,27 @@ from titok_tpu_torch.tools import compare_attn as ca
 
 
 @pytest.mark.parametrize("shape", list(ca.SHAPES))
-@pytest.mark.parametrize("kind", ca.KINDS)
+@pytest.mark.parametrize("kind", list(ca.KINDS) + [f"{k} f32" for k in ca.F32_KINDS])
 def test_bound_matches_chip_smoke(shape, kind):
+    """Each kind's bound in bf16 and, for the kinds timed in f32 ("... f32"),
+    in f32: 4-byte elements and the fp32 FMA peak."""
     seg, hq, hkv = ca.SHAPES[shape]
     S, D = len(seg), 64
-    got, by = ca.bound_ms(kind, seg, hq, hkv)
+    dtype = "f32" if kind.endswith(" f32") else "bf16"
+    kind = kind.removesuffix(" f32")
+    got, by = ca.bound_ms(kind, seg, hq, hkv, dtype)
     base = kind.removeprefix("rope_").removeprefix("v1_")  # v1: the same work as rows 1-2
     if kind.startswith("rope_"):
-        want, want_by, _, _ = chip_smoke.rope_bound_ms(seg, seg, hq, hkv, D, "bf16", base,
+        want, want_by, _, _ = chip_smoke.rope_bound_ms(seg, seg, hq, hkv, D, dtype, base,
                                                        ca.P, False)
     elif base == "fwd":
-        want, want_by, _, _ = chip_smoke.attn_bound_ms(seg, S, hq, hkv, D, "bf16")
+        want, want_by, _, _ = chip_smoke.attn_bound_ms(seg, S, hq, hkv, D, dtype)
     else:
-        want, want_by, _, _ = chip_smoke.bwd_bound_ms(seg, S, S, hq, hkv, D, "bf16",
+        want, want_by, _, _ = chip_smoke.bwd_bound_ms(seg, S, S, hq, hkv, D, dtype,
                                                       3 if base == "dq" else 4, (base,))
     assert got == pytest.approx(want, rel=1e-12) and by == want_by
+    if dtype == "f32":  # the FMA peak bounds every f32 kind at these shapes
+        assert by == "operations"
 
 
 def test_shapes_are_the_three_layouts():

@@ -463,6 +463,7 @@ ROPE_CASES = {
     "4/2 P30 ragged, pad": ([1, 2, 63, 64, 65, 127, 300, 5], 700, 4, 2, 30),
     "16/4 P30": ([513, 1040, 416], 2100, 16, 4, 30),
     "12/4 P16 (pass-through pairs)": ([200, 333, 64], 640, 12, 4, 16),
+    "12/4 P7 (odd P: tables read 4 bytes at a time)": ([200, 333, 64], 640, 12, 4, 7),
     "stacked disc ids x4 4/2 P30": (None, None, 4, 2, 30),
 }
 
@@ -558,9 +559,23 @@ def test_rope_wrapper_raises_on_cuda_instead_of_falling_back(cuda):
 # takes 4, 3 or 2 q heads of a group, or one head; at 8/1 the plain dq takes
 # 2 heads a CTA and the rope dq 4, and dk/dv walks 8 heads with 4 warp
 # groups: v1 in two chunks of 4 heads, each folded into a running sum).
+# The f32 kinds ("plain f32", "rope P30 f32") hold the pipelined f32 forward
+# and dk/dv at the same edges: their 64-row q and kv tiles, the dk/dv's
+# 32-row q units, 4, 3, 2 or 1 q heads a forward CTA and as many warp groups
+# a dk/dv CTA, and their swizzled tiles.
 EDGE_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 1, 200]  # 778 rows, then pad
 EDGE_HEADS = {"MHA 4/4": (4, 4), "4/2": (4, 2), "12/4": (12, 4), "16/4": (16, 4),
               "8/1": (8, 1)}
+
+
+EDGE_KINDS = ["plain", "rope P30", "v1", "plain f32", "rope P30 f32"]
+
+
+def _edge_dtype(kind):
+    """The kind without its dtype suffix, and the dtype (bf16 unless " f32")."""
+    if kind.endswith(" f32"):
+        return kind.removesuffix(" f32"), torch.float32
+    return kind, torch.bfloat16
 
 
 def _check_v1(dev, dtype, seg, hq, hkv, seed):
@@ -592,63 +607,65 @@ def _check_v1(dev, dtype, seg, hq, hkv, seed):
     _assert_bwd_close(grads, want, dtype)
 
 
-@pytest.mark.parametrize("kind", ["plain", "rope P30", "v1"])
+@pytest.mark.parametrize("kind", EDGE_KINDS)
 @pytest.mark.parametrize("heads", list(EDGE_HEADS))
 def test_tile_edges_match_plain(cuda, heads, kind):
     hq, hkv = EDGE_HEADS[heads]
-    bf = torch.bfloat16
+    kind, dtype = _edge_dtype(kind)
     seg = _segments(EDGE_LENGTHS, 809).to(cuda)
     if kind == "v1":
-        _check_v1(cuda, bf, seg, hq, hkv, seed=11)
+        _check_v1(cuda, dtype, seg, hq, hkv, seed=11)
     elif kind == "rope P30":
-        q, k, v = _inputs(cuda, bf, 809, hq, hkv, seed=11)
+        q, k, v = _inputs(cuda, dtype, 809, hq, hkv, seed=11)
         cos, sin = _rope_tables(cuda, 809, 30, 12)
         dout = torch.randn(809, hq, 64, generator=torch.Generator(device=cuda).manual_seed(13),
-                           device=cuda).to(bf)
-        _check_rope(cuda, bf, q, k, v, seg, cos, sin, dout)
+                           device=cuda).to(dtype)
+        _check_rope(cuda, dtype, q, k, v, seg, cos, sin, dout)
     else:
-        q, k, v = _inputs(cuda, bf, 809, hq, hkv, seed=11)
+        q, k, v = _inputs(cuda, dtype, 809, hq, hkv, seed=11)
         out, lse = fa._fwd(q, k, v, seg)
-        _assert_close(out, lse, *fa.flash_segment_attention_mh_reference(q, k, v, seg), bf)
-        _check_bwd(cuda, bf, seg, hq, hkv)
+        _assert_close(out, lse, *fa.flash_segment_attention_mh_reference(q, k, v, seg), dtype)
+        _check_bwd(cuda, dtype, seg, hq, hkv)
 
 
-@pytest.mark.parametrize("rope", [False, True], ids=["plain", "rope P30"])
+@pytest.mark.parametrize("kind", ["plain", "rope P30", "plain f32", "rope P30 f32"])
 @pytest.mark.parametrize("heads", ["MHA 4/4", "16/4"])
-def test_tile_edges_separate_k_ids_and_tables(cuda, heads, rope):
+def test_tile_edges_separate_k_ids_and_tables(cuda, heads, kind):
     """Sk != S, neither a multiple of 128, k's own ids (and tables)."""
     hq, hkv = EDGE_HEADS[heads]
-    bf = torch.bfloat16
+    kind, dtype = _edge_dtype(kind)
+    rope = kind == "rope P30"
     seg_q = _segments([1, 64, 129, 100], 300).to(cuda)
     seg_k = _segments([63, 65, 128, 130, 1], 461).to(cuda)
-    q, _, _ = _inputs(cuda, bf, 300, hq, hkv, seed=21)
-    _, k, v = _inputs(cuda, bf, 461, hq, hkv, seed=22)
+    q, _, _ = _inputs(cuda, dtype, 300, hq, hkv, seed=21)
+    _, k, v = _inputs(cuda, dtype, 461, hq, hkv, seed=22)
     if rope:
         cos, sin = _rope_tables(cuda, 300, 30, 23)
         k_cos, k_sin = _rope_tables(cuda, 461, 30, 24)
         dout = torch.randn(300, hq, 64, generator=torch.Generator(device=cuda).manual_seed(25),
-                           device=cuda).to(bf)
-        _check_rope(cuda, bf, q, k, v, seg_q, cos, sin, dout, seg_k, k_cos, k_sin)
+                           device=cuda).to(dtype)
+        _check_rope(cuda, dtype, q, k, v, seg_q, cos, sin, dout, seg_k, k_cos, k_sin)
     else:
         out, lse = fa._fwd(q, k, v, seg_q, k_segment_ids=seg_k)
         _assert_close(out, lse, *fa.flash_segment_attention_mh_reference(
-            q, k, v, seg_q, k_segment_ids=seg_k), bf)
-        _check_bwd(cuda, bf, seg_q, hq, hkv, Sk=461, k_seg=seg_k)
+            q, k, v, seg_q, k_segment_ids=seg_k), dtype)
+        _check_bwd(cuda, dtype, seg_q, hq, hkv, Sk=461, k_seg=seg_k)
 
 
-@pytest.mark.parametrize("kind", ["plain", "rope P30", "v1"])
+@pytest.mark.parametrize("kind", EDGE_KINDS)
 @pytest.mark.parametrize("heads", ["4/2", "12/4", "16/4", "8/1"])
 def test_dkv_two_launches_give_identical_bits(cuda, heads, kind):
     """The dk/dv kernel sums its warp groups' partial dk/dv in a fixed order
     (no atomics), and each dq element is one CTA's sum over its kv tiles in
     ascending order: two launches on the same inputs give the same bits (v1:
-    its dq and its dk/dv, which adds the rounded heads in head order)."""
+    its dq and its dk/dv, which adds the rounded heads in head order; f32:
+    the pipelined dk/dv's warp groups, the dq of one CTA per q tile)."""
     hq, hkv = EDGE_HEADS[heads]
-    bf = torch.bfloat16
+    kind, dtype = _edge_dtype(kind)
     seg = _segments([513, 1040, 416, 832, 608], 4096).to(cuda)
-    q, k, v = _inputs(cuda, bf, 4096, hq, hkv, seed=31)
+    q, k, v = _inputs(cuda, dtype, 4096, hq, hkv, seed=31)
     dout = torch.randn(4096, hq, 64, generator=torch.Generator(device=cuda).manual_seed(32),
-                       device=cuda).to(bf)
+                       device=cuda).to(dtype)
     if kind == "v1":
         from titok_tpu_torch.ops import flash_attention as f1
 

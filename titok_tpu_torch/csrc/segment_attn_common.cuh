@@ -1,6 +1,7 @@
 // What the segment-attention kernels share: the pad remap, the interval
-// search over non-decreasing segment ids, the bf16 mma.sync helpers and the
-// RoPE rotation of the kernels' `kRope` instantiations.
+// search over non-decreasing segment ids, the bf16 mma.sync helpers, the f32
+// kernels' swizzled staging and heaviest-first work order, and the RoPE
+// rotation of the kernels' `kRope` instantiations.
 //
 // Included through segment_attn_{fwd,dq,dkv}.cuh by
 // flash_segment_attn_{fwd,bwd,v1}.cu; each builds into its own library, so
@@ -371,6 +372,196 @@ __device__ __forceinline__ void issue_tables(float* cos_s, float* sin_s, int row
             cp_async4(&sin_s[r * PMAX + p + j], rp.sin + t + p + j, true);
           }
       }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The f32 kernels' staging: [rows][64] f32 tiles (and [rows][32] score
+// buffers) whose 16-byte chunks are XOR-swizzled by the row's low 3 bits,
+// filled by cp.async. Eight rows that differ in their low 3 bits give the
+// same logical chunk from 8 distinct 16-byte bank groups, and one row's
+// chunks 0..7 (or 8..15) are a permutation of the 8 groups: both ways of
+// reading a tile by float4 are free of bank conflicts. The kernels address
+// the tiles by 32-bit shared addresses: with each row's base a multiple of
+// 128 bytes whose bits 4-6 are clear, the swizzle is an XOR into bits 4-6.
+// ---------------------------------------------------------------------------
+
+// Offset in floats of logical chunk c (floats 4c..4c+3) of row r of a
+// [rows][D] tile.
+__device__ __forceinline__ int swz(int r, int c) { return r * D + ((c ^ (r & 7)) << 2); }
+
+// The launch shape of a kernel, for the tools that report it: out[0..3] =
+// threads a CTA, dynamic shared memory bytes, registers a thread (from the
+// runtime), CTAs an SM (the occupancy calculator's). Call after the
+// kernel's shared-memory attributes are set.
+template <typename Kernel>
+int describe_kernel(Kernel kern, int threads, int smem, int* out) {
+  cudaFuncAttributes fa{};
+  cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+  int ctas = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kern, threads, smem);
+  out[0] = threads;
+  out[1] = smem;
+  out[2] = fa.numRegs;
+  out[3] = ctas;
+  return static_cast<int>(e);
+}
+
+// Grids of at most this many CTAs start their heaviest tiles first
+constexpr int LPT_MAX_CTAS = 1024;
+
+// The (tile, group) this CTA takes, heaviest tiles first. A tile's cost is
+// the number of tiles whose ids its interval spans, from the first and last
+// id of every tile (one load each, then two searches in shared memory);
+// tiles are ranked by descending cost, ties by index, and CTA k of the grid
+// (x fastest) takes the tile of rank k / gridDim.y and group k %
+// gridDim.y. The block scheduler starts CTAs in that order, so the longest
+// chains start in the first wave and the last wave holds short ones. Grids
+// that fit in one wave (`ctas_per_sm` CTAs on each SM) and grids above
+// LPT_MAX_CTAS keep (blockIdx.x, blockIdx.y): every CTA of the one starts
+// at once, and the other's tiles are many and short against a wave.
+// `scratch` holds 3 * gridDim.x + 1 ints of shared memory. Every thread
+// must call it; it ends with a barrier. The order moves no result: a tile
+// is computed alike wherever it runs.
+__device__ __forceinline__ int2 lpt_item(const int* __restrict__ seg, int n, int rows,
+                                         int ctas_per_sm, int* scratch) {
+  const int nt = gridDim.x, k = blockIdx.y * gridDim.x + blockIdx.x;
+  unsigned nsm;
+  asm("mov.u32 %0, %%nsmid;\n" : "=r"(nsm));
+  const int ctas = nt * gridDim.y;
+  if (ctas > LPT_MAX_CTAS || ctas <= ctas_per_sm * (int)nsm) return make_int2(blockIdx.x, blockIdx.y);
+  int* first = scratch;
+  int* last = scratch + nt;
+  int* cost = scratch + 2 * nt;
+  for (int t = threadIdx.x; t < nt; t += blockDim.x) {
+    first[t] = remap(seg[t * rows]);
+    last[t] = remap(seg[min(t * rows + rows, n) - 1]);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < nt; t += blockDim.x) {
+    // the tiles that hold tile t's segments: from the first whose last id
+    // reaches first[t] to the last whose first id is at most last[t]
+    int lo = 0, hi = t;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (last[mid] < first[t]) lo = mid + 1; else hi = mid;
+    }
+    const int t0 = lo;
+    lo = t, hi = nt - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (first[mid] <= last[t]) lo = mid; else hi = mid - 1;
+    }
+    cost[t] = lo - t0;
+  }
+  __syncthreads();
+  const int want = k / gridDim.y;
+  for (int t = threadIdx.x; t < nt; t += blockDim.x) {
+    const int c = cost[t];
+    int rank = 0;
+    for (int j = 0; j < nt; ++j) rank += cost[j] > c || (cost[j] == c && j < t);
+    if (rank == want) cost[nt] = t;  // the last int of the scratch, read after the barrier
+  }
+  __syncthreads();
+  return make_int2(cost[nt], k % gridDim.y);
+}
+
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0,%1,%2,%3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ float lds32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ int lds32i(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.s32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1,%2,%3,%4};\n" ::"r"(addr), "f"(v.x), "f"(v.y), "f"(v.z),
+               "f"(v.w));
+}
+
+__device__ __forceinline__ void sts32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v));
+}
+
+// Issue the copies of ROWS rows of NH consecutive heads (64 f32 each,
+// columns col0 + h * D) into NH swizzled [ROWS][D] tiles at dst + h * ROWS *
+// D; rows at or past `valid` are zero-filled. Thread `tid` takes the chunks
+// e = tid, tid + NT, ... (row e / 16, chunk e % 16), the chunks
+// `rotate_own_f32` rotates.
+template <int NT, int ROWS, int NH>
+__device__ __forceinline__ void issue_rows_f32(float* dst, const float* src, int row0, int valid,
+                                               int ld, int col0, int tid) {
+#pragma unroll
+  for (int e = tid; e < ROWS * 16; e += NT) {
+    const int r = e >> 4, c = e & 15;
+    const bool ok = row0 + r < valid;
+    const size_t off = ok ? (size_t)(row0 + r) * ld + col0 + c * 4 : col0;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) cp_async16(dst + h * ROWS * D + swz(r, c), src + off + h * D, ok);
+  }
+}
+
+// Rotate in place the chunks this thread copied with `issue_rows_f32` (same
+// loop), each pair by `rot_pair` in fp32: apply_rotary_emb's values bit for
+// bit. In that loop a thread's chunks are column chunk c = tid % 16 (pairs
+// 2c, 2c + 1) of rows tid / 16 + n NT / 16, rows whose low 3 bits, and so
+// the swizzle, are the same. The table entries (rows below `valid`, pairs
+// < P) are read into registers first; `landed()` then waits for the
+// thread's copies, so the two latencies overlap.
+template <int NT, int ROWS, int NH, typename Landed>
+__device__ __forceinline__ void rotate_own_f32(float* dst, int row0, int valid, const Rope& rp,
+                                               int tid, Landed landed) {
+  static_assert(NT % 128 == 0, "a thread's rows must share their low 3 bits");
+  constexpr int RSTEP = NT / 16;                   // rows between a thread's chunks
+  constexpr int CH = (ROWS + RSTEP - 1) / RSTEP;  // chunks a thread, at most
+  const int c = tid & 15, r0 = tid >> 4, p = 2 * c;
+  const bool live = p < rp.P, two = p + 1 < rp.P;
+  float4 tab[CH];  // cos 2c, cos 2c + 1, sin 2c, sin 2c + 1 of row r0 + n RSTEP
+#pragma unroll
+  for (int n = 0; n < CH; ++n) {
+    const int r = r0 + n * RSTEP;
+    tab[n] = make_float4(1.f, 1.f, 0.f, 0.f);
+    if (!live || r >= ROWS || row0 + r >= valid) continue;
+    const int t = (row0 + r) * rp.P + p;
+    if (rp.pairs8 && two) {
+      const float2 cv = *reinterpret_cast<const float2*>(rp.cos + t);
+      const float2 sv = *reinterpret_cast<const float2*>(rp.sin + t);
+      tab[n] = make_float4(cv.x, cv.y, sv.x, sv.y);
+    } else {
+      tab[n].x = rp.cos[t];
+      tab[n].z = rp.sin[t];
+      if (two) {
+        tab[n].y = rp.cos[t + 1];
+        tab[n].w = rp.sin[t + 1];
+      }
+    }
+  }
+  landed();
+  const uint32_t x0 = smem_u32(dst) + r0 * D * 4 + ((c ^ (r0 & 7)) << 4);
+#pragma unroll
+  for (int n = 0; n < CH; ++n) {
+    const int r = r0 + n * RSTEP;
+    if (!live || r >= ROWS || row0 + r >= valid) continue;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const uint32_t xa = x0 + (h * ROWS + n * RSTEP) * D * 4;
+      float4 val = lds128(xa);
+      rot_pair(val.x, val.y, tab[n].x, tab[n].z);
+      if (two) rot_pair(val.z, val.w, tab[n].y, tab[n].w);
+      sts128(xa, val);
     }
   }
 }

@@ -1,7 +1,7 @@
 """A/B of two builds of the segment-attention and VQ kernels at their C entries.
 
     python -m titok_tpu_torch.tools.compare_attn OLD_CSRC NEW_CSRC [VARIANT_CSRC ...] \
-        [--rounds 2] [--reps 100] [--kinds fwd dq ... vq]
+        [--rounds 2] [--reps 100] [--kinds fwd dq ... vq] [--dtype bf16 f32]
 
 OLD_CSRC, NEW_CSRC and any variants (copies of a ``csrc`` with one knob
 changed, named by their directory) are directories that each hold
@@ -15,10 +15,13 @@ into the git-ignored ``.scratch/``::
 Each is built with the flags of ``ops/_build.py``. At three shapes (the
 bench shape: S 6144, ten 576-row segments, heads 4/2; the base_vq serving
 layout, S 4096 with segments 513, 1040, 416, 832, 608, at heads 12/4; the
-large serving layout, the same ids at heads 16/4) it times the bf16 entries
-of every kind in ``KINDS``: the forward, dk/dv and dq entries, plain and
-RoPE, and the v1 forward, dq and dk/dv entries, on fixed buffers (RoPE
-tables of random angles, P 30), in the order OLD, NEW, (variants, variants
+large serving layout, the same ids at heads 16/4) it times the entries of
+every kind in ``KINDS`` in each dtype of ``--dtype`` (default both): the
+forward, dk/dv and dq entries, plain and RoPE, in bf16 and f32 (``f32``
+counts 4-byte elements and the fp32 FMA peak in the bound, as
+``chip_smoke.py`` does), and the v1 forward, dq and dk/dv entries in bf16
+(``F32_KINDS`` lists what f32 times), on fixed buffers (RoPE tables of
+random angles, P 30), in the order OLD, NEW, (variants, variants
 reversed,) NEW, OLD each round, with CUDA events over ``--reps`` launches.
 Each v1 entry is timed as its build's wrapper runs it, and alone: a build
 whose v1 bf16 forward and dq read tile intervals (it lacks
@@ -72,6 +75,10 @@ PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 D, P = 64, 30
 KINDS = ("fwd", "rope_fwd", "dkv", "rope_dkv", "dq", "rope_dq", "v1_fwd", "v1_dq",
          "v1_dkv")
+# the kinds timed in f32 (the v1 f32 entries read tile intervals of their
+# own sizes and write per-head dk/dv: not timed here)
+F32_KINDS = KINDS[:6]
+DTYPES = ("bf16", "f32")
 # the VQ search: base_vq's shape (S 4096), two smaller S, codebook, dim
 VQ_SHAPES = (4096, 3409, 1152)
 VQ_N, VQ_D = 16384, 8
@@ -92,13 +99,15 @@ SHAPES = {"bench 4/2": (_segments([576] * 10, 6144), 4, 2),
           "large 16/4": (_segments(BASE, 4096), 16, 4)}
 
 
-def bound_ms(kind: str, seg: np.ndarray, hq: int, hkv: int) -> tuple[float, str]:
+def bound_ms(kind: str, seg: np.ndarray, hq: int, hkv: int,
+             dtype: str = "bf16") -> tuple[float, str]:
     """The least time of one launch: the products (forward 2, dq 3, dk/dv 4
-    of S x Sk x D over live segments) at the bf16 peak, plus for rope the
-    rotations (6 fp32 FLOP a pair: q and k once each, and the inverse of dq
-    or dk) at the fp32 peak; or the bytes each input read once and each
-    output written once (dk/dv summed over each group, v1's too); the
-    larger, as ``chip_smoke.py`` counts them."""
+    of S x Sk x D over live segments) at the peak of ``dtype`` (bf16 tensor
+    cores, f32 FMA), plus for rope the rotations (6 fp32 FLOP a pair: q and
+    k once each, and the inverse of dq or dk) at the fp32 peak; or the bytes
+    each input read once and each output written once (elements of 2 or 4
+    bytes; dk/dv summed over each group, v1's too); the larger, as
+    ``chip_smoke.py`` counts them."""
     S = len(seg)
     _, counts = np.unique(seg[seg != 0], return_counts=True)
     live = float((counts.astype(np.float64) ** 2).sum())
@@ -106,13 +115,15 @@ def bound_ms(kind: str, seg: np.ndarray, hq: int, hkv: int) -> tuple[float, str]
     base = kind.removeprefix("rope_").removeprefix("v1_")
     flops = 2.0 * {"fwd": 2, "dq": 3, "dkv": 4}[base] * D * hq * live
     rot = 6.0 * P * (S * hq + S * hkv + {"fwd": 0, "dq": S * hq, "dkv": S * hkv}[base])
-    qb, kb = S * hq * D * 2, S * hkv * D * 2
+    e = 2 if dtype == "bf16" else 4
+    qb, kb = S * hq * D * e, S * hkv * D * e
     nbytes = qb + 2 * kb + 2 * S * 4 + (S * P * 8 if rope else 0)
     if base == "fwd":
         nbytes += qb + S * hq * 4
     else:
         nbytes += qb + 2 * S * hq * 4 + (qb if base == "dq" else 2 * kb)
-    t_ops = (flops / PEAK_BF16 + (rot / PEAK_F32 if rope else 0.0)) * 1e3
+    peak = PEAK_BF16 if dtype == "bf16" else PEAK_F32
+    t_ops = (flops / peak + (rot / PEAK_F32 if rope else 0.0)) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -244,7 +255,7 @@ def _ms(fn, args, reps: int) -> float:
 
 
 class Case:
-    """Fixed bf16 inputs of one shape and, per build, the output buffers of
+    """Fixed inputs of one shape in ``dtype`` and, per build, the output buffers of
     every kind; ``args(kind, label)`` is the C entry's argument tuple,
     ``runner(kind, label)`` what a caller of that build runs: the entry,
     for a v1 forward or dq that reads tile intervals the ``tile_minmax``
@@ -252,12 +263,13 @@ class Case:
     it. ``flags`` tells, per build label, what its v1 bf16 entries do
     (``_build_pair``)."""
 
-    def __init__(self, seg_np, hq, hkv, fns_new, flags, seed=1):
+    def __init__(self, seg_np, hq, hkv, fns_new, flags, seed=1, dtype="bf16"):
         dev = torch.device("cuda")
         S = len(seg_np)
         g = torch.Generator(device=dev).manual_seed(seed)
-        bf = torch.bfloat16
+        bf = torch.bfloat16 if dtype == "bf16" else torch.float32
         self.S, self.hq, self.hkv, self.flags = S, hq, hkv, flags
+        self.is_bf16 = int(dtype == "bf16")
         self.q = torch.randn(S, hq, D, generator=g, device=dev).to(bf)
         self.k = torch.randn(S, hkv, D, generator=g, device=dev).to(bf)
         self.v = torch.randn(S, hkv, D, generator=g, device=dev).to(bf)
@@ -291,7 +303,7 @@ class Case:
         return head
 
     def _tail(self):
-        return [self.S, self.S, self.hq, self.hkv, float(D ** -0.5), 1, self.stream]
+        return [self.S, self.S, self.hq, self.hkv, float(D ** -0.5), self.is_bf16, self.stream]
 
     def _fwd_args(self, rope, out, lse):
         return tuple(self._ptrs(rope) + [out.data_ptr(), lse.data_ptr()] + self._tail())
@@ -316,7 +328,7 @@ class Case:
         if kind.startswith("v1_"):  # one id vector, the tile intervals, one length
             return (self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(), self.seg.data_ptr(),
                     self.mm.data_ptr(), self.mm.data_ptr(), 64, 64, *bwd_in, *outs, self.S,
-                    self.hq, self.hkv, float(D ** -0.5), 1, self.stream)
+                    self.hq, self.hkv, float(D ** -0.5), self.is_bf16, self.stream)
         return tuple(self._ptrs(rope) + bwd_in + outs + self._tail())
 
     def runner(self, fns: dict, kind: str, label: str):
@@ -341,11 +353,18 @@ class Case:
 
         return entry_and_group_sums, args
 
+    def _outs(self, kind: str, label: str):
+        return (self.sums.get(label, self.outs[(kind, label)]) if kind == "v1_dkv"
+                else self.outs[(kind, label)])
+
     def max_diff(self, kind: str, label: str) -> float:
         """Largest |difference| between build ``label``'s outputs and OLD's."""
-        got = [self.sums.get(lb, self.outs[(kind, lb)]) if kind == "v1_dkv"
-               else self.outs[(kind, lb)] for lb in ("old", label)]
-        return max((a.float() - b.float()).abs().max().item() for a, b in zip(*got))
+        return max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(self._outs(kind, "old"), self._outs(kind, label)))
+
+    def max_old(self, kind: str) -> float:
+        """Largest |entry| of OLD's outputs, the scale of ``max_diff``."""
+        return max(t.float().abs().max().item() for t in self._outs(kind, "old"))
 
 
 def _label(csrc: str) -> str:
@@ -360,6 +379,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=100)
     ap.add_argument("--kinds", nargs="+", choices=KINDS + ("vq",), default=KINDS + ("vq",))
+    ap.add_argument("--dtype", nargs="+", choices=DTYPES, default=list(DTYPES),
+                    help="the dtypes of the attention kinds (f32: those of F32_KINDS)")
     a = ap.parse_args(argv)
     names = ["old", "new"] + [_label(d) for d in a.new[1:]]
     if len(set(names)) != len(names):
@@ -384,11 +405,13 @@ def main(argv=None) -> int:
     print("v1_*: each build as its wrapper runs it (tile intervals before a forward or dq that "
           "reads them, group sums after a per-head dk/dv), then each entry alone")
     order = list(builds) + list(builds)[::-1]
-    attn_kinds = [k for k in KINDS if k in a.kinds]
-    for sname, (seg_np, hq, hkv) in SHAPES.items():
+    runs = [(sname, dname) for dname in a.dtype for sname in SHAPES]
+    for sname, dname in runs:
+        seg_np, hq, hkv = SHAPES[sname]
+        attn_kinds = [k for k in (KINDS if dname == "bf16" else F32_KINDS) if k in a.kinds]
         if not attn_kinds:
-            break
-        case = Case(seg_np, hq, hkv, fns["new"], flags)
+            continue
+        case = Case(seg_np, hq, hkv, fns["new"], flags, dtype=dname)
         for kind in attn_kinds:
             times = {label: [] for label in builds}
             alone = {label: [] for label in builds}  # the v1 entries alone
@@ -397,7 +420,7 @@ def main(argv=None) -> int:
                     times[label].append(_ms(*case.runner(fns[label], kind, label), a.reps))
                     if kind.startswith("v1_"):
                         alone[label].append(_ms(fns[label][kind], case.args(kind, label), a.reps))
-            bound, by = bound_ms(kind, seg_np, hq, hkv)
+            bound, by = bound_ms(kind, seg_np, hq, hkv, dname)
             mo, medo = float(np.mean(times["old"])), float(np.median(times["old"]))
             medo_alone = float(np.median(alone["old"])) if kind.startswith("v1_") else None
             parts = []
@@ -416,8 +439,9 @@ def main(argv=None) -> int:
                              f"{100 * bound / m:.2f} %, outputs max|{label}-old| "
                              f"{case.max_diff(kind, label):.3e}")
                 parts.append(part)
-            print(f"{sname} {kind}: bound {bound:.5f} ms ({by}), share old "
-                  f"{100 * bound / mo:.2f} %; " + "; ".join(parts))
+            print(f"{sname} {dname} {kind}: bound {bound:.5f} ms ({by}), share old "
+                  f"{100 * bound / mo:.2f} %, max|old| {case.max_old(kind):.3e}; "
+                  + "; ".join(parts))
         del case
         torch.cuda.empty_cache()
     if "vq" in a.kinds:
