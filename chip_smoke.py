@@ -74,8 +74,9 @@ toolkit. Phases, in order; any failure exits non-zero:
    the backward), finite metrics, moved params, peak device memory,
    ms/step and a profile of one step; then the same model in f32 at
    ``train_seq_len`` 2048 with remat on and off from the same weights,
-   batches and noise: losses and grads must agree, and the time of the
-   steps after the first (host clock, ending in a synchronize);
+   batches and noise: losses and grads must agree bit for bit (the loss
+   values that differ are printed), and the time of the steps after the
+   first (host clock, ending in a synchronize);
 12. the three v1 attention kernels (``attn_impl: flash_v1``) against their
    plain versions, bf16 and f32: the bench shape, the base_vq serving
    layout at heads 12/4, 16/4 and 8/1, a ragged packing, the tiny stacked
@@ -83,11 +84,12 @@ toolkit. Phases, in order; any failure exits non-zero:
    packing at 4/4 (one head a group); group-summed dk/dv (bf16: the
    kernel sums each group, each q head rounded first) and, in f32, the
    per-head dk/dv; the forward against the row 1 kernel (bf16: bit for bit
-   where every segment starts at a multiple of 64) and the bf16 dq against
-   the row 2 dq, bit for bit; planted faults (the last overlapping kv tile
-   skipped, dk/dv of one q head of each group, p not rounded before p.v,
-   lse with the wrong scale) that the gates must reject; the four times at
-   the bench shape and the base_vq layout at 12/4;
+   where every segment starts at a multiple of 64) and the dq against the
+   row 2 dq, bit for bit in either dtype; planted faults (the last
+   overlapping kv tile skipped, dk/dv of one q head of each group, p not
+   rounded before p.v, lse with the wrong scale) that the gates must
+   reject; the four times at the bench shape and the base_vq layout at
+   12/4;
 13. the trainer: ``Trainer(cfg).fit()`` of ``configs/tiny_fsq16k.yaml`` at
    full width through the v1 kernels (synthetic data, LPIPS off), 8 steps
    with eval at 4 and 8 and checkpoints every 4: launches per step and in
@@ -98,11 +100,11 @@ toolkit. Phases, in order; any failure exits non-zero:
    stopped by SIGTERM (exit 143, a checkpoint at the step reached) and
    resumed; then f32 at ``train_seq_len`` 2048, 4 steps straight against
    2 + save + resume + 2 (losses, params, the R1/R2 noise generator);
-14. the f32 rows of the kernel table: each f32 entry's time, bound and
-   share of bound at the shapes timed above, with the launch shape the
-   library reports (threads, registers, dynamic shared memory, CTAs an SM)
-   for the pipelined forward and dk/dv, and ptxas's registers and shared
-   memory for the dq;
+14. the f32 rows of the kernel table: each f32 entry of rows 1-4 and the
+   v1 f32 dq, its time, bound and share of bound at the shapes timed
+   above, with the launch shape the library reports (threads, registers,
+   dynamic shared memory, CTAs an SM) for the pipelined forward, dq and
+   dk/dv;
 15. one JSON line listing every kernel with its numbers; ``launches`` is
    the kernel's count on the training path of its dtype (the VQ kernel's:
    the base_vq training path; the rope kernels': the large training path,
@@ -1865,8 +1867,11 @@ def phase_remat_large_f32(card: str) -> dict:
     """configs/large.yaml at full width and depth in f32 (discriminator in
     f32 too) at train_seq_len 2048: the same weights, batches and noise
     through the rope kernels with remat on and off. Losses and the first
-    generator grads must agree within the f32 limits. Prints the time of
-    the steps after the first."""
+    generator grads must agree bit for bit: every kernel and every sum of
+    the step adds in a fixed order (the loss's per-sample means too, which
+    summed by atomics once moved the losses in their last bits). Prints
+    the loss values that differ, and the time of the steps after the
+    first."""
     import torch
 
     from titok_tpu_torch.data.packing import to_device
@@ -1928,11 +1933,15 @@ def phase_remat_large_f32(card: str) -> dict:
     for i in range(len(l0)):
         print(f"  step {i}: remat {l1[i]}")
         print(f"          no remat {l0[i]}")
+    differ = [f"step {i} {key} |d| {abs(l1[i][key] - l0[i][key]):.3e} (of {abs(l0[i][key]):.3e})"
+              for i in range(len(l0)) for key in l0[i] if l1[i][key] != l0[i][key]]
+    print(f"  loss values that differ, remat vs no remat: {'; '.join(differ) or 'none'}")
     print(f"large f32 S=2048 step time after the first step [{card}]: remat "
           f"{times[True]:.3f} ms, no remat {times[False]:.3f} ms (host clock, ending in "
           f"torch.cuda.synchronize())")
     check(lok, "remat and non-remat losses disagree")
     check(gerr <= 1e-4 * gmax, "remat and non-remat grads disagree")
+    check(same, "remat and non-remat losses or grads are not bit-identical")
     return paths
 
 
@@ -1988,8 +1997,8 @@ def _starts_aligned(seg_np, tile=64) -> bool:
 
 def phase_v1_kernels(card: str, train_cfg) -> dict:
     """The three v1 kernels against their plain versions, bf16 and f32;
-    the forward against the row 1 kernel and, in bf16, the dq against the
-    row 2 dq; planted faults; times."""
+    the forward against the row 1 kernel and the dq against the row 2 dq
+    (bit for bit, in either dtype); planted faults; times."""
     import torch
     import torch.nn.functional as F
 
@@ -2025,21 +2034,21 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
         do = torch.randn(S, hq, D, generator=gen, device=dev).to(dtype)
         return q, k, v, do
 
-    def kernels(q, k, v, seg, do, fwd_kmm=None, bwd_kmm=None, lse_scale=1.0):
+    def kernels(q, k, v, seg, do, fwd_kmm=None, dkv_kmm=None, lse_scale=1.0):
         """The three kernels through their C entries' wrappers: (out, lse,
         (dq, dk, dv)), dk/dv summed over each group in bf16 and per q head
-        in f32; ``*_kmm`` replace the f32 kv tile intervals (the bf16
-        kernels read none), ``lse_scale`` scales the lse the forward hands
-        on."""
+        in f32; ``*_kmm`` replace the f32 forward's or dk/dv's kv tile
+        intervals (the dq and the bf16 kernels read none), ``lse_scale``
+        scales the lse the forward hands on."""
         key = "bf16" if q.dtype == torch.bfloat16 else "f32"
         scale = D ** -0.5
         fq, fk = f1._intervals(seg, "fwd", key)
         out, lse = f1.launch_fwd(q, k, v, seg, fq, fk if fwd_kmm is None else fwd_kmm, scale)
         lse = lse * lse_scale
-        bq, bk = f1._intervals(seg, "dq", key)
-        bk = bk if bwd_kmm is None else bwd_kmm
+        bq, bk = f1._intervals(seg, "dkv", key)
+        bk = bk if dkv_kmm is None else dkv_kmm
         delta = fa._delta(out, do)
-        dq = f1.launch_bwd_dq(q, k, v, seg, bq, bk, do, lse, delta, scale)
+        dq = f1.launch_bwd_dq(q, k, v, seg, None, None, do, lse, delta, scale)
         dk, dv = f1.launch_bwd_dkv(q, k, v, seg, bq, bk, do, lse, delta, scale)
         return out, lse, (dq, dk, dv)
 
@@ -2078,15 +2087,14 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             ok_m = bool(((out.float() - m32).abs() <= atol + rtol * m32.abs()).all()) and \
                 (lse - m_lse).abs().max().item() <= lse_atol
             vs_row1 = f"out max|d| {(out.float() - m32).abs().max().item():.3e}"
-            vs_row2 = ""
-            if dname == "bf16":
-                if _starts_aligned(seg_np):
-                    ok_m = ok_m and torch.equal(out, m_out) and torch.equal(lse, m_lse)
-                    vs_row1 += ", bit for bit (segments 64-aligned)"
-                # the v1 bf16 dq is the row 2 dq on one id vector: its bits
-                same_dq = torch.equal(grads[0], fa._bwd(q, k, v, seg, out, lse, do)[0])
-                vs_row2 = f"; dq vs the row 2 dq {'identical' if same_dq else 'DIFFERENT'}"
-                check(same_dq, f"the v1 bf16 dq differs from the row 2 dq: {label}")
+            if dname == "bf16" and _starts_aligned(seg_np):
+                ok_m = ok_m and torch.equal(out, m_out) and torch.equal(lse, m_lse)
+                vs_row1 += ", bit for bit (segments 64-aligned)"
+            # the v1 dq is the row 2 dq on one id vector, in either dtype: its
+            # bits
+            same_dq = torch.equal(grads[0], fa._bwd(q, k, v, seg, out, lse, do)[0])
+            vs_row2 = f"; dq vs the row 2 dq {'identical' if same_dq else 'DIFFERENT'}"
+            check(same_dq, f"the v1 {dname} dq differs from the row 2 dq: {label}")
             per_head = (f"per-head dk/dv {'ok' if ok_h else 'FAIL'} ({_gate_line(rows_h)}); "
                         if rows_h else "")
             print(f"v1 kernels {dname} {label} S={S}: forward {line_f} {'ok' if ok_f else 'FAIL'}; "
@@ -2114,27 +2122,29 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
         r_out, r_lse = f1.flash_segment_attention_reference(q, k, v, seg)
         want = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, do)
         fwd_faults, bwd_faults = {}, {}
+        # the dq (either dtype) and the bf16 forward read no tile intervals:
+        # their fault is made through the ids, as rows 1-2's is, by the row 2
+        # dq and the row 1 forward, whose bits the v1 dq and bf16 forward
+        # give at this layout (gated above); the last kv tile a q tile
+        # overlaps is its segment's last 64 rows
+        q_ids, k_ids = _last_kv_tile_skipped(seg)
+        skip_dq = fa._bwd(q, k, v, q_ids, out, lse, do, k_segment_ids=k_ids)[0]
         if dname == "bf16":
-            # the bf16 kernels read no tile intervals: the fault is made
-            # through the ids, as rows 1-2's is, by the row 1 forward and the
-            # row 2 dq, whose bits the v1 forward and dq give at this layout
-            # (gated above); the last kv tile a q tile overlaps is its
-            # segment's last 64 rows. The dk/dv is v1's own (it never read
-            # the intervals)
-            q_ids, k_ids = _last_kv_tile_skipped(seg)
+            # the dk/dv is v1's own (it never read the intervals)
             fwd_faults["the last overlapping kv tile skipped"] = fa._fwd(
                 q, k, v, q_ids, k_segment_ids=k_ids)
-            skip_dq = fa._bwd(q, k, v, q_ids, out, lse, do, k_segment_ids=k_ids)[0]
             bwd_faults["the last overlapping kv/q tile skipped"] = (
                 skip_dq, *summed(grads, hkv)[1:])
         else:
+            # the f32 forward and dk/dv read tile intervals: theirs is made
+            # through those
             fq, fk = f1._intervals(seg, "fwd", dname)
-            bq, bk = f1._intervals(seg, "dq", dname)
+            bq, bk = f1._intervals(seg, "dkv", dname)
             skip_f, skip_b = _skip_last_tiles(fq, fk), _skip_last_tiles(bq, bk)
             fwd_faults["the last overlapping kv tile skipped"] = kernels(
                 q, k, v, seg, do, fwd_kmm=skip_f)[:2]
-            bwd_faults["the last overlapping kv/q tile skipped"] = summed(
-                kernels(q, k, v, seg, do, bwd_kmm=skip_b)[2], hkv)
+            bwd_faults["the last overlapping kv/q tile skipped"] = (
+                skip_dq, *summed(kernels(q, k, v, seg, do, dkv_kmm=skip_b)[2], hkv)[1:])
         # the kernel itself with dO, and so delta, zero on every q head but
         # the first of each group: its dk/dv are then that head's alone
         keep = (torch.arange(hq, device=dev) % (hq // hkv) == 0).to(dtype)
@@ -2171,12 +2181,13 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             seg = torch.from_numpy(seg_np).to(dev)
             out, lse = f1._fwd(q, k, v, seg)
             delta = fa._delta(out, do)
-            # the C entries' interval arguments: f32 its tiles' intervals,
-            # bf16 none (the kernels search the ids)
-            mm = {kind: f1._intervals(seg, kind, dname) for kind in ("fwd", "dq")}
-            ivals = {kind: (None, None, 0, 0) if dname == "bf16" else
-                     (mm[kind][0].data_ptr(), mm[kind][1].data_ptr(), *f1.TILES[kind])
-                     for kind in mm}
+            # the C entries' interval arguments: the f32 forward's and dk/dv's
+            # their tiles' intervals, the dq's and bf16's none (the kernels
+            # search the ids)
+            mm = {kind: f1._intervals(seg, kind, dname) for kind in ("fwd", "dq", "dkv")}
+            ivals = {kind: (None, None, 0, 0) if m[0] is None else
+                     (m[0].data_ptr(), m[1].data_ptr(), *f1.TILES[kind])
+                     for kind, m in mm.items()}
             o2, l2 = torch.empty_like(q), torch.empty_like(lse)
             # dk/dv: bf16 summed over each group, f32 per q head
             dq = torch.empty_like(q)
@@ -2189,7 +2200,7 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
                                                 l2.data_ptr(), *tail), reps=100),
                   "dq": cuda_ms(lambda: dq_fn(*head, *ivals["dq"], *bwd_in, dq.data_ptr(),
                                               *tail), reps=100),
-                  "dkv": cuda_ms(lambda: dkv_fn(*head, *ivals["dq"], *bwd_in, dk_h.data_ptr(),
+                  "dkv": cuda_ms(lambda: dkv_fn(*head, *ivals["dkv"], *bwd_in, dk_h.data_ptr(),
                                                 dv_h.data_ptr(), *tail), reps=100)}
             check(torch.equal(o2, out), "the timed forward launches changed their output")
             wrap_fwd = cuda_ms(lambda: f1._fwd(q, k, v, seg), reps=100)
@@ -2575,9 +2586,10 @@ def phase_resume_f32(card: str) -> dict:
 
 def f32_launch_shape(kind: str, hq: int, hkv: int, rope: bool) -> dict:
     """The launch shape the library reports for the pipelined f32 forward
-    (``kind`` "fwd") or dk/dv ("dkv") at hq / hkv heads: threads,
-    dynamic shared memory, registers, CTAs an SM, heads (or warp groups) a
-    CTA, rows a thread, kv rows a tile, K/V buffers or ring stages."""
+    (``kind`` "fwd"), dq ("dq") or dk/dv ("dkv") at hq / hkv heads:
+    threads, dynamic shared memory, registers, CTAs an SM, heads (or warp
+    groups) a CTA, rows a thread, kv rows a tile, and the K/V buffers (fwd),
+    kv column passes a tile (dq) or ring stages (dkv) as "stages"."""
     from titok_tpu_torch.ops import _build
 
     lib = _build.load("flash_segment_attn_fwd" if kind == "fwd" else "flash_segment_attn_bwd")
@@ -2592,20 +2604,11 @@ def f32_launch_shape(kind: str, hq: int, hkv: int, rope: bool) -> dict:
     return dict(zip(keys, list(out)))
 
 
-def print_f32_table(card: str, kres: dict, bres: dict, rres: dict) -> None:
+def print_f32_table(card: str, kres: dict, bres: dict, rres: dict, v1res: dict) -> None:
     """The f32 rows of the kernel table (PERF.md §6): each f32 entry of rows
-    1-4 at the shapes timed above, its time, bound and share of bound, and
-    its launch shape (the dq: ptxas's registers and static shared memory,
-    256 threads a CTA)."""
-    from titok_tpu_torch.ops import _build
-
-    ptxas = _build.build_info["flash_segment_attn_bwd"]["ptxas"]
-    dq_shape = {}
-    for rope, tag in ((False, "ILb0E"), (True, "ILb1E")):
-        m = re.search(r"bwd_dq_f32" + tag + r"[^\n]*\n(?:[^\n]*\n)*?[^\n]*Used (\d+) registers"
-                      r"[^\n]*?(\d+) bytes smem", ptxas)
-        dq_shape[rope] = (f"256 threads, {m.group(1)} registers, {m.group(2)} B static shared "
-                          f"memory" if m else "registers not found")
+    1-4 at the shapes timed above, and the v1 f32 dq (the row 2 dq on one
+    id vector), its time, bound and share of bound, and its launch shape as
+    the library reports it."""
     rows = [("flash_segment_attn_fwd_f32", "fwd", False, kres["f32"], "bench 4/2", (4, 2)),
             ("flash_segment_attn_fwd_f32", "fwd", False, kres["f32"]["at_base_12_4"],
              "base_vq 12/4", (12, 4)),
@@ -2619,16 +2622,19 @@ def print_f32_table(card: str, kres: dict, bres: dict, rres: dict) -> None:
         name = f"flash_segment_attn_rope_{'fwd' if k == 'fwd' else 'bwd_' + k}_f32"
         rows.append((name, k, True, rres[f"{k}_f32"], "large 16/4", (16, 4)))
         rows.append((name, k, True, rres[f"{k}_f32"]["at_bench_4_2"], "bench 4/2", (4, 2)))
+    rows += [("flash_segment_attn_v1_bwd_dq_f32", "dq", False, v1res["dq_f32"], "bench 4/2",
+              (4, 2)),
+             ("flash_segment_attn_v1_bwd_dq_f32", "dq", False, v1res["dq_f32"]["at_base_12_4"],
+              "base_vq 12/4", (12, 4))]
     for name, kind, rope, r, layout, (hq, hkv) in rows:
-        if kind == "dq":
-            shape = dq_shape[rope]
-        else:
-            sh = f32_launch_shape(kind, hq, hkv, rope)
-            unit = "heads" if kind == "fwd" else "warp groups"
-            shape = (f"{sh['threads']} threads, {sh['registers']} registers, "
-                     f"{sh['smem_bytes']} B dynamic shared memory, {sh['ctas_per_sm']} CTAs an SM, "
-                     f"{sh['heads']} {unit} a CTA, {sh['rows_a_thread']} rows a thread, "
-                     f"{sh['kv_rows']}-row kv tiles, {sh['stages']} stage(s)")
+        sh = f32_launch_shape(kind, hq, hkv, rope)
+        unit = {"fwd": "heads", "dq": "heads", "dkv": "warp groups"}[kind]
+        last = {"fwd": "K/V buffer(s) each", "dq": "kv column pass(es) a tile",
+                "dkv": "ring stage(s)"}[kind]
+        shape = (f"{sh['threads']} threads, {sh['registers']} registers, "
+                 f"{sh['smem_bytes']} B dynamic shared memory, {sh['ctas_per_sm']} CTAs an SM, "
+                 f"{sh['heads']} {unit} a CTA, {sh['rows_a_thread']} rows a thread, "
+                 f"{sh['kv_rows']}-row kv tiles, {sh['stages']} {last}")
         print(f"f32 kernel table row {name} {layout} [{card}]: {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), share of bound "
               f"{100 * r['bound_ms'] / r['ms']:.1f} %; {shape}")
@@ -2671,7 +2677,7 @@ def main() -> int:
         paths.update(phase_trainer(card))
         phase_trainer_cli(card)
         paths.update(phase_resume_f32(card))
-        print_f32_table(card, kres, bres, rres)
+        print_f32_table(card, kres, bres, rres, v1res)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

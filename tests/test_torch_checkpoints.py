@@ -12,6 +12,7 @@ codebook travelling with the encoder; and resume on the CPU, bit for bit:
 import itertools
 import json
 import os
+import shutil
 import signal
 import threading
 import time
@@ -27,6 +28,18 @@ from titok_tpu_torch.models.titok import make_titok
 from titok_tpu_torch.train_utils.checkpoints import CheckpointManager, restore_weights_only
 from titok_tpu_torch.training.train_step import TrainStepBuilder
 from titok_tpu_torch.training.trainer import Trainer, synthetic_batches
+
+
+def _leave_nothing(tmp_path):
+    """Remove what a passing test wrote under ``tmp_path``: pytest keeps the
+    basetemps of the last three runs, and the checkpoints these tests write
+    (150-350 MB each) helped fill the disk in whole runs of the suite. A test
+    that fails before this keeps its files."""
+    for p in tmp_path.iterdir():
+        if p.is_dir():
+            shutil.rmtree(p)
+        else:
+            p.unlink()
 
 
 @pytest.fixture(autouse=True)
@@ -93,6 +106,7 @@ def test_periodic_policy_resave_and_keep_prior(tmp_path):
         keep_all.save(s, state)
     assert keep_all.all_steps() == [0, 1, 2, 3]
     assert not [n for n in os.listdir(ckpt.directory) if "tmp" in n]
+    _leave_nothing(tmp_path)
 
 
 def test_host_snapshot_newer_wins(tmp_path):
@@ -230,6 +244,7 @@ def test_resume_is_bit_exact(tmp_path):
         sa, sb = a.state_dict()["state"], b.state_dict()["state"]
         assert all(_same(sa[i], sb[i]) for i in sb)
     assert torch.equal(resumed.noise_gen.get_state(), straight.noise_gen.get_state())
+    _leave_nothing(tmp_path)
 
 
 def test_sigterm_saves_at_the_step_boundary_and_exits_143(tmp_path):

@@ -222,6 +222,40 @@ def test_bf16_cpu_path_is_the_plain_version_and_launches_nothing(rng, monkeypatc
         assert torch.equal(a, b)
 
 
+def test_f32_bwd_cpu_path_is_the_plain_version_and_launches_nothing(rng, monkeypatch):
+    """f32 CPU tensors through ``_bwd``, the backward autograd runs, take
+    the plain version, bit for bit: no kernel is built or launched and no
+    tile intervals are computed."""
+    def unreachable(*a, **k):
+        raise AssertionError("the CPU path reached a kernel or its tile intervals")
+
+    monkeypatch.setattr(f1, "_kernels", unreachable)
+    monkeypatch.setattr(f1, "tile_minmax", unreachable)
+    q, k, v, seg = (torch.from_numpy(x) for x in _inputs(rng, *CASES["S300 4/2 ragged pad"]))
+    do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    out, lse = f1.flash_segment_attention_reference(q, k, v, seg)
+    before = dict(fa.launches)
+    got = f1._bwd(q, k, v, seg, out, lse, do)
+    assert fa.launches == before
+    want = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, do)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
+def test_dq_reads_no_tile_intervals():
+    """The dq kernel searches the ids in either dtype, as the bf16 kernels
+    do: it gets no tile intervals; the f32 forward and dk/dv get theirs."""
+    seg = torch.tensor([1] * 40 + [2] * 50 + [0] * 10, dtype=torch.int32)
+    assert "dq" not in f1.TILES
+    for key in ("f32", "bf16"):
+        assert f1._intervals(seg, "dq", key) == (None, None)
+    assert f1._intervals(seg, "dkv", "bf16") == (None, None)
+    qmm, kmm = f1._intervals(seg, "dkv", "f32")
+    assert qmm.shape == kmm.shape == (4, 2) and torch.equal(qmm, f1.tile_minmax(seg, 32))
+    qmm, kmm = f1._intervals(seg, "fwd", "f32")
+    assert qmm.shape == (2, 2) and kmm.shape == (4, 2)
+
+
 def test_tile_minmax_pads_the_last_tile():
     seg = torch.tensor([1, 1, 2, 2, 2, 0, 0], dtype=torch.int32)
     got = f1.tile_minmax(seg, 4)

@@ -683,6 +683,82 @@ def test_dkv_two_launches_give_identical_bits(cuda, heads, kind):
         assert torch.equal(a, b), name
 
 
+# The f32 dq template (`bwd_dq_f32_pipe`: the dq of rows 2 and 4 and the v1
+# f32 dq): every head split it takes (4 q heads a CTA at 16/4 and 8/1, 8
+# rows a thread; 3 at 12/4; one at 4/2 and 1/1, each kv tile in two passes
+# of 32 columns), ragged S with pad rows, plain and rope with P 30, 16
+# (pairs passed through) and 7 (odd P), and k's own ids (Sk != S). The
+# backward is gated whole (dq, dk, dv) under the f32 limits (BWD_TOL).
+F32_DQ_HEADS = {"16/4": (16, 4), "12/4": (12, 4), "4/2": (4, 2), "8/1": (8, 1), "1/1": (1, 1)}
+F32_DQ_KINDS = {"plain": None, "rope P30": 30, "rope P16": 16, "rope P7": 7}
+
+
+def _check_f32(dev, kind, seg, hq, hkv, seed, Sk=None, k_seg=None):
+    """The f32 backward of ``kind`` (from the kernel forward's out and lse)
+    against its plain version, one launch of each kernel."""
+    P = F32_DQ_KINDS[kind]
+    if P is None:
+        _check_bwd(dev, torch.float32, seg, hq, hkv, Sk=Sk, k_seg=k_seg)
+        return
+    S = seg.shape[0]
+    q, _, _ = _inputs(dev, torch.float32, S, hq, hkv, seed=seed)
+    _, k, v = _inputs(dev, torch.float32, S if Sk is None else Sk, hq, hkv, seed=seed + 1)
+    cos, sin = _rope_tables(dev, S, P, seed + 2)
+    k_cos, k_sin = (None, None) if Sk is None else _rope_tables(dev, Sk, P, seed + 3)
+    dout = torch.randn(S, hq, 64, generator=torch.Generator(device=dev).manual_seed(seed + 4),
+                       device=dev)
+    _check_rope(dev, torch.float32, q, k, v, seg, cos, sin, dout, k_seg, k_cos, k_sin)
+
+
+@pytest.mark.parametrize("kind", list(F32_DQ_KINDS))
+@pytest.mark.parametrize("heads", list(F32_DQ_HEADS))
+def test_f32_dq_matches_plain(cuda, heads, kind):
+    hq, hkv = F32_DQ_HEADS[heads]
+    seg = _segments([1, 2, 63, 64, 65, 127, 300, 5, 129], 821).to(cuda)  # 756 rows, then pad
+    _check_f32(cuda, kind, seg, hq, hkv, seed=51)
+
+
+@pytest.mark.parametrize("kind", ["plain", "rope P30"])
+@pytest.mark.parametrize("heads", list(F32_DQ_HEADS))
+def test_f32_dq_separate_k_ids(cuda, heads, kind):
+    hq, hkv = F32_DQ_HEADS[heads]
+    seg_q = _segments([1, 64, 129, 100], 300).to(cuda)
+    seg_k = _segments([63, 65, 128, 130, 1], 461).to(cuda)
+    _check_f32(cuda, kind, seg_q, hq, hkv, seed=61, Sk=461, k_seg=seg_k)
+
+
+@pytest.mark.parametrize("kind", ["plain", "rope P30"])
+def test_f32_dq_same_bits_across_launches_and_head_splits(cuda, kind):
+    """Each f32 dq element is one fmaf chain over its q tile's kv rows in
+    ascending order, the q tile 64 rows whatever the split: two launches
+    give the same bits, and a (row, head) gets the same bits whatever head
+    split its group size picks (16/4: 4 heads a CTA, 8 rows a thread; 3/1:
+    3 heads, 4 rows; 2/1 and 1/1: one head, two passes of 32 kv columns).
+    The smaller groups are q heads 0.. of kv head 0, with the 16/4
+    forward's out and lse."""
+    S = 4096
+    seg = _segments([513, 1040, 416, 832, 608], S).to(cuda)
+    q, k, v = _inputs(cuda, torch.float32, S, 16, 4, seed=71)
+    dout = torch.randn(S, 16, 64, generator=torch.Generator(device=cuda).manual_seed(72),
+                       device=cuda)
+    tabs = _rope_tables(cuda, S, 30, 73) if kind == "rope P30" else None
+    out, lse = fa._fwd(q, k, v, seg) if tabs is None else fa._rope_fwd(q, k, v, seg, *tabs)
+
+    def dq_at(hq, hkv):
+        qh, oh, dh = (x[:, :hq].contiguous() for x in (q, out, dout))
+        kh, vh = (x[:, :hkv].contiguous() for x in (k, v))
+        lh = lse[:, :hq].contiguous()
+        if tabs is None:
+            return fa._bwd(qh, kh, vh, seg, oh, lh, dh)[0]
+        return fa._rope_bwd(qh, kh, vh, seg, *tabs, oh, lh, dh)[0]
+
+    full = [dq_at(16, 4) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(full[0], full[1])
+    for hq in (3, 2, 1):
+        assert torch.equal(dq_at(hq, 1), full[0][:, :hq]), hq
+
+
 def test_flash_rope_remat_train_step_launches(cuda):
     """One GAN step of a small tiny model with attn_impl flash_rope and
     remat on: the rope kernels only, each dq and dk/dv kernel once per
@@ -789,15 +865,36 @@ def test_v1_bf16_dq_is_the_row2_dq_and_forward_row1_where_aligned(cuda, case):
                        fa._bwd(q, k, v, seg, out, lse, dout)[0])
 
 
+@pytest.mark.parametrize("case", list(V1_ALIGNED) + ["ragged 1..1892, pad", "mid-tile 4/4"])
+def test_v1_f32_dq_is_the_row2_dq(cuda, case):
+    """The v1 f32 dq is the row 2 f32 dq on one id vector: the same bits."""
+    from titok_tpu_torch.ops import flash_attention as f1
+
+    lengths, S, hq, hkv = V1_ALIGNED[case] if case in V1_ALIGNED else V1_CASES[case]
+    seg = _segments(lengths, S).to(cuda)
+    q, k, v = _inputs(cuda, torch.float32, S, hq, hkv, seed=45)
+    dout = torch.randn(S, hq, 64, generator=torch.Generator(device=cuda).manual_seed(46),
+                       device=cuda)
+    out, lse = f1._fwd(q, k, v, seg)
+    before = (fa.launches["v1_bwd_dq_f32"], fa.launches["bwd_dq_f32"])
+    got = f1._bwd(q, k, v, seg, out, lse, dout)[0]
+    want = fa._bwd(q, k, v, seg, out, lse, dout)[0]
+    torch.cuda.synchronize()
+    assert (fa.launches["v1_bwd_dq_f32"], fa.launches["bwd_dq_f32"]) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)
+
+
 def test_v1_bf16_wrappers_compute_no_tile_intervals(cuda, monkeypatch):
     """The bf16 v1 kernels search the ids: the forward and the backward
     (through autograd, as the model calls them) run with ``tile_minmax``
-    made to raise, and an entry given tile intervals refuses them; f32
-    still computes and reads them."""
+    made to raise, and an entry given tile intervals refuses them. In f32
+    the dq searches the ids too (and refuses intervals); the forward and
+    dk/dv still compute and read them."""
     from titok_tpu_torch.ops import flash_attention as f1
 
     def no_intervals(*a, **k):
-        raise AssertionError("tile_minmax ran on the bf16 path")
+        raise AssertionError("tile_minmax ran")
 
     monkeypatch.setattr(f1, "tile_minmax", no_intervals)
     seg = _segments([100, 200, 28], 400).to(cuda)
@@ -812,8 +909,20 @@ def test_v1_bf16_wrappers_compute_no_tile_intervals(cuda, monkeypatch):
     mm = torch.zeros((7, 2), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="read no tile intervals"):
         f1.launch_fwd(q.detach(), k.detach(), v.detach(), seg, mm, mm, 0.125)
-    with pytest.raises(AssertionError, match="bf16 path"):  # f32 computes them
-        f1._fwd(q.detach().float(), k.detach().float(), v.detach().float(), seg)
+    qf, kf, vf = (x.detach().float() for x in (q, k, v))
+    out, lse = fa._fwd(qf, kf, vf, seg)
+    dout = torch.randn_like(qf)
+    delta = fa._delta(out, dout)
+    fa.reset_launches()
+    dq = f1.launch_bwd_dq(qf, kf, vf, seg, None, None, dout, lse, delta, 0.125)
+    torch.cuda.synchronize()
+    assert fa.launches["v1_bwd_dq_f32"] == 1 and bool(torch.isfinite(dq).all())
+    with pytest.raises(ValueError, match="read no tile intervals"):
+        f1.launch_bwd_dq(qf, kf, vf, seg, mm, mm, dout, lse, delta, 0.125)
+    with pytest.raises(AssertionError, match="tile_minmax ran"):  # the f32 forward computes them
+        f1._fwd(qf, kf, vf, seg)
+    with pytest.raises(AssertionError, match="tile_minmax ran"):  # so does the f32 dk/dv
+        f1._bwd(qf, kf, vf, seg, out, lse, dout)
 
 
 def test_flash_v1_train_step_launches(cuda):
@@ -875,3 +984,26 @@ def test_trainer_fit_on_the_card(cuda, tmp_path):
     assert [r["step"] for r in evals] == [1, 2] and all("eval/ssim" in r for r in evals)
     assert all(np.isfinite(v) for r in rows for v in r.values())
     assert CheckpointManager(str(tmp_path)).latest_step() == 2
+
+
+def test_per_sample_mean_same_bits_twice(cuda):
+    """The loss's per-sample means over a buffer the size of the large
+    stacked discriminator pass (33,008 rows: 4 copies of 8,252): two calls
+    on the same inputs give the same bits (each segment's sum adds in a
+    fixed order), within float32 rounding of a float64 sum."""
+    from titok_tpu_torch.losses.loss_module import _per_sample_mean
+
+    seg = _stacked_ids(8252, [500] * 16, 4).to(cuda)
+    n = int(seg.max()) + 1
+    g = torch.Generator(device=cuda).manual_seed(81)
+    vals = torch.randn(seg.shape[0], generator=g, device=cuda) * 100 + 10
+    mask = torch.rand(seg.shape[0], generator=g, device=cuda) < 0.9
+    a = _per_sample_mean(vals, seg, mask, n)
+    b = _per_sample_mean(vals, seg, mask, n)
+    torch.cuda.synchronize()
+    assert seg.shape[0] == 33008 and a.shape == (n - 1,) and torch.equal(a, b)
+    w = mask.double()
+    zeros = torch.zeros(n, dtype=torch.float64, device=cuda)
+    sums = zeros.index_add(0, seg.long(), vals.double() * w)
+    cnts = zeros.index_add(0, seg.long(), w)
+    torch.testing.assert_close(a.double(), (sums / cnts.clamp(min=1.0))[1:], rtol=1e-5, atol=1e-5)

@@ -14,6 +14,7 @@ but the timings (``perf/*``) agrees within 1e-4 relative."""
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -39,6 +40,18 @@ from titok_tpu_torch.train_utils.checkpoints import CheckpointManager  # noqa: E
 from titok_tpu_torch.training.train_step import TrainStepBuilder  # noqa: E402
 from titok_tpu_torch.training.trainer import Trainer, synthetic_batches  # noqa: E402
 from titok_tpu_torch.weights import from_flax_train_state  # noqa: E402
+
+
+def _leave_nothing(tmp_path):
+    """Remove what a passing test wrote under ``tmp_path``: pytest keeps the
+    basetemps of the last three runs, and the checkpoints these tests write
+    (150-350 MB each) helped fill the disk in whole runs of the suite. A test
+    that fails before this keeps its files."""
+    for p in tmp_path.iterdir():
+        if p.is_dir():
+            shutil.rmtree(p)
+        else:
+            p.unlink()
 
 
 @pytest.fixture(autouse=True)
@@ -98,6 +111,7 @@ def test_fit_matches_jax(tmp_path):
     assert keys > 4 * 5
     assert os.path.exists(tmp_path / "port" / "config.yaml")
     assert CheckpointManager(str(tmp_path / "port")).latest_step() == 4
+    _leave_nothing(tmp_path)
 
 
 def test_eval_stream_matches_jax():
@@ -172,6 +186,7 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
     rows = _rows(tmp_path / "run")
     assert [r["step"] for r in rows if "train/gen/total_loss" in r] == [0, 1, 2]
     assert CheckpointManager(str(tmp_path / "run")).all_steps() == [2, 3]
+    _leave_nothing(tmp_path)
 
 
 @pytest.mark.parametrize("over", ["training.main.train_devices=2", "training.main.cp_devices=2",

@@ -81,8 +81,8 @@
 //     No atomics: two launches give the same bits.
 // - bf16 on mma.sync m16n8k16 (bf16 in, fp32 accumulate). f32 on fp32 FMA
 //   (no TF32: the f32 path must hold tight tolerances against the plain
-//   version): the dq keeps its first design (32-row tiles, 256 threads), the
-//   dk/dv is `bwd_dkv_f32_pipe` (below).
+//   version): the dq is `bwd_dq_f32_pipe` (segment_attn_dq.cuh, shared with
+//   the v1 f32 dq), the dk/dv `bwd_dkv_f32_pipe`; both below.
 // Not yet: an asynchronous wgmma pipeline and TMA (a synchronous wgmma
 // dk/dv was no faster: PERF.md).
 //
@@ -100,8 +100,49 @@
 // accumulators get the inverse rotation (sin negated) before their one
 // rounding to the output dtype. dv is unrotated. In the bf16 kernels a
 // thread's m16n8 accumulator fragment holds both columns of a pair, as a
-// lane's float4 of dK does in the f32 dk/dv; in the f32 dq the pair is split
-// over lanes tx and tx ^ 1 and meets by a shuffle.
+// lane's float4s of dQ and dK do in the f32 dq and dk/dv.
+//
+// f32 dq (`bwd_dq_f32_pipe<kRope, HPC, RT, NP, MINB>`): IEEE fp32 FMA, no
+// TF32 and no tensor cores, expf. What bounds it: the three products (S,
+// dP, dQ) at the 67 TFLOP/s FMA peak (large 16/4: 15.9 GFLOP of live work,
+// 0.237 ms). As in the forward, every FFMA takes an operand from shared
+// memory; wavefronts per FFMA of each product loop, warp-wide:
+// - S = Q K^T and dP = dO V^T (RT q rows x 64 / NP kv columns a lane), a
+//   step of 4 d: RT float4 of Q (or dO) and 8 / NP of K (or V): 1/4 at RT
+//   8, 3/8 at RT 4, 1/2 at RT 4 in two passes;
+// - dQ += dS K (RT q rows x 8 d columns), a step of 4 kv rows: RT float4 of
+//   dS and 8 of K: 1/4 at RT 8, 3/8 at RT 4;
+// - the previous kernel: 8 scalar loads per 8 FFMA in S and dP, 6 per 8 in
+//   dQ (rows padded to 65 floats): 1, 3/4.
+// What the design does:
+// - One CTA per (64-row q tile, HPC q heads of one GQA group); Q and dO of
+//   its heads staged once by 16-byte cp.async into XOR-swizzled tiles, their
+//   lse and delta by 4-byte copies beside them (held in registers, they made
+//   the RoPE instantiation at HPC 1 spill). The group's heads share each
+//   staged K and V tile; K and V have one buffer each with `full` and
+//   `free` mbarriers, as in the forward. A tile takes dP first (V), then S
+//   and dQ (K): V(t + 1) goes in once every warp is past dP(t) and lands
+//   during dQ(t); K(t + 1) goes in once every warp is past dQ(t) and lands
+//   during dP(t + 1). The tile ids are double-buffered, so K(t + 1)'s copy
+//   never writes the ids tile t reads.
+// - Lane (a, b) holds RT q rows (a + 4 i) x 8 / NP kv columns (b + 8 j) of
+//   dP, then S, and the same rows x 8 d columns of dQ. dP, then dS, go
+//   through a 4-byte-a-lane buffer of the warp's own rows (dP read back by
+//   its writer for dS), so only warp barriers sit between the products.
+//   Accumulators: 128 at RT 8 (S or dP 64, dQ 64), not the 192 of S, dP
+//   and dQ held at once.
+// - Each dq element is one fmaf chain over the q tile's kv rows in
+//   ascending order, no atomics: two launches give the same bits, and so
+//   does every HPC, RT and NP (the q tile is 64 rows for all).
+// - Choices by group size: HPC 4 where 4 divide the group (RT 8, 256
+//   threads, one CTA an SM, 232,192 B); 3 where 3 do (RT 4, 384 threads);
+//   else 1 (RT 4, 128 threads, each kv tile in NP = 2 passes of 32 columns,
+//   unrolled: half the dP / dS buffer, 75,008 B, three CTAs an SM, so at 4/2
+//   its 384 CTAs run in one wave).
+// - Heaviest q tiles first (`lpt_item`), as the forward.
+// - RoPE: Q rotated once per CTA for all HPC heads, each K tile once per CTA
+//   after its copy lands; dQ inverse-rotated in the lane, which holds both
+//   columns of each pair (4 b.., 32 + 4 b..), before its one write.
 //
 // f32 dk/dv (`bwd_dkv_f32_pipe<kRope, NG, RT, STAGES, MINB, KV>`): IEEE fp32
 // FMA, no TF32 and no tensor cores, expf. What bounds it: the four products
@@ -148,134 +189,6 @@
 #include "segment_attn_dq.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// f32 dq: fp32 FMA. 32-row tiles, 256 threads: thread (ty, tx) owns tile rows
-// ty + 16 i (i < 2), score columns tx + 16 j (j < 2) and output columns
-// tx + 16 j (j < 4). Padded strides keep each half-warp's column walks on
-// distinct banks; a row's 16 owners read the same address (broadcast).
-// ---------------------------------------------------------------------------
-
-constexpr int BF = 32;
-
-__device__ __forceinline__ void load_tile_f32(float (*dst)[D + 1], const float* src, int row0,
-                                              int valid, int ld, int col0) {
-  for (int e = threadIdx.x; e < BF * D; e += blockDim.x) {
-    const int r = e / D, c = e % D;
-    dst[r][c] = (row0 + r < valid) ? src[(size_t)(row0 + r) * ld + col0 + c] : 0.f;
-  }
-}
-
-template <bool kRope>
-__global__ void __launch_bounds__(256)
-bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const int* __restrict__ seg_q,
-           const int* __restrict__ seg_k, const float* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           float* __restrict__ dq, int S, int Sk, int hq, int hkv, float scale,
-           Rope rq, Rope rk) {
-  __shared__ float q_s[BF][D + 1];
-  __shared__ float do_s[BF][D + 1];
-  __shared__ float k_s[BF][D + 1];
-  __shared__ float v_s[BF][D + 1];
-  __shared__ float ds_s[BF][BF + 1];
-  __shared__ int segq_s[BF];
-  __shared__ int segk_s[BF];
-  __shared__ int range_s[2];
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BF;
-  const int q1 = min(q0 + BF, S);
-  const int h = blockIdx.y;
-  const int hk = h / (hq / hkv);
-  const int ldq = hq * D, ldk = hkv * D;
-
-  if (tid == 0) segment_interval(seg_q, seg_k, q0, q1, Sk, &range_s[0], &range_s[1]);
-  if constexpr (kRope) {
-    load_rot_tile_f32<BF>(q_s, q, q0, S, ldq, h * D, rq);
-  } else {
-    load_tile_f32(q_s, q, q0, S, ldq, h * D);
-  }
-  load_tile_f32(do_s, dout, q0, S, ldq, h * D);
-  if (tid < BF) segq_s[tid] = (q0 + tid < S) ? remap(seg_q[q0 + tid]) : NO_ROW_Q;
-  __syncthreads();
-
-  int sq[2];
-  float ls[2], dl[2], acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + ty + 16 * i;
-    sq[i] = segq_s[ty + 16 * i];
-    ls[i] = row < S ? lse[(size_t)row * hq + h] : 0.f;
-    dl[i] = row < S ? delta[(size_t)row * hq + h] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  const int lo = range_s[0], hi = range_s[1];
-
-  for (int kv0 = lo; kv0 < hi; kv0 += BF) {
-    __syncthreads();
-    if constexpr (kRope) {
-      load_rot_tile_f32<BF>(k_s, k, kv0, hi, ldk, hk * D, rk);
-    } else {
-      load_tile_f32(k_s, k, kv0, hi, ldk, hk * D);
-    }
-    load_tile_f32(v_s, v, kv0, hi, ldk, hk * D);
-    if (tid < BF) segk_s[tid] = (kv0 + tid < hi) ? remap(seg_k[kv0 + tid]) : NO_ROW_K;
-    __syncthreads();
-
-    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float qv[2] = {q_s[ty][d], q_s[ty + 16][d]};
-      const float ov[2] = {do_s[ty][d], do_s[ty + 16][d]};
-      const float kv[2] = {k_s[tx][d], k_s[tx + 16][d]};
-      const float vv[2] = {v_s[tx][d], v_s[tx + 16][d]};
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = sq[i] == segk_s[tx + 16 * j] ? expf(s[i][j] * scale - ls[i]) : 0.f;
-        ds_s[ty + 16 * i][tx + 16 * j] = p * (dp[i][j] - dl[i]) * scale;
-      }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int r = 0; r < BF; ++r) {
-      const float dsv[2] = {ds_s[ty][r], ds_s[ty + 16][r]};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float kk = k_s[r][tx + 16 * j];
-        acc[0][j] = fmaf(dsv[0], kk, acc[0][j]);
-        acc[1][j] = fmaf(dsv[1], kk, acc[1][j]);
-      }
-    }
-  }
-
-  if constexpr (kRope) {  // back to the raw q, before any lane leaves
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = inv_rot_split(acc[i][j], tx + 16 * j, rq, row, row < S);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq[(size_t)row * ldq + h * D + tx + 16 * j] = acc[i][j];
-  }
-}
 
 // ---------------------------------------------------------------------------
 // f32 dk/dv: fp32 FMA, register-blocked; one CTA per (KV-row kv tile, kv
@@ -652,13 +565,11 @@ int launch_dq(const void* q, const void* k, const void* v, const int* seg_q, con
         static_cast<const __nv_bfloat16*>(v), seg_q, seg_k,
         static_cast<const __nv_bfloat16*>(dout), lse, delta,
         static_cast<__nv_bfloat16*>(dq), S, Sk, hq, hkv, scale, rq, rk, st);
-  } else {
-    bwd_dq_f32<kRope><<<dim3((S + BF - 1) / BF, hq), 256, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), seg_q, seg_k, static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), S, Sk, hq, hkv, scale, rq, rk);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_dq_f32<kRope>(static_cast<const float*>(q), static_cast<const float*>(k),
+                              static_cast<const float*>(v), seg_q, seg_k,
+                              static_cast<const float*>(dout), lse, delta,
+                              static_cast<float*>(dq), S, Sk, hq, hkv, scale, rq, rk, st);
 }
 
 template <bool kRope>
@@ -743,4 +654,17 @@ extern "C" int flash_segment_attn_f32_dkv_config(int hq, int hkv, int rope, int*
               : launch_dkv_f32<false>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                       nullptr, nullptr, nullptr, nullptr, 0, 0, hq, hkv, 0.f,
                                       Rope{}, Rope{}, 0, out);
+}
+
+// The f32 dq kernel's launch shape at hq / hkv heads (kRope when rope != 0):
+// out[8] = threads a CTA, dynamic shared memory bytes, registers a thread,
+// CTAs an SM, q heads a CTA, q rows a thread, kv rows a tile, kv column
+// passes a tile. Launches nothing; returns a CUDA error code.
+extern "C" int flash_segment_attn_f32_dq_config(int hq, int hkv, int rope, int* out) {
+  return rope ? launch_dq_f32<true>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                    nullptr, nullptr, nullptr, 0, 0, hq, hkv, 0.f, Rope{}, Rope{},
+                                    0, out)
+              : launch_dq_f32<false>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                     nullptr, nullptr, nullptr, 0, 0, hq, hkv, 0.f, Rope{},
+                                     Rope{}, 0, out);
 }

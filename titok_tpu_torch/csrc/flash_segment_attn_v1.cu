@@ -34,7 +34,8 @@
 //   is rounded down to a multiple of 64, and the rows before it are masked.
 //   Where every segment starts at a multiple of 64 it gives row 1's bits.
 // - dq: the row 2 dq `bwd_dq_pipe<false, HPC>` (segment_attn_dq.cuh), with
-//   the one id vector for q and kv: the same function, the same bits.
+//   the one id vector for q and kv: the same function, the same bits. The
+//   f32 dq likewise is the row 2 f32 dq `bwd_dq_f32_pipe<false, ...>`.
 // - dk/dv: `bwd_dkv_pipe<false, NG, true>` (segment_attn_dkv.cuh), the row 2
 //   dk/dv kernel with v1's rounding: one CTA per (64-row kv tile, kv head),
 //   NG warp groups share K and V and take one q head each of a (q tile, NG
@@ -46,17 +47,17 @@
 //   of NG, and each chunk's rounded heads are folded into a running sum in
 //   shared memory.
 //
-// The f32 kernels keep v1's own design: one CTA per (q tile, q head) (dk/dv:
-// per (kv tile, q head), writing each q head's dk/dv [S, Hq*64], summed over
-// each group by the wrapper), reading the [S, H*64] row-major buffers by
-// stride; tile skipping by tile-pair interval overlap: qmm / kmm are int32
-// [n_tiles, 2] (min, max) of the remapped ids per q tile and per kv tile,
-// computed by torch ops before the launch (JAX `_block_minmax` in XLA); a
-// (q tile, kv tile) pair runs only if the intervals overlap. Tiles: forward
-// 64 q x 32 kv rows, backward 32 x 32; the wrapper computes qmm / kmm at
-// these sizes and passes them, and an entry refuses other sizes. Rows at or
-// past S are masked (their ids are sentinels that match nothing) and never
-// written.
+// The f32 forward and dk/dv keep v1's own design: one CTA per (q tile, q
+// head) (dk/dv: per (kv tile, q head), writing each q head's dk/dv [S,
+// Hq*64], summed over each group by the wrapper), reading the [S, H*64]
+// row-major buffers by stride; tile skipping by tile-pair interval overlap:
+// qmm / kmm are int32 [n_tiles, 2] (min, max) of the remapped ids per q tile
+// and per kv tile, computed by torch ops before the launch (JAX
+// `_block_minmax` in XLA); a (q tile, kv tile) pair runs only if the
+// intervals overlap. Tiles: forward 64 q x 32 kv rows, dk/dv 32 x 32; the
+// wrapper computes qmm / kmm at these sizes and passes them, and an entry
+// refuses other sizes. Rows at or past S are masked (their ids are
+// sentinels that match nothing) and never written.
 //
 // What bounds it on the H100: the same work as rows 1-2 (useful FLOPs on
 // the block-diagonal part of S x S: forward 2, dq 3, dk/dv 4 products of
@@ -73,7 +74,7 @@ namespace {
 
 constexpr int FQ = 64;   // f32 forward: q rows per CTA
 constexpr int FK = 32;   // f32 forward: kv rows per tile
-constexpr int FB = 32;   // f32 backward: rows per tile (q and kv)
+constexpr int FB = 32;   // f32 dk/dv: rows per tile (q and kv)
 
 // The pair (tile a of one side, tile b of the other) runs only if their
 // [min, max] id intervals overlap.
@@ -207,102 +208,6 @@ v1_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 4; ++j) out[(size_t)row * ldq + h * D + tx + 16 * j] = acc[i][j] / L;
     if (tx == 0) lse[(size_t)row * hq + h] = m[i] + logf(L);
-  }
-}
-
-// thread (ty, tx) owns tile rows ty + 16 i (i < 2), score columns tx + 16 j
-// (j < 2) and output columns tx + 16 j (j < 4)
-__global__ void __launch_bounds__(256)
-v1_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const int* __restrict__ seg,
-              const int2* __restrict__ qmm, const int2* __restrict__ kmm,
-              const float* __restrict__ dout, const float* __restrict__ lse,
-              const float* __restrict__ delta, float* __restrict__ dq, int S, int hq, int hkv,
-              float scale) {
-  __shared__ float q_s[FB][D + 1];
-  __shared__ float do_s[FB][D + 1];
-  __shared__ float k_s[FB][D + 1];
-  __shared__ float v_s[FB][D + 1];
-  __shared__ float ds_s[FB][FB + 1];
-  __shared__ int segq_s[FB];
-  __shared__ int segk_s[FB];
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * FB;
-  const int h = blockIdx.y;
-  const int hk = h / (hq / hkv);
-  const int ldq = hq * D, ldk = hkv * D;
-  const int nk = (S + FB - 1) / FB;
-  const int2 qr = qmm[blockIdx.x];
-
-  load_tile_f32<FB>(q_s, q, q0, S, ldq, h * D);
-  load_tile_f32<FB>(do_s, dout, q0, S, ldq, h * D);
-  if (tid < FB) segq_s[tid] = (q0 + tid < S) ? remap(seg[q0 + tid]) : NO_ROW_Q;
-  __syncthreads();
-
-  int sq[2];
-  float ls[2], dl[2], acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + ty + 16 * i;
-    sq[i] = segq_s[ty + 16 * i];
-    ls[i] = row < S ? lse[(size_t)row * hq + h] : 0.f;
-    dl[i] = row < S ? delta[(size_t)row * hq + h] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int jt = 0; jt < nk; ++jt) {
-    if (!overlaps(qr, kmm[jt])) continue;
-    const int kv0 = jt * FB;
-    __syncthreads();
-    load_tile_f32<FB>(k_s, k, kv0, S, ldk, hk * D);
-    load_tile_f32<FB>(v_s, v, kv0, S, ldk, hk * D);
-    if (tid < FB) segk_s[tid] = (kv0 + tid < S) ? remap(seg[kv0 + tid]) : NO_ROW_K;
-    __syncthreads();
-
-    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float qv[2] = {q_s[ty][d], q_s[ty + 16][d]};
-      const float ov[2] = {do_s[ty][d], do_s[ty + 16][d]};
-      const float kv[2] = {k_s[tx][d], k_s[tx + 16][d]};
-      const float vv[2] = {v_s[tx][d], v_s[tx + 16][d]};
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = sq[i] == segk_s[tx + 16 * j] ? expf(s[i][j] * scale - ls[i]) : 0.f;
-        ds_s[ty + 16 * i][tx + 16 * j] = p * (dp[i][j] - dl[i]) * scale;
-      }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int r = 0; r < FB; ++r) {
-      const float dsv[2] = {ds_s[ty][r], ds_s[ty + 16][r]};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float kk = k_s[r][tx + 16 * j];
-        acc[0][j] = fmaf(dsv[0], kk, acc[0][j]);
-        acc[1][j] = fmaf(dsv[1], kk, acc[1][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq[(size_t)row * ldq + h * D + tx + 16 * j] = acc[i][j];
   }
 }
 
@@ -441,8 +346,9 @@ extern "C" int flash_segment_attn_v1_fwd(const void* q, const void* k, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// dq [S, hq*64] from q, dO [S, hq*64], k/v, ids, lse and delta [S, hq] f32;
-// f32 also the tile intervals (32/32), which bf16 does not read.
+// dq [S, hq*64] from q, dO [S, hq*64], k/v, ids, lse and delta [S, hq] f32:
+// the row 2 dq on one id vector, in either dtype; reads no tile intervals
+// (pass null and any tile sizes).
 extern "C" int flash_segment_attn_v1_bwd_dq(const void* q, const void* k, const void* v,
                                             const int* seg, const int* qmm, const int* kmm,
                                             int tq, int tk, const void* dout, const float* lse,
@@ -454,12 +360,10 @@ extern "C" int flash_segment_attn_v1_bwd_dq(const void* q, const void* k, const 
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), seg, seg, static_cast<const __nv_bfloat16*>(dout),
         lse, delta, static_cast<__nv_bfloat16*>(dq), S, S, hq, hkv, scale, Rope{}, Rope{}, st);
-  if (tq != FB || tk != FB) return static_cast<int>(cudaErrorInvalidValue);
-  v1_bwd_dq_f32<<<dim3((S + FB - 1) / FB, hq), 256, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      seg, reinterpret_cast<const int2*>(qmm), reinterpret_cast<const int2*>(kmm),
-      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), S, hq, hkv, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dq_f32<false>(static_cast<const float*>(q), static_cast<const float*>(k),
+                              static_cast<const float*>(v), seg, seg,
+                              static_cast<const float*>(dout), lse, delta,
+                              static_cast<float*>(dq), S, S, hq, hkv, scale, Rope{}, Rope{}, st);
 }
 
 // dk/dv from q, dO [S, hq*64], k/v, ids, lse and delta [S, hq] f32. bf16: dk,
@@ -498,3 +402,9 @@ extern "C" int flash_segment_attn_v1_dkv_summed() { return 1; }
 // intervals; builds without this symbol read them, and their wrapper ran
 // `tile_minmax` before each launch. Read by the A/B tool.
 extern "C" int flash_segment_attn_v1_bf16_searches() { return 1; }
+
+// 1: the f32 dq entry is the row 2 f32 dq on one id vector, searches the ids
+// and reads no tile intervals; builds without this symbol read them (tiles
+// of 32 q and 32 kv rows), and their wrapper ran `tile_minmax` before each
+// launch. Read by the A/B tool.
+extern "C" int flash_segment_attn_v1_f32_dq_searches() { return 1; }

@@ -25,27 +25,6 @@ constexpr int BT = 64;        // rows per tile of the bf16 backward kernels (q a
 
 __device__ __forceinline__ int remap(int s) { return s == 0 ? PAD_ID : s; }
 
-// [lo, hi): the rows j of `seg_b` whose (remapped) segment lies in
-// [seg_a[a0], seg_a[a1 - 1]]. Both id vectors are non-decreasing once 0 is
-// remapped, so that is one interval, found by two binary searches.
-__device__ void segment_interval(const int* __restrict__ seg_a, const int* __restrict__ seg_b,
-                                 int a0, int a1, int nb, int* lo_out, int* hi_out) {
-  const int first = remap(seg_a[a0]);
-  const int last = remap(seg_a[a1 - 1]);
-  int lo = 0, hi = nb;
-  while (lo < hi) {  // first j with seg_b[j] >= first
-    const int mid = (lo + hi) >> 1;
-    if (remap(seg_b[mid]) < first) lo = mid + 1; else hi = mid;
-  }
-  *lo_out = lo;
-  hi = nb;
-  while (lo < hi) {  // first j with seg_b[j] > last
-    const int mid = (lo + hi) >> 1;
-    if (remap(seg_b[mid]) <= last) lo = mid + 1; else hi = mid;
-  }
-  *hi_out = lo;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
@@ -94,46 +73,6 @@ __device__ __forceinline__ void inv_rot_acc(float& x0, float& x1, const Rope& rp
     const size_t t = (size_t)row * rp.P + pair;
     rot_pair_inv(x0, x1, rp.cos[t], rp.sin[t]);
   }
-}
-
-// Copy ROWS rows of one head (64 f32 each) into a padded smem tile, one
-// float2 (one pair) at a time, rotating each pair by `rp`; rows at or past
-// `valid` are zero.
-template <int ROWS, int LDT>
-__device__ __forceinline__ void load_rot_tile_f32(float (*dst)[LDT], const float* src, int row0,
-                                                  int valid, int ld, int col0, const Rope& rp) {
-  for (int e = threadIdx.x; e < ROWS * D / 2; e += blockDim.x) {
-    const int r = e / (D / 2), p = e % (D / 2);
-    float x0 = 0.f, x1 = 0.f;
-    if (row0 + r < valid) {
-      const float2 x =
-          *reinterpret_cast<const float2*>(src + (size_t)(row0 + r) * ld + col0 + 2 * p);
-      x0 = x.x;
-      x1 = x.y;
-      if (p < rp.P) {
-        const size_t t = (size_t)(row0 + r) * rp.P + p;
-        rot_pair(x0, x1, rp.cos[t], rp.sin[t]);
-      }
-    }
-    dst[r][2 * p] = x0;
-    dst[r][2 * p + 1] = x1;
-  }
-}
-
-// Inverse-rotate an f32 accumulator whose column pairs are split over two
-// lanes (tx and tx ^ 1 of a half-warp hold columns c and c ^ 1): `mine` is
-// this lane's column `col`, the partner's comes by a shuffle. Every lane of
-// the warp must call it.
-__device__ __forceinline__ float inv_rot_split(float mine, int col, const Rope& rp, int row,
-                                               bool row_ok) {
-  const float other = __shfl_xor_sync(0xffffffffu, mine, 1);
-  const int pair = col >> 1;
-  if (!row_ok || pair >= rp.P) return mine;
-  const bool odd = col & 1;
-  float x0 = odd ? other : mine, x1 = odd ? mine : other;
-  const size_t t = (size_t)row * rp.P + pair;
-  rot_pair_inv(x0, x1, rp.cos[t], rp.sin[t]);
-  return odd ? x1 : x0;
 }
 
 // c[16x8] += a[16x16] (row) * b[16x8] (col), bf16 in, fp32 accumulate.
@@ -189,9 +128,11 @@ __device__ __forceinline__ int warp_search(const int* __restrict__ seg, int n, i
   return lo;
 }
 
-// [lo, hi) of `segment_interval` into range_s, found by warps 0 and 1 (one
-// search each, at once). Every thread of the block must call it; it ends
-// with a barrier.
+// [lo, hi) into range_s: the rows j of `seg_b` whose (remapped) segment lies
+// in [seg_a[a0], seg_a[a1 - 1]]. Both id vectors are non-decreasing once 0
+// is remapped, so that is one interval, found by warps 0 and 1 (one search
+// each, at once). Every thread of the block must call it; it ends with a
+// barrier.
 __device__ __forceinline__ void segment_interval_warps(const int* __restrict__ seg_a,
                                                        const int* __restrict__ seg_b, int a0,
                                                        int a1, int nb, int* range_s) {

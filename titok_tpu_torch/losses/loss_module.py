@@ -36,14 +36,17 @@ DISC_TOKENS = 4  # register tokens per sample (ref loss_module.py:42)
 
 def _per_sample_mean(values_rows, segment_ids, row_mask, num_segments):
     """Masked per-segment mean of per-row scalars -> ``[num_segments-1]``
-    (segment 0, the padding, dropped). A segment sum by ``index_add``: on
-    CUDA its summation order is not deterministic, which moves the result
-    in the last bits only."""
+    (segment 0, the padding, dropped). Each segment's sum is a reduction of
+    its row of a dense ``[num_segments, rows]`` selection, which adds in a
+    fixed order on every device, so two calls give the same bits (a sum by
+    ``index_add`` adds by atomics on CUDA, in an order that changes from
+    call to call)."""
     w = row_mask.to(torch.float32)
-    idx = segment_ids.long()
-    zeros = torch.zeros(num_segments, dtype=torch.float32, device=values_rows.device)
-    sums = zeros.index_add(0, idx, values_rows * w)
-    cnts = zeros.index_add(0, idx, w)
+    segs = torch.arange(num_segments, device=values_rows.device)
+    sel = segment_ids.long()[None, :] == segs[:, None]
+    zero = w.new_zeros(())
+    sums = torch.where(sel, values_rows * w, zero).sum(1)
+    cnts = torch.where(sel, w, zero).sum(1)
     return (sums / torch.clamp(cnts, min=1.0))[1:]
 
 

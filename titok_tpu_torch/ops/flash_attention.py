@@ -11,16 +11,16 @@ v1's own is where the forward rounds p (against the running max after each
 head and rounded to the input dtype before the sum over each GQA group (JAX
 sums in XLA).
 
-The bf16 kernels are instantiations of the multi-head kernels' pipelined
-templates (``csrc/segment_attn_{fwd,dq,dkv}.cuh``): each CTA searches the
-ids for its exact interval, so the wrapper computes no tile intervals. The
-forward's kv tiles are aligned to row 0 as above; dq is the multi-head dq;
-dk/dv rounds each head before the group sum and writes the group sums
-itself. The f32 kernels keep v1's own design: per-tile [min, max] ids
-computed here by torch ops (:func:`tile_minmax`, JAX's ``_block_minmax``),
-tile pairs skipped where those intervals do not overlap, each q head's
-dk/dv summed over its group by :func:`group_sum`. The source notes say what
-bounds the kernels on the H100.
+The bf16 kernels and the f32 dq are instantiations of the multi-head
+kernels' pipelined templates (``csrc/segment_attn_{fwd,dq,dkv}.cuh``): each
+CTA searches the ids for its exact interval, so the wrapper computes no tile
+intervals for them. The forward's kv tiles are aligned to row 0 as above;
+dq is the multi-head dq, in either dtype; dk/dv rounds each head before the
+group sum and writes the group sums itself. The f32 forward and dk/dv keep
+v1's own design: per-tile [min, max] ids computed here by torch ops
+(:func:`tile_minmax`, JAX's ``_block_minmax``), tile pairs skipped where
+those intervals do not overlap, each q head's dk/dv summed over its group by
+:func:`group_sum`. The source notes say what bounds the kernels on the H100.
 
 - :func:`flash_segment_attention` — the entry point ``attn_impl:
   flash_v1`` reaches. With grad enabled and an input that requires grad
@@ -35,8 +35,8 @@ bounds the kernels on the H100.
   so in bf16 it rounds p where the kernel does; the backward rounds each q
   head's dk/dv before the group sum.
 - :func:`launch_fwd`, :func:`launch_bwd_dq`, :func:`launch_bwd_dkv` — the
-  kernels' C entries; in f32 on given tile intervals (:func:`tile_minmax`),
-  in bf16 on none.
+  kernels' C entries; the f32 forward and dk/dv on given tile intervals
+  (:func:`tile_minmax`), the dq and every bf16 kernel on none.
 
 Launches are counted in ``flash_attention_mh.launches`` under ``v1_*``.
 """
@@ -58,9 +58,10 @@ from titok_tpu_torch.ops.flash_attention_mh import (
     launches,
 )
 
-# tile rows (q, kv) of each f32 kernel, as csrc/flash_segment_attn_v1.cu has
-# them; the bf16 kernels read no tile intervals
-TILES = {"fwd": (64, 32), "dq": (32, 32), "dkv": (32, 32)}
+# tile rows (q, kv) of the f32 forward and dk/dv, as
+# csrc/flash_segment_attn_v1.cu has them; the dq and the bf16 kernels read
+# no tile intervals
+TILES = {"fwd": (64, 32), "dkv": (32, 32)}
 # the kv tile of the bf16 forward, aligned to row 0: where the kernel rounds p
 # against a new max
 BLOCK = 64
@@ -241,11 +242,17 @@ def _check_mm(S: int, tiles: tuple[int, int], qmm: torch.Tensor, kmm: torch.Tens
                              f"{tile} rows), got {got}")
 
 
+def _searches(key: str, kind: str) -> bool:
+    """Whether the ``kind`` kernel in ``key`` searches the ids (every bf16
+    kernel and the dq) and so reads no tile intervals."""
+    return key == "bf16" or kind == "dq"
+
+
 def _common(q, k, v, seg, qmm, kmm, kind):
     """Checks of a launch; returns (key, the entry's interval arguments
-    (qmm, kmm, q tile, kv tile), S, Hq, Hkv, stream). The f32 kernels read
-    the tile intervals ``TILES[kind]``; the bf16 kernels search the ids, read
-    none, and are given none."""
+    (qmm, kmm, q tile, kv tile), S, Hq, Hkv, stream). The f32 forward and
+    dk/dv read the tile intervals ``TILES[kind]``; the kernels that search
+    the ids (:func:`_searches`) read none and are given none."""
     if q.device.type != "cuda":
         raise ValueError(f"the v1 kernels run on CUDA tensors, got {q.device}")
     S, Hq, _ = q.shape
@@ -253,9 +260,10 @@ def _common(q, k, v, seg, qmm, kmm, kind):
         raise ValueError(f"v1 attention needs Sq == Sk, got {S} and {k.shape[0]}")
     _check(q, k, v, seg, seg)
     key = _key(q)
-    if key == "bf16":
+    if _searches(key, kind):
         if qmm is not None or kmm is not None:
-            raise ValueError("the bf16 v1 kernels search the ids and read no tile intervals")
+            raise ValueError(f"the {'bf16 v1 kernels' if key == 'bf16' else 'v1 dq kernels'} "
+                             f"search the ids and read no tile intervals")
         mm = (None, None, 0, 0)
     else:
         _check_mm(S, TILES[kind], qmm, kmm, q.device)
@@ -281,8 +289,8 @@ def launch_fwd(q, k, v, seg, qmm, kmm, scale) -> tuple[torch.Tensor, torch.Tenso
 
 
 def launch_bwd_dq(q, k, v, seg, qmm, kmm, dout, lse, delta, scale) -> torch.Tensor:
-    """The dq kernel (f32 on the tile intervals of ``TILES['dq']``; bf16
-    on none)."""
+    """The dq kernel, the row 2 dq on one id vector: it searches the ids, so
+    ``qmm`` and ``kmm`` are ``None`` in either dtype."""
     key, mm, S, Hq, Hkv, stream = _common(q, k, v, seg, qmm, kmm, "dq")
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -316,8 +324,9 @@ def launch_bwd_dkv(q, k, v, seg, qmm, kmm, dout, lse, delta,
 
 def _intervals(seg: torch.Tensor, kind: str, key: str):
     """(qmm, kmm) of one id vector for the ``kind`` kernel: at the f32
-    kernel's q and kv tile sizes, ``(None, None)`` for bf16."""
-    if key == "bf16":
+    forward's or dk/dv's q and kv tile sizes, ``(None, None)`` for a kernel
+    that searches the ids (:func:`_searches`)."""
+    if _searches(key, kind):
         return None, None
     tiles = TILES[kind]
     qmm = tile_minmax(seg, tiles[0])
@@ -336,15 +345,16 @@ def _fwd(q, k, v, segment_ids, scale=None) -> tuple[torch.Tensor, torch.Tensor]:
 def _bwd(q, k, v, segment_ids, out, lse, dout,
          scale=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)``: the dq and dk/dv kernels for CUDA tensors (and in
-    f32 the group sum), the plain version for CPU tensors."""
+    f32 the group sum), the plain version for CPU tensors. The dq reads no
+    tile intervals; in f32 the dk/dv reads those of ``TILES['dkv']``."""
     if q.device.type == "cpu":
         return flash_segment_attention_bwd_reference(q, k, v, segment_ids, out, lse, dout, scale)
     _check_bwd(q, out, lse, dout)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     delta = _delta(out, dout)
-    mm = _intervals(segment_ids, "dq", _key(q))  # dq and dk/dv share their tiles
-    dq = launch_bwd_dq(q, k, v, segment_ids, *mm, dout, lse, delta, scale)
-    dk, dv = launch_bwd_dkv(q, k, v, segment_ids, *mm, dout, lse, delta, scale)
+    dq = launch_bwd_dq(q, k, v, segment_ids, None, None, dout, lse, delta, scale)
+    dk, dv = launch_bwd_dkv(q, k, v, segment_ids, *_intervals(segment_ids, "dkv", _key(q)),
+                            dout, lse, delta, scale)
     if q.dtype == torch.float32:  # the f32 kernel's per-head grads
         dk, dv = group_sum(dk, k.shape[1]), group_sum(dv, k.shape[1])
     return dq, dk, dv

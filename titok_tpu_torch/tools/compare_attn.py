@@ -20,20 +20,22 @@ every kind in ``KINDS`` in each dtype of ``--dtype`` (default both): the
 forward, dk/dv and dq entries, plain and RoPE, in bf16 and f32 (``f32``
 counts 4-byte elements and the fp32 FMA peak in the bound, as
 ``chip_smoke.py`` does), and the v1 forward, dq and dk/dv entries in bf16
-(``F32_KINDS`` lists what f32 times), on fixed buffers (RoPE tables of
-random angles, P 30), in the order OLD, NEW, (variants, variants
-reversed,) NEW, OLD each round, with CUDA events over ``--reps`` launches.
-Each v1 entry is timed as its build's wrapper runs it, and alone: a build
-whose v1 bf16 forward and dq read tile intervals (it lacks
-``flash_segment_attn_v1_bf16_searches``) with the ``tile_minmax`` its
-wrapper ran before each launch, one whose v1 bf16 dk/dv writes each q
-head's grads (it lacks ``flash_segment_attn_v1_dkv_summed``) with the two
-``group_sum`` ops its wrapper ran after it. Every build gets the same
-arguments (the tile intervals too, which a build that searches the ids
-does not read). Prints each build's ``-Xptxas -v`` lines, each time, the
-means and medians (one late sample of a few µs of host or clock noise moves
-a mean), each build's time over OLD's, the bound and the share of bound, and
-the largest difference between each build's outputs and OLD's (dk/dv
+and the v1 dq in f32 (``F32_KINDS`` lists what f32 times), on fixed
+buffers (RoPE tables of random angles, P 30), in the order OLD, NEW,
+(variants, variants reversed,) NEW, OLD each round, with CUDA events over
+``--reps`` launches. Each v1 entry is timed as its build's wrapper runs it,
+and alone: a build whose v1 bf16 forward and dq read tile intervals (it
+lacks ``flash_segment_attn_v1_bf16_searches``), or whose v1 f32 dq does (it
+lacks ``flash_segment_attn_v1_f32_dq_searches``; tiles of 32 q and 32 kv
+rows), with the ``tile_minmax`` its wrapper ran before each launch, one
+whose v1 bf16 dk/dv writes each q head's grads (it lacks
+``flash_segment_attn_v1_dkv_summed``) with the two ``group_sum`` ops its
+wrapper ran after it. Every build gets the same arguments (the tile
+intervals too, which a build that searches the ids does not read). Prints
+each build's ``-Xptxas -v`` lines, each time, the means and medians (one
+late sample of a few µs of host or clock noise moves a mean), each build's
+time over OLD's, the bound and the share of bound, and the largest
+difference between each build's outputs and OLD's (dk/dv
 summed over each group).
 
 The ``vq`` kind times the VQ search at S 4096, 3409 and 1152 (N 16384, D 8:
@@ -75,9 +77,12 @@ PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 D, P = 64, 30
 KINDS = ("fwd", "rope_fwd", "dkv", "rope_dkv", "dq", "rope_dq", "v1_fwd", "v1_dq",
          "v1_dkv")
-# the kinds timed in f32 (the v1 f32 entries read tile intervals of their
-# own sizes and write per-head dk/dv: not timed here)
-F32_KINDS = KINDS[:6]
+# the kinds timed in f32 (the v1 f32 forward and dk/dv, which read tile
+# intervals of their own sizes and write per-head dk/dv, are not timed here)
+F32_KINDS = KINDS[:6] + ("v1_dq",)
+# the q and kv tile rows of the tile intervals a v1 entry that reads them
+# takes: bf16 forward and dq, f32 dq
+V1_TILES = {"bf16": 64, "f32": 32}
 DTYPES = ("bf16", "f32")
 # the VQ search: base_vq's shape (S 4096), two smaller S, codebook, dim
 VQ_SHAPES = (4096, 3409, 1152)
@@ -146,9 +151,10 @@ def _old_vq_splits(S: int, N: int) -> int:
 
 def _build_pair(label: str, csrc: str):
     """Build a directory's four sources; ``(entries by kind, what its v1
-    bf16 entries do: {"summed": its dk/dv sums each group, "searches": its
-    forward and dq read no tile intervals}, and whether its VQ search is
-    one launch ("vq_one"), ptxas lines)``."""
+    entries do: {"summed": its bf16 dk/dv sums each group, "searches": its
+    bf16 forward and dq read no tile intervals, "f32_dq_searches": its f32
+    dq reads none}, and whether its VQ search is one launch ("vq_one"),
+    ptxas lines)``."""
     libs, lines = {}, []
     for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd", "flash_segment_attn_v1",
                  "vq_nearest"):
@@ -169,7 +175,9 @@ def _build_pair(label: str, csrc: str):
     fns = {"fwd": fwd, "rope_fwd": rope_fwd, "dkv": dkv, "rope_dkv": rope_dkv, "dq": dq,
            "rope_dq": rope_dq, "v1_fwd": v1_fwd, "v1_dq": v1_dq, "v1_dkv": v1_dkv, "vq": vq_fn}
     flags = {"summed": hasattr(v1, "flash_segment_attn_v1_dkv_summed"),
-             "searches": hasattr(v1, "flash_segment_attn_v1_bf16_searches"), "vq_one": vq_one}
+             "searches": hasattr(v1, "flash_segment_attn_v1_bf16_searches"),
+             "f32_dq_searches": hasattr(v1, "flash_segment_attn_v1_f32_dq_searches"),
+             "vq_one": vq_one}
     return fns, flags, lines
 
 
@@ -260,7 +268,7 @@ class Case:
     ``runner(kind, label)`` what a caller of that build runs: the entry,
     for a v1 forward or dq that reads tile intervals the ``tile_minmax``
     before it, for a per-head v1 dk/dv the wrapper's two group sums after
-    it. ``flags`` tells, per build label, what its v1 bf16 entries do
+    it. ``flags`` tells, per build label, what its v1 entries do
     (``_build_pair``)."""
 
     def __init__(self, seg_np, hq, hkv, fns_new, flags, seed=1, dtype="bf16"):
@@ -270,6 +278,7 @@ class Case:
         bf = torch.bfloat16 if dtype == "bf16" else torch.float32
         self.S, self.hq, self.hkv, self.flags = S, hq, hkv, flags
         self.is_bf16 = int(dtype == "bf16")
+        self.tile = V1_TILES[dtype]
         self.q = torch.randn(S, hq, D, generator=g, device=dev).to(bf)
         self.k = torch.randn(S, hkv, D, generator=g, device=dev).to(bf)
         self.v = torch.randn(S, hkv, D, generator=g, device=dev).to(bf)
@@ -277,8 +286,8 @@ class Case:
         ang = torch.rand(S, P, generator=g, device=dev) * (2 * np.pi)
         self.cos, self.sin = ang.cos().contiguous(), ang.sin().contiguous()
         self.seg = torch.from_numpy(seg_np).to(dev)
-        # the bf16 q and kv tile intervals (64 rows) of builds that read them
-        self.mm = tile_minmax(self.seg, 64)
+        # the q and kv tile intervals of the v1 builds that read them
+        self.mm = tile_minmax(self.seg, self.tile)
         self.stream = torch.cuda.current_stream().cuda_stream
         self.outs = {}
         self.sums = {}  # per label: a per-head v1 dk/dv after the group sums
@@ -327,18 +336,20 @@ class Case:
         bwd_in = [] if base == "fwd" else [self.do.data_ptr(), lse.data_ptr(), delta.data_ptr()]
         if kind.startswith("v1_"):  # one id vector, the tile intervals, one length
             return (self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(), self.seg.data_ptr(),
-                    self.mm.data_ptr(), self.mm.data_ptr(), 64, 64, *bwd_in, *outs, self.S,
-                    self.hq, self.hkv, float(D ** -0.5), self.is_bf16, self.stream)
+                    self.mm.data_ptr(), self.mm.data_ptr(), self.tile, self.tile, *bwd_in,
+                    *outs, self.S, self.hq, self.hkv, float(D ** -0.5), self.is_bf16,
+                    self.stream)
         return tuple(self._ptrs(rope) + bwd_in + outs + self._tail())
 
     def runner(self, fns: dict, kind: str, label: str):
         """``(fn, args)`` of what the wrapper of build ``label`` runs."""
         fn, args = fns[kind], self.args(kind, label)
-        if kind in ("v1_fwd", "v1_dq") and not self.flags[label]["searches"]:
-            seg = self.seg
+        searches = self.flags[label]["searches" if self.is_bf16 else "f32_dq_searches"]
+        if kind in ("v1_fwd", "v1_dq") and not searches:
+            seg, tile = self.seg, self.tile
 
             def intervals_and_entry(*a):
-                mm = tile_minmax(seg, 64)  # the wrapper's, before each launch
+                mm = tile_minmax(seg, tile)  # the wrapper's, before each launch
                 return fn(*a[:4], mm.data_ptr(), mm.data_ptr(), *a[6:])
 
             return intervals_and_entry, args
@@ -399,7 +410,8 @@ def main(argv=None) -> int:
         fns[label], flags[label] = fns_b, flags_b
         print(f"{label}: {csrc} (v1 bf16 forward and dq "
               f"{'search the ids' if flags_b['searches'] else 'read tile intervals'}, dk/dv "
-              f"{'summed' if flags_b['summed'] else 'per head'}; VQ "
+              f"{'summed' if flags_b['summed'] else 'per head'}; v1 f32 dq "
+              f"{'searches the ids' if flags_b['f32_dq_searches'] else 'reads tile intervals'}; VQ "
               f"{'one launch' if flags_b['vq_one'] else 'two launches'})\n  "
               + "\n  ".join(_demangle(lines)))
     print("v1_*: each build as its wrapper runs it (tile intervals before a forward or dq that "
