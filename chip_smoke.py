@@ -81,11 +81,12 @@ toolkit. Phases, in order; any failure exits non-zero:
    plain versions, bf16 and f32: the bench shape, the base_vq serving
    layout at heads 12/4, 16/4 and 8/1, a ragged packing, the tiny stacked
    discriminator buffer (24,752 rows), the bench shape and the ragged
-   packing at 4/4 (one head a group); group-summed dk/dv (bf16: the
-   kernel sums each group, each q head rounded first) and, in f32, the
-   per-head dk/dv; the forward against the row 1 kernel (bf16: bit for bit
-   where every segment starts at a multiple of 64) and the dq against the
-   row 2 dq, bit for bit in either dtype; planted faults (the last
+   packing at 4/4 (one head a group); group-summed dk/dv (the kernel sums
+   each group; bf16: each q head rounded first); the forward against the
+   row 1 kernel (f32: bit for bit on every case; bf16: where every segment
+   starts at a multiple of 64), the dq against the row 2 dq, bit for bit
+   in either dtype, and in f32 the dk/dv against the row 2 dk/dv, bit for
+   bit; planted faults (the last
    overlapping kv tile skipped, dk/dv of one q head of each group, p not
    rounded before p.v, lse with the wrong scale) that the gates must
    reject; the four times at the bench shape and the base_vq layout at
@@ -1973,20 +1974,6 @@ def v1_fwd_gate(out, lse, r_out, r_lse, dname):
                 f"max|d| {err_lse:.3e}")
 
 
-def _skip_last_tiles(qmm, kmm):
-    """kv tile intervals with the last kv tile that overlaps each q tile
-    made to overlap nothing: what an f32 kernel that stops one tile early
-    computes. Exact at tile-aligned layouts (the bench shape)."""
-    import torch
-
-    qm, km = qmm.cpu(), kmm.cpu()
-    over = (km[None, :, 0] <= qm[:, None, 1]) & (km[None, :, 1] >= qm[:, None, 0])
-    last = torch.tensor([int(torch.nonzero(r)[-1]) for r in over])
-    out = kmm.clone()
-    out[last.unique().to(kmm.device)] = 2**31 - 1
-    return out
-
-
 def _starts_aligned(seg_np, tile=64) -> bool:
     """Whether every run of equal ids (pad included) starts at a multiple
     of ``tile``: then the v1 forward's kv tiles, aligned to row 0, are the
@@ -1997,8 +1984,9 @@ def _starts_aligned(seg_np, tile=64) -> bool:
 
 def phase_v1_kernels(card: str, train_cfg) -> dict:
     """The three v1 kernels against their plain versions, bf16 and f32;
-    the forward against the row 1 kernel and the dq against the row 2 dq
-    (bit for bit, in either dtype); planted faults; times."""
+    the forward against the row 1 kernel, the dq against the row 2 dq (bit
+    for bit, in either dtype) and in f32 the forward and dk/dv against rows
+    1-2 bit for bit; planted faults; times."""
     import torch
     import torch.nn.functional as F
 
@@ -2034,31 +2022,17 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
         do = torch.randn(S, hq, D, generator=gen, device=dev).to(dtype)
         return q, k, v, do
 
-    def kernels(q, k, v, seg, do, fwd_kmm=None, dkv_kmm=None, lse_scale=1.0):
+    def kernels(q, k, v, seg, do, lse_scale=1.0):
         """The three kernels through their C entries' wrappers: (out, lse,
-        (dq, dk, dv)), dk/dv summed over each group in bf16 and per q head
-        in f32; ``*_kmm`` replace the f32 forward's or dk/dv's kv tile
-        intervals (the dq and the bf16 kernels read none), ``lse_scale``
-        scales the lse the forward hands on."""
-        key = "bf16" if q.dtype == torch.bfloat16 else "f32"
+        (dq, dk, dv)), dk/dv summed over each group by the kernel;
+        ``lse_scale`` scales the lse the forward hands on."""
         scale = D ** -0.5
-        fq, fk = f1._intervals(seg, "fwd", key)
-        out, lse = f1.launch_fwd(q, k, v, seg, fq, fk if fwd_kmm is None else fwd_kmm, scale)
+        out, lse = f1.launch_fwd(q, k, v, seg, scale)
         lse = lse * lse_scale
-        bq, bk = f1._intervals(seg, "dkv", key)
-        bk = bk if dkv_kmm is None else dkv_kmm
         delta = fa._delta(out, do)
-        dq = f1.launch_bwd_dq(q, k, v, seg, None, None, do, lse, delta, scale)
-        dk, dv = f1.launch_bwd_dkv(q, k, v, seg, bq, bk, do, lse, delta, scale)
+        dq = f1.launch_bwd_dq(q, k, v, seg, do, lse, delta, scale)
+        dk, dv = f1.launch_bwd_dkv(q, k, v, seg, do, lse, delta, scale)
         return out, lse, (dq, dk, dv)
-
-    def summed(grads, hkv):
-        """(dq, dk, dv) with per-q-head dk/dv ([S, Hq, D]) summed over each
-        group; the bf16 kernel's are summed already."""
-        dq, dk, dv = grads
-        if dk.shape[1] == hkv:
-            return dq, dk, dv
-        return dq, f1.group_sum(dk, hkv), f1.group_sum(dv, hkv)
 
     for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         for label, seg_np, hq, hkv in cases:
@@ -2070,45 +2044,47 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             torch.cuda.synchronize()
             r_out, r_lse = f1.flash_segment_attention_reference(q, k, v, seg)
             ok_f, line_f = v1_fwd_gate(out, lse, r_out, r_lse, dname)
-            want_h = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, do,
-                                                              per_head=True)
-            want_b = summed(want_h, hkv)
-            # f32: the kernel's per-head dk/dv, then their group sums; bf16:
-            # the kernel's group sums (each head rounded first, as want_b)
-            ok_h, rows_h = bwd_gate(grads, want_h, dname) if dname == "f32" else (True, None)
-            ok_b, rows_b = bwd_gate(summed(grads, hkv), want_b, dname)
-            # the row 1 kernel computes the same function; its kv tiles start
-            # where each q tile's interval starts, so p rounds elsewhere, but
-            # where every segment starts at a multiple of 64 the bf16 tiles
-            # are v1's and so are the bits (the same template)
+            # the kernel's group sums (bf16: each head rounded first, as the
+            # plain version's)
+            want = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, do)
+            ok_b, rows_b = bwd_gate(grads, want, dname)
+            # the row 1 kernel computes the same function. In f32 the v1
+            # forward is it on one id vector: its bits on every layout. In
+            # bf16 its kv tiles start where each q tile's interval starts, so
+            # p rounds elsewhere, but where every segment starts at a
+            # multiple of 64 the tiles are v1's and so are the bits (the same
+            # template)
             m_out, m_lse = fa._fwd(q, k, v, seg)
             m32 = m_out.float()
             atol, rtol, lse_atol = TOL[dname]
             ok_m = bool(((out.float() - m32).abs() <= atol + rtol * m32.abs()).all()) and \
                 (lse - m_lse).abs().max().item() <= lse_atol
             vs_row1 = f"out max|d| {(out.float() - m32).abs().max().item():.3e}"
-            if dname == "bf16" and _starts_aligned(seg_np):
+            if dname == "f32" or _starts_aligned(seg_np):
                 ok_m = ok_m and torch.equal(out, m_out) and torch.equal(lse, m_lse)
-                vs_row1 += ", bit for bit (segments 64-aligned)"
-            # the v1 dq is the row 2 dq on one id vector, in either dtype: its
-            # bits
-            same_dq = torch.equal(grads[0], fa._bwd(q, k, v, seg, out, lse, do)[0])
+                vs_row1 += (", bit for bit" if dname == "f32" else
+                            ", bit for bit (segments 64-aligned)")
+            # the v1 dq is the row 2 dq on one id vector, in either dtype, and
+            # in f32 the v1 dk/dv is the row 2 dk/dv: their bits
+            row2 = fa._bwd(q, k, v, seg, out, lse, do)
+            same_dq = torch.equal(grads[0], row2[0])
             vs_row2 = f"; dq vs the row 2 dq {'identical' if same_dq else 'DIFFERENT'}"
             check(same_dq, f"the v1 {dname} dq differs from the row 2 dq: {label}")
-            per_head = (f"per-head dk/dv {'ok' if ok_h else 'FAIL'} ({_gate_line(rows_h)}); "
-                        if rows_h else "")
+            if dname == "f32":
+                same_dkv = torch.equal(grads[1], row2[1]) and torch.equal(grads[2], row2[2])
+                vs_row2 += f", dk/dv vs the row 2 dk/dv {'identical' if same_dkv else 'DIFFERENT'}"
+                check(same_dkv, f"the v1 f32 dk/dv differs from the row 2 dk/dv: {label}")
             print(f"v1 kernels {dname} {label} S={S}: forward {line_f} {'ok' if ok_f else 'FAIL'}; "
-                  f"{per_head}group-summed {'ok' if ok_b else 'FAIL'} ({_gate_line(rows_b)}); vs "
+                  f"group-summed {'ok' if ok_b else 'FAIL'} ({_gate_line(rows_b)}); vs "
                   f"the row 1 kernel {vs_row1} {'ok' if ok_m else 'FAIL'}{vs_row2}")
-            check(ok_f and ok_h and ok_b, f"v1 kernels disagree with their plain versions: "
+            check(ok_f and ok_b, f"v1 kernels disagree with their plain versions: "
                   f"{dname} {label}")
             check(ok_m, f"the v1 forward disagrees with the row 1 kernel: {dname} {label}")
             errs = [(out.float() - r_out.float()).abs().max().item()] + [
-                (a.float() - b.float()).abs().max().item()
-                for a, b in zip(grads, want_h if dname == "f32" else want_b)]
+                (a.float() - b.float()).abs().max().item() for a, b in zip(grads, want)]
             for key, e in (("fwd", errs[0]), ("dq", errs[1]), ("dkv", max(errs[2:]))):
                 res[f"{key}_{dname}"]["max_abs_err"] = max(res[f"{key}_{dname}"]["max_abs_err"], e)
-            del q, k, v, do, out, lse, grads, r_out, r_lse, want_h, want_b, m_out, m_lse
+            del q, k, v, do, out, lse, grads, r_out, r_lse, want, m_out, m_lse, row2
             torch.cuda.empty_cache()
 
         # planted faults at the bench shape, each made by the kernels on
@@ -2122,39 +2098,28 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
         r_out, r_lse = f1.flash_segment_attention_reference(q, k, v, seg)
         want = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, do)
         fwd_faults, bwd_faults = {}, {}
-        # the dq (either dtype) and the bf16 forward read no tile intervals:
-        # their fault is made through the ids, as rows 1-2's is, by the row 2
-        # dq and the row 1 forward, whose bits the v1 dq and bf16 forward
+        # no v1 kernel reads tile intervals: the fault is made through the
+        # ids, as rows 1-2's is, by the row 1 forward and the row 2
+        # backward, whose bits the v1 forward and dq (and in f32 the dk/dv)
         # give at this layout (gated above); the last kv tile a q tile
-        # overlaps is its segment's last 64 rows
+        # overlaps is its segment's last 64 rows. The bf16 dk/dv is v1's own
+        # (its heads rounded before the group sum): its fault is the dq's
         q_ids, k_ids = _last_kv_tile_skipped(seg)
-        skip_dq = fa._bwd(q, k, v, q_ids, out, lse, do, k_segment_ids=k_ids)[0]
-        if dname == "bf16":
-            # the dk/dv is v1's own (it never read the intervals)
-            fwd_faults["the last overlapping kv tile skipped"] = fa._fwd(
-                q, k, v, q_ids, k_segment_ids=k_ids)
-            bwd_faults["the last overlapping kv/q tile skipped"] = (
-                skip_dq, *summed(grads, hkv)[1:])
-        else:
-            # the f32 forward and dk/dv read tile intervals: theirs is made
-            # through those
-            fq, fk = f1._intervals(seg, "fwd", dname)
-            bq, bk = f1._intervals(seg, "dkv", dname)
-            skip_f, skip_b = _skip_last_tiles(fq, fk), _skip_last_tiles(bq, bk)
-            fwd_faults["the last overlapping kv tile skipped"] = kernels(
-                q, k, v, seg, do, fwd_kmm=skip_f)[:2]
-            bwd_faults["the last overlapping kv/q tile skipped"] = (
-                skip_dq, *summed(kernels(q, k, v, seg, do, dkv_kmm=skip_b)[2], hkv)[1:])
+        fwd_faults["the last overlapping kv tile skipped"] = fa._fwd(
+            q, k, v, q_ids, k_segment_ids=k_ids)
+        skip = fa._bwd(q, k, v, q_ids, out, lse, do, k_segment_ids=k_ids)
+        bwd_faults["the last overlapping kv/q tile skipped"] = (
+            skip if dname == "f32" else (skip[0], *grads[1:]))
         # the kernel itself with dO, and so delta, zero on every q head but
         # the first of each group: its dk/dv are then that head's alone
         keep = (torch.arange(hq, device=dev) % (hq // hkv) == 0).to(dtype)
-        one = summed(kernels(q, k, v, seg, (do * keep[None, :, None]).contiguous())[2], hkv)
+        one = kernels(q, k, v, seg, (do * keep[None, :, None]).contiguous())[2]
         bwd_faults["dk/dv of only one q head of each group"] = (grads[0], one[1], one[2])
         # lse in log2 units: a kernel that folds log2(e) into the scale for
         # exp2 and does not convert its lse back
         wrong = kernels(q, k, v, seg, do, lse_scale=float(np.log2(np.e)))
         fwd_faults["lse with the wrong scale (log2 units)"] = wrong[:2]
-        bwd_faults["the backward given lse with the wrong scale"] = summed(wrong[2], hkv)
+        bwd_faults["the backward given lse with the wrong scale"] = wrong[2]
         if dname == "bf16":
             p_out, p_lse = f1.flash_segment_attention_reference(q.float(), k.float(), v.float(), seg)
             fwd_faults["p not rounded before p.v"] = (p_out.to(dtype), p_lse)
@@ -2168,7 +2133,7 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             print(f"  planted fault {dname}, {name}: backward gate "
                   f"{'PASSED' if ok else 'REJECTED'} ({_gate_line(rows)})")
             check(not ok, f"the {dname} v1 backward gate passes a planted fault: {name}")
-        del out, lse, grads, want, fwd_faults, bwd_faults, wrong, one
+        del out, lse, grads, want, fwd_faults, bwd_faults, wrong, one, skip
 
         # times at the bench shape (the numbers of the JSON line) and at the
         # base_vq serving layout, heads 12/4: each kernel at its C entry on
@@ -2181,27 +2146,17 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
             seg = torch.from_numpy(seg_np).to(dev)
             out, lse = f1._fwd(q, k, v, seg)
             delta = fa._delta(out, do)
-            # the C entries' interval arguments: the f32 forward's and dk/dv's
-            # their tiles' intervals, the dq's and bf16's none (the kernels
-            # search the ids)
-            mm = {kind: f1._intervals(seg, kind, dname) for kind in ("fwd", "dq", "dkv")}
-            ivals = {kind: (None, None, 0, 0) if m[0] is None else
-                     (m[0].data_ptr(), m[1].data_ptr(), *f1.TILES[kind])
-                     for kind, m in mm.items()}
             o2, l2 = torch.empty_like(q), torch.empty_like(lse)
-            # dk/dv: bf16 summed over each group, f32 per q head
-            dq = torch.empty_like(q)
-            dk_h, dv_h = (torch.empty_like(k if dname == "bf16" else q) for _ in range(2))
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
             stream = torch.cuda.current_stream().cuda_stream
             tail = (S, hq, hkv, float(D ** -0.5), int(dname == "bf16"), stream)
             head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr())
             bwd_in = (do.data_ptr(), lse.data_ptr(), delta.data_ptr())
-            ms = {"fwd": cuda_ms(lambda: fwd_fn(*head, *ivals["fwd"], o2.data_ptr(),
-                                                l2.data_ptr(), *tail), reps=100),
-                  "dq": cuda_ms(lambda: dq_fn(*head, *ivals["dq"], *bwd_in, dq.data_ptr(),
-                                              *tail), reps=100),
-                  "dkv": cuda_ms(lambda: dkv_fn(*head, *ivals["dkv"], *bwd_in, dk_h.data_ptr(),
-                                                dv_h.data_ptr(), *tail), reps=100)}
+            ms = {"fwd": cuda_ms(lambda: fwd_fn(*head, o2.data_ptr(), l2.data_ptr(), *tail),
+                                 reps=100),
+                  "dq": cuda_ms(lambda: dq_fn(*head, *bwd_in, dq.data_ptr(), *tail), reps=100),
+                  "dkv": cuda_ms(lambda: dkv_fn(*head, *bwd_in, dk.data_ptr(), dv.data_ptr(),
+                                                *tail), reps=100)}
             check(torch.equal(o2, out), "the timed forward launches changed their output")
             wrap_fwd = cuda_ms(lambda: f1._fwd(q, k, v, seg), reps=100)
             wrap_bwd = cuda_ms(lambda: f1._bwd(q, k, v, seg, out, lse, do), reps=100)
@@ -2243,10 +2198,10 @@ def phase_v1_kernels(card: str, train_cfg) -> dict:
                     res[f"{kind}_{dname}"][key] = timing
             print(f"timing v1 {dname} {label} S={S} [{card}]: " + ", ".join(parts) +
                   f"; through the wrappers forward {wrap_fwd:.4f} ms, backward (delta, both "
-                  f"kernels, group sums) {wrap_bwd:.4f} ms; plain forward {plain_fwd:.4f} ms, "
+                  f"kernels) {wrap_bwd:.4f} ms; plain forward {plain_fwd:.4f} ms, "
                   f"plain backward {plain_bwd:.4f} ms; library (SDPA, bool mask) forward "
                   f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms")
-            del q, k, v, do, out, lse, delta, o2, l2, dq, dk_h, dv_h, qb, kb, vb, ob, mask, mm
+            del q, k, v, do, out, lse, delta, o2, l2, dq, dk, dv, qb, kb, vb, ob, mask
         torch.cuda.empty_cache()
     return res
 
@@ -2589,7 +2544,8 @@ def f32_launch_shape(kind: str, hq: int, hkv: int, rope: bool) -> dict:
     (``kind`` "fwd"), dq ("dq") or dk/dv ("dkv") at hq / hkv heads:
     threads, dynamic shared memory, registers, CTAs an SM, heads (or warp
     groups) a CTA, rows a thread, kv rows a tile, and the K/V buffers (fwd),
-    kv column passes a tile (dq) or ring stages (dkv) as "stages"."""
+    kv column passes a tile (dq) or ring stages (dkv) as "stages". The v1
+    f32 kernels are the plain instantiations, built with the same flags."""
     from titok_tpu_torch.ops import _build
 
     lib = _build.load("flash_segment_attn_fwd" if kind == "fwd" else "flash_segment_attn_bwd")
@@ -2606,9 +2562,9 @@ def f32_launch_shape(kind: str, hq: int, hkv: int, rope: bool) -> dict:
 
 def print_f32_table(card: str, kres: dict, bres: dict, rres: dict, v1res: dict) -> None:
     """The f32 rows of the kernel table (PERF.md §6): each f32 entry of rows
-    1-4 at the shapes timed above, and the v1 f32 dq (the row 2 dq on one
-    id vector), its time, bound and share of bound, and its launch shape as
-    the library reports it."""
+    1-4 and of v1 (the row 1 forward and the row 2 dq and dk/dv on one id
+    vector) at the shapes timed above, its time, bound and share of bound,
+    and its launch shape as the library reports it."""
     rows = [("flash_segment_attn_fwd_f32", "fwd", False, kres["f32"], "bench 4/2", (4, 2)),
             ("flash_segment_attn_fwd_f32", "fwd", False, kres["f32"]["at_base_12_4"],
              "base_vq 12/4", (12, 4)),
@@ -2622,10 +2578,10 @@ def print_f32_table(card: str, kres: dict, bres: dict, rres: dict, v1res: dict) 
         name = f"flash_segment_attn_rope_{'fwd' if k == 'fwd' else 'bwd_' + k}_f32"
         rows.append((name, k, True, rres[f"{k}_f32"], "large 16/4", (16, 4)))
         rows.append((name, k, True, rres[f"{k}_f32"]["at_bench_4_2"], "bench 4/2", (4, 2)))
-    rows += [("flash_segment_attn_v1_bwd_dq_f32", "dq", False, v1res["dq_f32"], "bench 4/2",
-              (4, 2)),
-             ("flash_segment_attn_v1_bwd_dq_f32", "dq", False, v1res["dq_f32"]["at_base_12_4"],
-              "base_vq 12/4", (12, 4))]
+    for k in ("fwd", "dq", "dkv"):
+        name = f"flash_segment_attn_v1_{'fwd' if k == 'fwd' else 'bwd_' + k}_f32"
+        rows.append((name, k, False, v1res[f"{k}_f32"], "bench 4/2", (4, 2)))
+        rows.append((name, k, False, v1res[f"{k}_f32"]["at_base_12_4"], "base_vq 12/4", (12, 4)))
     for name, kind, rope, r, layout, (hq, hkv) in rows:
         sh = f32_launch_shape(kind, hq, hkv, rope)
         unit = {"fwd": "heads", "dq": "heads", "dkv": "warp groups"}[kind]

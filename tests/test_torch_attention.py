@@ -10,6 +10,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from titok_tpu.ops.attention import segment_attention_reference as j_reference  # noqa: E402
 from titok_tpu.ops.flash_attention import _remap_pad  # noqa: E402
 from titok_tpu.ops.flash_attention_mh import _choose_blocks, _mh_fwd  # noqa: E402

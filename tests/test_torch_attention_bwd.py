@@ -13,6 +13,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from titok_tpu.ops.flash_attention_mh import (  # noqa: E402
     flash_segment_attention_mh as j_flash_mh,
 )

@@ -26,6 +26,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from titok_tpu.ops.flash_attention import _remap_pad  # noqa: E402
 from titok_tpu.ops.flash_attention_mh import (  # noqa: E402
     _choose_blocks,
@@ -35,17 +36,6 @@ from titok_tpu.ops.flash_attention_mh import (  # noqa: E402
 )
 from titok_tpu_torch.ops import flash_attention_mh as fa  # noqa: E402
 from titok_tpu_torch.ops.attention import segment_attention  # noqa: E402
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny shapes: the default (one a core)
-    makes every small op a parallel region, which crawls when parallel test
-    workers oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # (S, Hq, Hkv, segment lengths, P): P = 30 is the model's (head dim 64, 3

@@ -21,6 +21,7 @@ import types
 import pytest
 import torch
 
+from tests.torch_threads import one_torch_thread  # noqa: F401
 from tests.util import tiny_config
 from titok_tpu_torch.config import Config
 from titok_tpu_torch.losses.loss_module import LossSystem
@@ -41,16 +42,6 @@ def _leave_nothing(tmp_path):
         else:
             p.unlink()
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny shapes: the default (one a core)
-    makes every small op a parallel region, which crawls when parallel test
-    workers oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 VQ = {"tokenizer.model.quantizer": "vq",
       "tokenizer.model.vq": {"codebook_size": 64, "dim": 4}}

@@ -1,7 +1,8 @@
 """The A/B tool of the segment-attention kernels (``titok_tpu_torch/tools/
 compare_attn.py``) on the CPU: its shapes and its bound, which must be the
 one ``chip_smoke.py`` reports for the same kernel, so that the two tools'
-shares of bound can be set side by side. Timing needs a card and is not
+shares of bound can be set side by side, and the tile intervals it gives
+older builds whose v1 entries take them. Timing needs a card and is not
 tested here."""
 
 import numpy as np
@@ -60,3 +61,41 @@ def test_vq_old_build_splits():
     CTAs."""
     assert [ca._old_vq_splits(S, ca.VQ_N) for S in ca.VQ_SHAPES] == [32, 32, 32]
     assert ca._old_vq_splits(100, 300) == 1
+
+
+def test_tile_minmax_pads_the_last_tile():
+    """The tile intervals that builds whose v1 entries take them were given
+    (the tool's copy of their wrapper's ``tile_minmax``): the last tile
+    completed with ``TAIL_ID``, pad (0) remapped above every real id."""
+    import torch
+
+    from titok_tpu_torch.ops import flash_attention_mh as fa
+
+    seg = torch.tensor([1, 1, 2, 2, 2, 0, 0], dtype=torch.int32)
+    got = ca.tile_minmax(seg, 4)
+    assert got.dtype == torch.int32 and got.tolist() == [[1, 2], [2, ca.TAIL_ID]]
+    assert ca.tile_minmax(seg, 7).tolist() == [[1, fa.PAD_ID]]
+    assert ca.TAIL_ID == fa.PAD_ID + 1
+
+
+@pytest.mark.parametrize("kind", ["v1_fwd", "v1_dkv"])
+@pytest.mark.parametrize("err", [0.0, 3e-7, 3e-5], ids=["same", "sum order", "fault"])
+def test_f32_gate_is_chip_smokes(kind, err):
+    """The tool's f32 gate, which holds the f32 v1 forward's and dk/dv's
+    outputs to OLD's, is ``chip_smoke.py``'s: the same verdict on the same
+    outputs, which pass at fp32 sum-order noise and fail at a fault."""
+    import torch
+
+    assert ca.F32_FWD_ATOL == chip_smoke.TOL["f32"][0] == chip_smoke.TOL["f32"][2]
+    assert ca.F32_BWD_GATE == chip_smoke.BWD_TOL["f32"]
+    g = torch.Generator().manual_seed(3)
+    want = [torch.randn(64, 2, 64, generator=g), torch.randn(64, 2, 64, generator=g)]
+    if kind == "v1_fwd":
+        want[1] = want[1][..., 0].contiguous()  # lse [S, H]
+    got = [w + err * torch.randn(w.shape, generator=g) for w in want]
+    ok, _ = ca.f32_gate(kind, got, want)
+    if kind == "v1_fwd":
+        want_ok, _ = chip_smoke.v1_fwd_gate(got[0], got[1], want[0], want[1], "f32")
+    else:
+        want_ok, _ = chip_smoke.bwd_gate(got, want, "f32")
+    assert ok == want_ok == (err < 1e-6)

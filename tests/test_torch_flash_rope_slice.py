@@ -23,6 +23,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from tests.util import PATCH, synthetic_videos, tiny_config  # noqa: E402
 from titok_tpu.config import Config as JConfig  # noqa: E402
 from titok_tpu.data.packing import build_disc_batch as j_build_disc_batch  # noqa: E402
@@ -42,16 +43,6 @@ from titok_tpu_torch.training.train_step import TrainStepBuilder  # noqa: E402
 from titok_tpu_torch.training.trainer import synthetic_batches  # noqa: E402
 from titok_tpu_torch.weights import from_flax_params  # noqa: E402
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny shapes: the default (one a core)
-    makes every small op a parallel region, which crawls when parallel test
-    workers oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 SLICE = {
     "tokenizer.model.fsq_levels": [8, 8, 8, 6, 5],

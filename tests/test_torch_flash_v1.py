@@ -19,6 +19,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from titok_tpu.models.titok import TiTok as JTiTok  # noqa: E402
 from titok_tpu.models.titok import TiTokModel as JTiTokModel  # noqa: E402
 from titok_tpu.ops.flash_attention import flash_segment_attention as j_flash  # noqa: E402
@@ -28,16 +29,6 @@ from titok_tpu_torch.ops import flash_attention_mh as fa  # noqa: E402
 from titok_tpu_torch.ops.attention import segment_attention, segment_attention_reference  # noqa: E402
 from titok_tpu_torch.weights import from_flax_params  # noqa: E402
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny shapes: the default (one a core)
-    makes every small op a parallel region, which crawls when parallel test
-    workers oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 BLOCK = 128
 # (S, Hq, Hkv, segment lengths): pad rows after the segments in the first
@@ -199,13 +190,11 @@ def test_flash_v1_on_cpu_launches_no_kernel(rng):
 
 def test_bf16_cpu_path_is_the_plain_version_and_launches_nothing(rng, monkeypatch):
     """bf16 CPU tensors through the entry point and its autograd backward
-    take the plain versions, bit for bit: no kernel is built or launched
-    and no tile intervals are computed."""
+    take the plain versions, bit for bit: no kernel is built or launched."""
     def unreachable(*a, **k):
-        raise AssertionError("the CPU path reached a kernel or its tile intervals")
+        raise AssertionError("the CPU path reached a kernel")
 
     monkeypatch.setattr(f1, "_kernels", unreachable)
-    monkeypatch.setattr(f1, "tile_minmax", unreachable)
     q, k, v, seg = _inputs(rng, *CASES["S300 4/2 ragged pad"])
     tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
     tseg = torch.from_numpy(seg)
@@ -224,13 +213,11 @@ def test_bf16_cpu_path_is_the_plain_version_and_launches_nothing(rng, monkeypatc
 
 def test_f32_bwd_cpu_path_is_the_plain_version_and_launches_nothing(rng, monkeypatch):
     """f32 CPU tensors through ``_bwd``, the backward autograd runs, take
-    the plain version, bit for bit: no kernel is built or launched and no
-    tile intervals are computed."""
+    the plain version, bit for bit: no kernel is built or launched."""
     def unreachable(*a, **k):
-        raise AssertionError("the CPU path reached a kernel or its tile intervals")
+        raise AssertionError("the CPU path reached a kernel")
 
     monkeypatch.setattr(f1, "_kernels", unreachable)
-    monkeypatch.setattr(f1, "tile_minmax", unreachable)
     q, k, v, seg = (torch.from_numpy(x) for x in _inputs(rng, *CASES["S300 4/2 ragged pad"]))
     do = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
     out, lse = f1.flash_segment_attention_reference(q, k, v, seg)
@@ -242,25 +229,52 @@ def test_f32_bwd_cpu_path_is_the_plain_version_and_launches_nothing(rng, monkeyp
         assert a.dtype == torch.float32 and torch.equal(a, b)
 
 
-def test_dq_reads_no_tile_intervals():
-    """The dq kernel searches the ids in either dtype, as the bf16 kernels
-    do: it gets no tile intervals; the f32 forward and dk/dv get theirs."""
-    seg = torch.tensor([1] * 40 + [2] * 50 + [0] * 10, dtype=torch.int32)
-    assert "dq" not in f1.TILES
-    for key in ("f32", "bf16"):
-        assert f1._intervals(seg, "dq", key) == (None, None)
-    assert f1._intervals(seg, "dkv", "bf16") == (None, None)
-    qmm, kmm = f1._intervals(seg, "dkv", "f32")
-    assert qmm.shape == kmm.shape == (4, 2) and torch.equal(qmm, f1.tile_minmax(seg, 32))
-    qmm, kmm = f1._intervals(seg, "fwd", "f32")
-    assert qmm.shape == (2, 2) and kmm.shape == (4, 2)
+def test_bind_v1_binds_entries_without_tile_intervals():
+    """``bind_v1`` gives each C entry q, k, v and the ids, then its own
+    buffers (fwd: out, lse; dq: dO, lse, delta, dq; dk/dv: dO, lse, delta,
+    dk, dv), then S, the heads, the scale, the dtype flag and the stream:
+    no tile intervals or tile sizes. A stub library, so nothing is built."""
+    import ctypes
+    import types
+
+    def entry():
+        return types.SimpleNamespace(argtypes=None, restype=None)
+
+    names = ("flash_segment_attn_v1_fwd", "flash_segment_attn_v1_bwd_dq",
+             "flash_segment_attn_v1_bwd_dkv")
+    lib = types.SimpleNamespace(**{n: entry() for n in names})
+    fns = f1.bind_v1(lib)
+    assert fns == tuple(getattr(lib, n) for n in names)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    tail = [I, I, I, ctypes.c_float, I, P]
+    for fn, n_bufs in zip(fns, (2, 4, 5)):
+        assert fn.argtypes == [P] * 4 + [P] * n_bufs + tail and fn.restype is I
 
 
-def test_tile_minmax_pads_the_last_tile():
-    seg = torch.tensor([1, 1, 2, 2, 2, 0, 0], dtype=torch.int32)
-    got = f1.tile_minmax(seg, 4)
-    assert got.tolist() == [[1, 2], [2, f1.TAIL_ID]]
-    assert f1.tile_minmax(seg, 7).tolist() == [[1, fa.PAD_ID]]
+# v1 against the row 1-2 plain versions in f32, where v1 rounds nothing:
+# the same function, so within fp32 sum order (1e-6)
+V1_F32_HEADS = {"4/2": (4, 2), "12/4": (12, 4), "8/1": (8, 1), "4/4": (4, 4)}
+
+
+@pytest.mark.parametrize("heads", list(V1_F32_HEADS))
+def test_f32_v1_is_the_row_1_2_function(rng, heads):
+    """The plain v1 forward and backward in f32 against
+    ``flash_attention_mh``'s plain f32 versions on one id vector: out, lse,
+    dq and the group-summed dk/dv within 1e-6, at every head split the
+    kernels take (4/2 one head a forward CTA, 12/4 three, 8/1 four with the
+    dk/dv's heads in two chunks, 4/4 a group of one)."""
+    hq, hkv = V1_F32_HEADS[heads]
+    q, k, v, seg = (torch.from_numpy(x) for x in _inputs(rng, 200, hq, hkv, (70, 1, 64, 45)))
+    do = torch.from_numpy(rng.normal(size=tuple(q.shape)).astype(np.float32))
+    out, lse = f1.flash_segment_attention_reference(q, k, v, seg)
+    m_out, m_lse = fa.flash_segment_attention_mh_reference(q, k, v, seg)
+    torch.testing.assert_close(out, m_out, atol=1e-6, rtol=0)
+    torch.testing.assert_close(lse, m_lse, atol=1e-6, rtol=0)
+    got = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, do)
+    want = fa.flash_segment_attention_mh_bwd_reference(q, k, v, seg, out, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0, msg=name)
 
 
 def test_tiny_model_forward_matches_jax(rng):

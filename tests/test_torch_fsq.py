@@ -14,6 +14,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from titok_tpu.models.quantizer import FSQ as JFSQ  # noqa: E402
 from titok_tpu_torch.models.quantizer import FSQ, round_ste  # noqa: E402
 

@@ -580,7 +580,7 @@ def _edge_dtype(kind):
 
 def _check_v1(dev, dtype, seg, hq, hkv, seed):
     """The three v1 kernels against their plain versions, one launch each;
-    dk/dv against the group sums of the plain per-head grads."""
+    the kernel's group-summed dk/dv against the plain version's."""
     from titok_tpu_torch.ops import flash_attention as f1
 
     S = seg.shape[0]
@@ -599,9 +599,7 @@ def _check_v1(dev, dtype, seg, hq, hkv, seed):
     nrel = BWD_TOL[dtype][2]
     d = (out.float() - ref_out.float()).square().mean().sqrt().item()
     assert d <= nrel * max(ref_out.float().square().mean().sqrt().item(), 1e-30)
-    dq, dk_h, dv_h = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, dout,
-                                                              per_head=True)
-    want = (dq, f1.group_sum(dk_h, hkv), f1.group_sum(dv_h, hkv))
+    want = f1.flash_segment_attention_bwd_reference(q, k, v, seg, out, lse, dout)
     for a, x in zip(grads, (q, k, v)):
         assert a.dtype == dtype and a.shape == x.shape and bool(torch.isfinite(a.float()).all())
     _assert_bwd_close(grads, want, dtype)
@@ -791,9 +789,9 @@ def test_flash_rope_remat_train_step_launches(cuda):
     assert int(indices.max()) < 4375 and int(indices.min()) >= 0
 
 
-# the v1 kernels (attn_impl: flash_v1): forward, dq and per-q-head dk/dv,
-# Sq == Sk, tile pairs skipped by interval overlap. Forward: the row 1
-# limits and rms(out - plain) <= nrel * rms(plain) (the plain version rounds
+# the v1 kernels (attn_impl: flash_v1): forward, dq and group-summed dk/dv,
+# Sq == Sk, each CTA searching the one id vector for its interval. Forward:
+# the row 1 limits and rms(out - plain) <= nrel * rms(plain) (the plain version rounds
 # p against the same running max per 64-row kv tile as the kernel, so in
 # bf16 they differ only where the sum order moves an output to its
 # neighbouring bf16 value); grads: the backward limits above.
@@ -829,9 +827,9 @@ def test_v1_wrappers_raise_on_cuda_instead_of_falling_back(cuda):
         f1._fwd(q, k[:100].contiguous(), v[:100].contiguous(), seg)
     with pytest.raises(ValueError, match="int32"):
         f1._fwd(q, k, v, seg.long())
-    qmm = f1.tile_minmax(seg, 64)
-    with pytest.raises(ValueError, match="tiles of 32 rows"):
-        f1.launch_fwd(q, k, v, seg, qmm, qmm, 0.125)  # the f32 forward's kv tiles are 32
+    out, lse = f1._fwd(q, k, v, seg)
+    with pytest.raises(ValueError, match="lse is"):  # the backward checks what it is given
+        f1._bwd(q, k, v, seg, out, lse[:, :2].contiguous(), torch.ones_like(q))
 
 
 # the bf16 v1 forward and dq are the row 1 forward and the row 2 dq
@@ -885,44 +883,63 @@ def test_v1_f32_dq_is_the_row2_dq(cuda, case):
     assert torch.equal(got, want)
 
 
-def test_v1_bf16_wrappers_compute_no_tile_intervals(cuda, monkeypatch):
-    """The bf16 v1 kernels search the ids: the forward and the backward
-    (through autograd, as the model calls them) run with ``tile_minmax``
-    made to raise, and an entry given tile intervals refuses them. In f32
-    the dq searches the ids too (and refuses intervals); the forward and
-    dk/dv still compute and read them."""
+@pytest.mark.parametrize("case", list(V1_ALIGNED) + ["ragged 1..1892, pad", "mid-tile 4/4"])
+def test_v1_f32_forward_and_dkv_are_rows_1_2(cuda, case):
+    """In f32 v1 rounds nothing: its forward is the row 1 f32 forward and its
+    dk/dv the row 2 f32 dk/dv (summed over each group in the kernel) on one
+    id vector, the same bits on every layout, aligned or not."""
     from titok_tpu_torch.ops import flash_attention as f1
 
-    def no_intervals(*a, **k):
-        raise AssertionError("tile_minmax ran")
+    lengths, S, hq, hkv = V1_ALIGNED[case] if case in V1_ALIGNED else V1_CASES[case]
+    seg = _segments(lengths, S).to(cuda)
+    q, k, v = _inputs(cuda, torch.float32, S, hq, hkv, seed=47)
+    dout = torch.randn(S, hq, 64, generator=torch.Generator(device=cuda).manual_seed(48),
+                       device=cuda)
+    names = ("v1_f32", "f32", "v1_bwd_dkv_f32", "bwd_dkv_f32")
+    before = {n: fa.launches[n] for n in names}
+    out, lse = f1._fwd(q, k, v, seg)
+    m_out, m_lse = fa._fwd(q, k, v, seg)
+    got = f1._bwd(q, k, v, seg, out, lse, dout)
+    want = fa._bwd(q, k, v, seg, out, lse, dout)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in names} == {n: 1 for n in names}
+    assert torch.equal(out, m_out) and torch.equal(lse, m_lse)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and torch.equal(a, b), name
 
-    monkeypatch.setattr(f1, "tile_minmax", no_intervals)
+
+def test_v1_wrappers_compute_no_tile_intervals(cuda, monkeypatch):
+    """No v1 kernel reads tile intervals, in either dtype: the entries take
+    none, and the forward and the backward (through autograd, as the model
+    calls them) run with the reductions that computed them (``amin``,
+    ``amax``) made to raise, one launch of each kernel."""
+    import inspect
+
+    from titok_tpu_torch.ops import flash_attention as f1
+
+    for fn in (f1.launch_fwd, f1.launch_bwd_dq, f1.launch_bwd_dkv):
+        assert not {"qmm", "kmm"} & set(inspect.signature(fn).parameters), fn.__name__
+    assert not any(hasattr(f1, n) for n in ("TILES", "tile_minmax", "_intervals"))
+
+    def no_intervals(*a, **k):
+        raise AssertionError("a tile interval was computed")
+
+    monkeypatch.setattr(torch.Tensor, "amin", no_intervals)
+    monkeypatch.setattr(torch.Tensor, "amax", no_intervals)
     seg = _segments([100, 200, 28], 400).to(cuda)
-    q, k, v = (x.requires_grad_() for x in _inputs(cuda, torch.bfloat16, 400, 4, 2, seed=43))
-    fa.reset_launches()
-    out = f1.flash_segment_attention(q, k, v, seg)
-    grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
-    torch.cuda.synchronize()
-    assert fa.launches == {**{n: 0 for n in fa.launches}, "v1_bf16": 1, "v1_bwd_dq_bf16": 1,
-                           "v1_bwd_dkv_bf16": 1}
-    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
-    mm = torch.zeros((7, 2), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="read no tile intervals"):
-        f1.launch_fwd(q.detach(), k.detach(), v.detach(), seg, mm, mm, 0.125)
-    qf, kf, vf = (x.detach().float() for x in (q, k, v))
-    out, lse = fa._fwd(qf, kf, vf, seg)
-    dout = torch.randn_like(qf)
-    delta = fa._delta(out, dout)
-    fa.reset_launches()
-    dq = f1.launch_bwd_dq(qf, kf, vf, seg, None, None, dout, lse, delta, 0.125)
-    torch.cuda.synchronize()
-    assert fa.launches["v1_bwd_dq_f32"] == 1 and bool(torch.isfinite(dq).all())
-    with pytest.raises(ValueError, match="read no tile intervals"):
-        f1.launch_bwd_dq(qf, kf, vf, seg, mm, mm, dout, lse, delta, 0.125)
-    with pytest.raises(AssertionError, match="tile_minmax ran"):  # the f32 forward computes them
-        f1._fwd(qf, kf, vf, seg)
-    with pytest.raises(AssertionError, match="tile_minmax ran"):  # so does the f32 dk/dv
-        f1._bwd(qf, kf, vf, seg, out, lse, dout)
+    for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = (x.requires_grad_() for x in _inputs(cuda, dtype, 400, 4, 2, seed=43))
+        fa.reset_launches()
+        out = f1.flash_segment_attention(q, k, v, seg)
+        grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+        torch.cuda.synchronize()
+        assert fa.launches == {**{n: 0 for n in fa.launches}, f"v1_{key}": 1,
+                               f"v1_bwd_dq_{key}": 1, f"v1_bwd_dkv_{key}": 1}
+        assert all(g.shape == x.shape and bool(torch.isfinite(g.float()).all())
+                   for g, x in zip(grads, (q, k, v)))
+        mm = torch.zeros((7, 2), dtype=torch.int32, device=cuda)
+        with pytest.raises(TypeError):  # an entry given tile intervals refuses them
+            f1.launch_fwd(q.detach(), k.detach(), v.detach(), seg, mm, mm, 0.125)
 
 
 def test_flash_v1_train_step_launches(cuda):

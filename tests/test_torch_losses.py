@@ -15,6 +15,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from tests.test_torch_train_step import f32_disc, to_flax  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from tests.util import PATCH, synthetic_videos, tiny_config  # noqa: E402
 from titok_tpu.data import packing as jpack  # noqa: E402
 from titok_tpu.losses.loss_module import LossSystem as JLossSystem  # noqa: E402

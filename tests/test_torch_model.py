@@ -13,6 +13,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from titok_tpu.config import load_config as j_load_config  # noqa: E402
 from titok_tpu.models.titok import TiTok as JTiTok  # noqa: E402
 from titok_tpu.models.titok import TiTokModel as JTiTokModel  # noqa: E402

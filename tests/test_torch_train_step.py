@@ -21,6 +21,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from tests.util import tiny_config  # noqa: E402
 from titok_tpu.data.packing import build_disc_batch as j_build_disc_batch  # noqa: E402
 from titok_tpu.losses.loss_module import LossSystem as JLossSystem  # noqa: E402
@@ -37,17 +38,6 @@ from titok_tpu_torch.train_utils.lr_schedulers import get_scheduler  # noqa: E40
 from titok_tpu_torch.training.train_step import TrainStepBuilder, optimizer_step  # noqa: E402
 from titok_tpu_torch.training.trainer import synthetic_batches  # noqa: E402
 from titok_tpu_torch.weights import from_flax_train_state  # noqa: E402
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny shapes: the default (one a core)
-    makes every small op a parallel region, which crawls when parallel test
-    workers oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("warm,total,lr,elr", [(2, 100, 1e-3, 1e-4), (0, 10, 3e-4, 0.0),

@@ -23,6 +23,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from tests.util import tiny_config  # noqa: E402
 from titok_tpu.metrics.psnr_device import packed_psnr_stats as j_psnr_stats  # noqa: E402
 from titok_tpu.metrics.ssim_device import ssim_frames_stats as j_ssim_stats  # noqa: E402
@@ -52,17 +53,6 @@ def _leave_nothing(tmp_path):
             shutil.rmtree(p)
         else:
             p.unlink()
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for these tiny shapes: the default (one a core)
-    makes every small op a parallel region, which crawls when parallel test
-    workers oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jcfg(path, **over):

@@ -16,6 +16,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from tests.util import PATCH, synthetic_videos  # noqa: E402
 from titok_tpu.models.titok import TiTok as JTiTok  # noqa: E402
 from titok_tpu.models.titok import TiTokModel as JTiTokModel  # noqa: E402

@@ -19,6 +19,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from tests.test_torch_train_step import f32_disc, to_flax  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from tests.util import tiny_config  # noqa: E402
 from titok_tpu.data.packing import build_disc_batch as j_build_disc_batch  # noqa: E402
 from titok_tpu.losses.loss_module import LossSystem as JLossSystem  # noqa: E402

@@ -11,16 +11,15 @@ v1's own is where the forward rounds p (against the running max after each
 head and rounded to the input dtype before the sum over each GQA group (JAX
 sums in XLA).
 
-The bf16 kernels and the f32 dq are instantiations of the multi-head
-kernels' pipelined templates (``csrc/segment_attn_{fwd,dq,dkv}.cuh``): each
-CTA searches the ids for its exact interval, so the wrapper computes no tile
-intervals for them. The forward's kv tiles are aligned to row 0 as above;
-dq is the multi-head dq, in either dtype; dk/dv rounds each head before the
-group sum and writes the group sums itself. The f32 forward and dk/dv keep
-v1's own design: per-tile [min, max] ids computed here by torch ops
-(:func:`tile_minmax`, JAX's ``_block_minmax``), tile pairs skipped where
-those intervals do not overlap, each q head's dk/dv summed over its group by
-:func:`group_sum`. The source notes say what bounds the kernels on the H100.
+Every kernel is an instantiation of the multi-head kernels' pipelined
+templates (``csrc/segment_attn_{fwd,dq,dkv}.cuh``): each CTA searches the
+ids for its exact interval, so no v1 kernel reads tile intervals and the
+wrapper computes none. In bf16 the forward's kv tiles are aligned to row 0
+as above, and dk/dv rounds each head before the group sum; in f32 nothing
+is rounded, so the forward and dk/dv are the multi-head f32 kernels on one
+id vector. The dq is the multi-head dq in either dtype. The dk/dv kernel
+writes the group sums itself, in either dtype. The source notes say what
+bounds the kernels on the H100.
 
 - :func:`flash_segment_attention` — the entry point ``attn_impl:
   flash_v1`` reaches. With grad enabled and an input that requires grad
@@ -35,8 +34,7 @@ those intervals do not overlap, each q head's dk/dv summed over its group by
   so in bf16 it rounds p where the kernel does; the backward rounds each q
   head's dk/dv before the group sum.
 - :func:`launch_fwd`, :func:`launch_bwd_dq`, :func:`launch_bwd_dkv` — the
-  kernels' C entries; the f32 forward and dk/dv on given tile intervals
-  (:func:`tile_minmax`), the dq and every bf16 kernel on none.
+  kernels' C entries.
 
 Launches are counted in ``flash_attention_mh.launches`` under ``v1_*``.
 """
@@ -50,7 +48,6 @@ import torch
 
 from titok_tpu_torch.ops.flash_attention_mh import (
     NEG_INF,
-    PAD_ID,
     _check,
     _check_bwd,
     _delta,
@@ -58,30 +55,11 @@ from titok_tpu_torch.ops.flash_attention_mh import (
     launches,
 )
 
-# tile rows (q, kv) of the f32 forward and dk/dv, as
-# csrc/flash_segment_attn_v1.cu has them; the dq and the bf16 kernels read
-# no tile intervals
-TILES = {"fwd": (64, 32), "dkv": (32, 32)}
 # the kv tile of the bf16 forward, aligned to row 0: where the kernel rounds p
 # against a new max
 BLOCK = 64
-# ids of the rows that complete the last tile (JAX pads S with 2^30 + 1)
-TAIL_ID = PAD_ID + 1
 # elements of one dense f32 [q rows, S] block in the plain versions (256 MiB)
 _DENSE_ELEMS = 2**26
-
-
-def tile_minmax(segment_ids: torch.Tensor, tile: int) -> torch.Tensor:
-    """int32 ``[ceil(S / tile), 2]``: (min, max) of the remapped ids of each
-    tile of ``tile`` rows, the last tile completed with ``TAIL_ID`` (JAX's
-    ``_block_minmax`` of the padded ids)."""
-    seg = _remap_pad(segment_ids)
-    S = seg.shape[0]
-    n = -(-S // tile)
-    if n * tile != S:
-        seg = torch.cat([seg, seg.new_full((n * tile - S,), TAIL_ID)])
-    s = seg.view(n, tile)
-    return torch.stack([s.amin(1), s.amax(1)], dim=1).contiguous()
 
 
 def _prepare(q, k, segment_ids, scale):
@@ -206,15 +184,14 @@ def flash_segment_attention_bwd_reference(
 
 def bind_v1(lib: ctypes.CDLL):
     """The three C entry points of a ``flash_segment_attn_v1`` library (fwd,
-    dq, dkv) with their argument types. Each takes q, k, v, the ids, the q
-    and kv tile intervals and their tile sizes (read by the f32 kernels
-    only), then its own buffers, then S, the head counts, the scale, the
-    dtype flag and the stream."""
+    dq, dkv) with their argument types. Each takes q, k, v and the ids, then
+    its own buffers, then S, the head counts, the scale, the dtype flag and
+    the stream; none takes tile intervals."""
     fns = (lib.flash_segment_attn_v1_fwd, lib.flash_segment_attn_v1_bwd_dq,
            lib.flash_segment_attn_v1_bwd_dkv)
     for fn, n_ptr in zip(fns, (2, 4, 5)):
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * n_ptr + [
-            ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (4 + n_ptr) + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fns
 
@@ -232,54 +209,24 @@ def _key(q: torch.Tensor) -> str:
     return "bf16" if q.dtype == torch.bfloat16 else "f32"
 
 
-def _check_mm(S: int, tiles: tuple[int, int], qmm: torch.Tensor, kmm: torch.Tensor, device):
-    for name, mm, tile in (("qmm", qmm, tiles[0]), ("kmm", kmm, tiles[1])):
-        want = (-(-S // tile), 2)
-        if mm is None or mm.shape != want or mm.dtype != torch.int32 or mm.device != device \
-                or not mm.is_contiguous():
-            got = "None" if mm is None else f"{tuple(mm.shape)} {mm.dtype} {mm.device}"
-            raise ValueError(f"{name} must be contiguous int32 {want} on {device} (tiles of "
-                             f"{tile} rows), got {got}")
-
-
-def _searches(key: str, kind: str) -> bool:
-    """Whether the ``kind`` kernel in ``key`` searches the ids (every bf16
-    kernel and the dq) and so reads no tile intervals."""
-    return key == "bf16" or kind == "dq"
-
-
-def _common(q, k, v, seg, qmm, kmm, kind):
-    """Checks of a launch; returns (key, the entry's interval arguments
-    (qmm, kmm, q tile, kv tile), S, Hq, Hkv, stream). The f32 forward and
-    dk/dv read the tile intervals ``TILES[kind]``; the kernels that search
-    the ids (:func:`_searches`) read none and are given none."""
+def _common(q, k, v, seg):
+    """Checks of a launch; returns (key, S, Hq, Hkv, stream)."""
     if q.device.type != "cuda":
         raise ValueError(f"the v1 kernels run on CUDA tensors, got {q.device}")
     S, Hq, _ = q.shape
     if k.shape[0] != S:
         raise ValueError(f"v1 attention needs Sq == Sk, got {S} and {k.shape[0]}")
     _check(q, k, v, seg, seg)
-    key = _key(q)
-    if _searches(key, kind):
-        if qmm is not None or kmm is not None:
-            raise ValueError(f"the {'bf16 v1 kernels' if key == 'bf16' else 'v1 dq kernels'} "
-                             f"search the ids and read no tile intervals")
-        mm = (None, None, 0, 0)
-    else:
-        _check_mm(S, TILES[kind], qmm, kmm, q.device)
-        mm = (qmm.data_ptr(), kmm.data_ptr(), *TILES[kind])
-    return key, mm, S, Hq, k.shape[1], torch.cuda.current_stream(q.device).cuda_stream
+    return _key(q), S, Hq, k.shape[1], torch.cuda.current_stream(q.device).cuda_stream
 
 
-def launch_fwd(q, k, v, seg, qmm, kmm, scale) -> tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel on CUDA tensors: ``(out, lse [S, Hq] f32)``. f32:
-    on the tile intervals ``qmm`` / ``kmm`` of ``TILES['fwd']``; bf16: both
-    ``None``."""
-    key, mm, S, Hq, Hkv, stream = _common(q, k, v, seg, qmm, kmm, "fwd")
+def launch_fwd(q, k, v, seg, scale) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on CUDA tensors: ``(out, lse [S, Hq] f32)``."""
+    key, S, Hq, Hkv, stream = _common(q, k, v, seg)
     out = torch.empty_like(q)
     lse = torch.empty((S, Hq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _kernels()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), *mm,
+        err = _kernels()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
                             out.data_ptr(), lse.data_ptr(), S, Hq, Hkv, float(scale),
                             int(key == "bf16"), stream)
     if err != 0:
@@ -288,13 +235,12 @@ def launch_fwd(q, k, v, seg, qmm, kmm, scale) -> tuple[torch.Tensor, torch.Tenso
     return out, lse
 
 
-def launch_bwd_dq(q, k, v, seg, qmm, kmm, dout, lse, delta, scale) -> torch.Tensor:
-    """The dq kernel, the row 2 dq on one id vector: it searches the ids, so
-    ``qmm`` and ``kmm`` are ``None`` in either dtype."""
-    key, mm, S, Hq, Hkv, stream = _common(q, k, v, seg, qmm, kmm, "dq")
+def launch_bwd_dq(q, k, v, seg, dout, lse, delta, scale) -> torch.Tensor:
+    """The dq kernel, the row 2 dq on one id vector."""
+    key, S, Hq, Hkv, stream = _common(q, k, v, seg)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _kernels()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), *mm,
+        err = _kernels()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
                             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                             S, Hq, Hkv, float(scale), int(key == "bf16"), stream)
     if err != 0:
@@ -303,17 +249,14 @@ def launch_bwd_dq(q, k, v, seg, qmm, kmm, dout, lse, delta, scale) -> torch.Tens
     return dq
 
 
-def launch_bwd_dkv(q, k, v, seg, qmm, kmm, dout, lse, delta,
-                   scale) -> tuple[torch.Tensor, torch.Tensor]:
-    """The dk/dv kernel (f32 on the tile intervals of ``TILES['dkv']``;
-    bf16 on none): bf16 ``(dk, dv)`` ``[S, Hkv, D]``, each q head's share
-    rounded to bf16 and then summed over its group, as :func:`group_sum`
-    sums them; f32 each q head's ``(dk_h, dv_h)``, ``[S, Hq, D]``."""
-    key, mm, S, Hq, Hkv, stream = _common(q, k, v, seg, qmm, kmm, "dkv")
-    like = k if key == "bf16" else q
-    dk, dv = torch.empty_like(like), torch.empty_like(like)
+def launch_bwd_dkv(q, k, v, seg, dout, lse, delta, scale) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel: ``(dk, dv)`` ``[S, Hkv, D]``, summed over each
+    group in the kernel; in bf16 each q head's share rounded to bf16 first,
+    as :func:`group_sum` sums the plain version's."""
+    key, S, Hq, Hkv, stream = _common(q, k, v, seg)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = _kernels()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), *mm,
+        err = _kernels()[2](q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
                             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                             dv.data_ptr(), S, Hq, Hkv, float(scale), int(key == "bf16"), stream)
     if err != 0:
@@ -322,41 +265,26 @@ def launch_bwd_dkv(q, k, v, seg, qmm, kmm, dout, lse, delta,
     return dk, dv
 
 
-def _intervals(seg: torch.Tensor, kind: str, key: str):
-    """(qmm, kmm) of one id vector for the ``kind`` kernel: at the f32
-    forward's or dk/dv's q and kv tile sizes, ``(None, None)`` for a kernel
-    that searches the ids (:func:`_searches`)."""
-    if _searches(key, kind):
-        return None, None
-    tiles = TILES[kind]
-    qmm = tile_minmax(seg, tiles[0])
-    return qmm, (qmm if tiles[1] == tiles[0] else tile_minmax(seg, tiles[1]))
-
-
 def _fwd(q, k, v, segment_ids, scale=None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)``: the forward kernel for CUDA tensors, the plain
     version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_segment_attention_reference(q, k, v, segment_ids, scale)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    return launch_fwd(q, k, v, segment_ids, *_intervals(segment_ids, "fwd", _key(q)), scale)
+    return launch_fwd(q, k, v, segment_ids, scale)
 
 
 def _bwd(q, k, v, segment_ids, out, lse, dout,
          scale=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)``: the dq and dk/dv kernels for CUDA tensors (and in
-    f32 the group sum), the plain version for CPU tensors. The dq reads no
-    tile intervals; in f32 the dk/dv reads those of ``TILES['dkv']``."""
+    """``(dq, dk, dv)``: the dq and dk/dv kernels for CUDA tensors, the
+    plain version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_segment_attention_bwd_reference(q, k, v, segment_ids, out, lse, dout, scale)
     _check_bwd(q, out, lse, dout)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     delta = _delta(out, dout)
-    dq = launch_bwd_dq(q, k, v, segment_ids, None, None, dout, lse, delta, scale)
-    dk, dv = launch_bwd_dkv(q, k, v, segment_ids, *_intervals(segment_ids, "dkv", _key(q)),
-                            dout, lse, delta, scale)
-    if q.dtype == torch.float32:  # the f32 kernel's per-head grads
-        dk, dv = group_sum(dk, k.shape[1]), group_sum(dv, k.shape[1])
+    dq = launch_bwd_dq(q, k, v, segment_ids, dout, lse, delta, scale)
+    dk, dv = launch_bwd_dkv(q, k, v, segment_ids, dout, lse, delta, scale)
     return dq, dk, dv
 
 
@@ -391,7 +319,8 @@ def flash_segment_attention(
     """Segment-masked attention ``[S, Hq, D]`` in q's dtype through the v1
     kernels, differentiable in q, k and v. q, k and v have one length S;
     ids must be non-decreasing once pad (0) is remapped above every real id,
-    as the packer lays them out (tile skipping relies on it)."""
+    as the packer lays them out (the kernels' search of the ids relies on
+    it)."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashSegmentAttnV1.apply(q, k, v, segment_ids, scale)

@@ -19,24 +19,29 @@ large serving layout, the same ids at heads 16/4) it times the entries of
 every kind in ``KINDS`` in each dtype of ``--dtype`` (default both): the
 forward, dk/dv and dq entries, plain and RoPE, in bf16 and f32 (``f32``
 counts 4-byte elements and the fp32 FMA peak in the bound, as
-``chip_smoke.py`` does), and the v1 forward, dq and dk/dv entries in bf16
-and the v1 dq in f32 (``F32_KINDS`` lists what f32 times), on fixed
-buffers (RoPE tables of random angles, P 30), in the order OLD, NEW,
-(variants, variants reversed,) NEW, OLD each round, with CUDA events over
-``--reps`` launches. Each v1 entry is timed as its build's wrapper runs it,
-and alone: a build whose v1 bf16 forward and dq read tile intervals (it
-lacks ``flash_segment_attn_v1_bf16_searches``), or whose v1 f32 dq does (it
-lacks ``flash_segment_attn_v1_f32_dq_searches``; tiles of 32 q and 32 kv
-rows), with the ``tile_minmax`` its wrapper ran before each launch, one
-whose v1 bf16 dk/dv writes each q head's grads (it lacks
-``flash_segment_attn_v1_dkv_summed``) with the two ``group_sum`` ops its
-wrapper ran after it. Every build gets the same arguments (the tile
-intervals too, which a build that searches the ids does not read). Prints
-each build's ``-Xptxas -v`` lines, each time, the means and medians (one
-late sample of a few µs of host or clock noise moves a mean), each build's
-time over OLD's, the bound and the share of bound, and the largest
-difference between each build's outputs and OLD's (dk/dv
-summed over each group).
+``chip_smoke.py`` does), and the v1 forward, dq and dk/dv entries, in both
+dtypes (``F32_KINDS`` lists what f32 times), on fixed buffers (RoPE tables
+of random angles, P 30), in the order OLD, NEW, (variants, variants
+reversed,) NEW, OLD each round, with CUDA events over ``--reps`` launches.
+Each v1 entry is timed as its build's wrapper runs it, and alone. A build
+without ``flash_segment_attn_v1_f32_searches`` has v1 entries that take
+tile intervals after the ids (``bind_v1_intervals``); each is given the
+intervals of its tiles (``tile_minmax``, the wrapper's copy kept here), and
+where it reads them it is timed with the ``tile_minmax`` its wrapper ran
+before each launch: the bf16 forward and dq where the build lacks
+``flash_segment_attn_v1_bf16_searches`` (tiles of 64 rows), the f32 dq
+where it lacks ``flash_segment_attn_v1_f32_dq_searches`` (32 and 32), the
+f32 forward (64 q and 32 kv rows) and dk/dv (32 and 32) always. A dk/dv
+that writes each q head's grads, bf16 where the build lacks
+``flash_segment_attn_v1_dkv_summed`` and f32 in such a build, is timed with
+the two ``group_sum`` ops its wrapper ran after it. Prints each build's
+``-Xptxas -v`` lines, each time, the means and medians (one late sample of
+a few µs of host or clock noise moves a mean), each build's time over
+OLD's, the bound and the share of bound, and the largest difference between
+each build's outputs and OLD's (dk/dv summed over each group); for the f32
+v1 forward and dk/dv, whose fp32 sum order changed when they became the
+row 1 and row 2 kernels, also whether each build's outputs are within
+the f32 gate of ``chip_smoke.py`` (``f32_gate``) of OLD's.
 
 The ``vq`` kind times the VQ search at S 4096, 3409 and 1152 (N 16384, D 8:
 S 4096 is the one shape base_vq runs, a training step or a serving group
@@ -69,24 +74,81 @@ import torch
 
 from titok_tpu_torch.ops import _build
 from titok_tpu_torch.ops import vq_distance as vd
-from titok_tpu_torch.ops.flash_attention import bind_v1, group_sum, tile_minmax
-from titok_tpu_torch.ops.flash_attention_mh import bind_bwd, bind_fwd
+from titok_tpu_torch.ops.flash_attention import bind_v1, group_sum
+from titok_tpu_torch.ops.flash_attention_mh import PAD_ID, _remap_pad, bind_bwd, bind_fwd
 
 # H100 SXM, dense (NVIDIA data sheet): bf16 tensor cores, fp32 FMA, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 D, P = 64, 30
 KINDS = ("fwd", "rope_fwd", "dkv", "rope_dkv", "dq", "rope_dq", "v1_fwd", "v1_dq",
          "v1_dkv")
-# the kinds timed in f32 (the v1 f32 forward and dk/dv, which read tile
-# intervals of their own sizes and write per-head dk/dv, are not timed here)
-F32_KINDS = KINDS[:6] + ("v1_dq",)
-# the q and kv tile rows of the tile intervals a v1 entry that reads them
-# takes: bf16 forward and dq, f32 dq
-V1_TILES = {"bf16": 64, "f32": 32}
+# the kinds timed in f32: every one
+F32_KINDS = KINDS
+# the q and kv tile rows of the tile intervals a v1 entry of a build without
+# flash_segment_attn_v1_f32_searches takes, by dtype and kind
+V1_TILES = {"bf16": {"fwd": (64, 64), "dq": (64, 64), "dkv": (64, 64)},
+            "f32": {"fwd": (64, 32), "dq": (32, 32), "dkv": (32, 32)}}
+# ids of the rows that complete the last tile of such intervals (JAX pads S
+# with 2^30 + 1)
+TAIL_ID = PAD_ID + 1
+# the f32 gates of chip_smoke.py (PERF.md §2): the forward's out and lse
+# atol; the backward's (atol_frac of the largest |entry|, rtol, rms ratio)
+F32_FWD_ATOL, F32_BWD_GATE = 1e-5, (1e-6, 1e-4, 3e-6)
 DTYPES = ("bf16", "f32")
 # the VQ search: base_vq's shape (S 4096), two smaller S, codebook, dim
 VQ_SHAPES = (4096, 3409, 1152)
 VQ_N, VQ_D = 16384, 8
+
+
+def tile_minmax(segment_ids: torch.Tensor, tile: int) -> torch.Tensor:
+    """int32 ``[ceil(S / tile), 2]``: (min, max) of the remapped ids of each
+    tile of ``tile`` rows, the last tile completed with ``TAIL_ID`` (JAX's
+    ``_block_minmax`` of the padded ids): the tile intervals an older
+    build's v1 wrapper computed before each launch that read them."""
+    seg = _remap_pad(segment_ids)
+    S = seg.shape[0]
+    n = -(-S // tile)
+    if n * tile != S:
+        seg = torch.cat([seg, seg.new_full((n * tile - S,), TAIL_ID)])
+    s = seg.view(n, tile)
+    return torch.stack([s.amin(1), s.amax(1)], dim=1).contiguous()
+
+
+def bind_v1_intervals(lib: ctypes.CDLL):
+    """The three v1 entries (fwd, dq, dkv) of a build without
+    ``flash_segment_attn_v1_f32_searches``: after q, k, v and the ids they
+    take the q and kv tile intervals and their tile rows."""
+    fns = (lib.flash_segment_attn_v1_fwd, lib.flash_segment_attn_v1_bwd_dq,
+           lib.flash_segment_attn_v1_bwd_dkv)
+    for fn, n_ptr in zip(fns, (2, 4, 5)):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * n_ptr + [
+            ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fns
+
+
+def f32_gate(kind: str, got, want) -> tuple[bool, str]:
+    """Whether the f32 outputs ``got`` are within ``chip_smoke.py``'s f32
+    gate of ``want``: forward (out, lse), every entry within the atol and
+    rms(d) <= nrel * rms(want's out); dk/dv (dk, dv), every entry within
+    atol_frac * M + rtol * |b| and rms(d) <= nrel * R (M, R: the largest
+    |entry| and the rms of ``want``)."""
+    atol_frac, rtol, nrel = F32_BWD_GATE
+    ws = [b.float() for b in want]
+    ds = [(a.float() - b).abs() for a, b in zip(got, ws)]
+    if kind.endswith("fwd"):
+        e, e_lse = ds[0].max().item(), ds[1].max().item()
+        rel = ds[0].square().mean().sqrt().item() / max(
+            ws[0].square().mean().sqrt().item(), 1e-30)
+        return e <= F32_FWD_ATOL and e_lse <= F32_FWD_ATOL and rel <= nrel, (
+            f"out max|d| {e:.3e}, lse max|d| {e_lse:.3e} (atol {F32_FWD_ATOL}), rms ratio "
+            f"{rel:.2e} (limit {nrel})")
+    M = max(max(b.abs().max().item() for b in ws), 1e-30)
+    R = max(torch.cat([b.flatten() for b in ws]).square().mean().sqrt().item(), 1e-30)
+    need = max((d - rtol * b.abs()).clamp(min=0).max().item() for d, b in zip(ds, ws)) / M
+    rel = max(d.square().mean().sqrt().item() for d in ds) / R
+    return need <= atol_frac and rel <= nrel, (f"needs atol_frac {need:.2e} (limit {atol_frac}), "
+                                               f"rms ratio {rel:.2e} (limit {nrel})")
 
 
 def _segments(lengths, S):
@@ -153,8 +215,9 @@ def _build_pair(label: str, csrc: str):
     """Build a directory's four sources; ``(entries by kind, what its v1
     entries do: {"summed": its bf16 dk/dv sums each group, "searches": its
     bf16 forward and dq read no tile intervals, "f32_dq_searches": its f32
-    dq reads none}, and whether its VQ search is one launch ("vq_one"),
-    ptxas lines)``."""
+    dq reads none, "f32_searches": no entry takes tile intervals and the f32
+    dk/dv sums each group}, and whether its VQ search is one launch
+    ("vq_one"), ptxas lines)``."""
     libs, lines = {}, []
     for name in ("flash_segment_attn_fwd", "flash_segment_attn_bwd", "flash_segment_attn_v1",
                  "vq_nearest"):
@@ -165,7 +228,8 @@ def _build_pair(label: str, csrc: str):
     fwd, rope_fwd = bind_fwd(libs["flash_segment_attn_fwd"])
     dq, dkv, rope_dq, rope_dkv = bind_bwd(libs["flash_segment_attn_bwd"])
     v1 = libs["flash_segment_attn_v1"]
-    v1_fwd, v1_dq, v1_dkv = bind_v1(v1)
+    f32_searches = hasattr(v1, "flash_segment_attn_v1_f32_searches")
+    v1_fwd, v1_dq, v1_dkv = (bind_v1 if f32_searches else bind_v1_intervals)(v1)
     vq = libs["vq_nearest"]
     vq_one = hasattr(vq, "vq_nearest_one_launch")
     vq_fn = vq.vq_nearest
@@ -177,6 +241,7 @@ def _build_pair(label: str, csrc: str):
     flags = {"summed": hasattr(v1, "flash_segment_attn_v1_dkv_summed"),
              "searches": hasattr(v1, "flash_segment_attn_v1_bf16_searches"),
              "f32_dq_searches": hasattr(v1, "flash_segment_attn_v1_f32_dq_searches"),
+             "f32_searches": f32_searches,
              "vq_one": vq_one}
     return fns, flags, lines
 
@@ -266,10 +331,9 @@ class Case:
     """Fixed inputs of one shape in ``dtype`` and, per build, the output buffers of
     every kind; ``args(kind, label)`` is the C entry's argument tuple,
     ``runner(kind, label)`` what a caller of that build runs: the entry,
-    for a v1 forward or dq that reads tile intervals the ``tile_minmax``
-    before it, for a per-head v1 dk/dv the wrapper's two group sums after
-    it. ``flags`` tells, per build label, what its v1 entries do
-    (``_build_pair``)."""
+    for a v1 entry that reads tile intervals the ``tile_minmax`` before it,
+    for a per-head v1 dk/dv the wrapper's two group sums after it. ``flags``
+    tells, per build label, what its v1 entries do (``_build_pair``)."""
 
     def __init__(self, seg_np, hq, hkv, fns_new, flags, seed=1, dtype="bf16"):
         dev = torch.device("cuda")
@@ -278,7 +342,7 @@ class Case:
         bf = torch.bfloat16 if dtype == "bf16" else torch.float32
         self.S, self.hq, self.hkv, self.flags = S, hq, hkv, flags
         self.is_bf16 = int(dtype == "bf16")
-        self.tile = V1_TILES[dtype]
+        self.tiles = V1_TILES[dtype]
         self.q = torch.randn(S, hq, D, generator=g, device=dev).to(bf)
         self.k = torch.randn(S, hkv, D, generator=g, device=dev).to(bf)
         self.v = torch.randn(S, hkv, D, generator=g, device=dev).to(bf)
@@ -286,8 +350,9 @@ class Case:
         ang = torch.rand(S, P, generator=g, device=dev) * (2 * np.pi)
         self.cos, self.sin = ang.cos().contiguous(), ang.sin().contiguous()
         self.seg = torch.from_numpy(seg_np).to(dev)
-        # the q and kv tile intervals of the v1 builds that read them
-        self.mm = tile_minmax(self.seg, self.tile)
+        # the tile intervals, by tile rows, of the builds whose v1 entries
+        # take them
+        self.mm = {t: tile_minmax(self.seg, t) for t in (32, 64)}
         self.stream = torch.cuda.current_stream().cuda_stream
         self.outs = {}
         self.sums = {}  # per label: a per-head v1 dk/dv after the group sums
@@ -317,6 +382,21 @@ class Case:
     def _fwd_args(self, rope, out, lse):
         return tuple(self._ptrs(rope) + [out.data_ptr(), lse.data_ptr()] + self._tail())
 
+    def _per_head(self, label: str) -> bool:
+        """Whether build ``label``'s v1 dk/dv writes each q head's grads."""
+        f = self.flags[label]
+        return not (f["summed"] if self.is_bf16 else f["f32_searches"])
+
+    def _reads_intervals(self, kind: str, label: str) -> bool:
+        """Whether build ``label``'s v1 entry of ``kind`` reads its tile
+        intervals, which its wrapper computed before each launch."""
+        f = self.flags[label]
+        if f["f32_searches"] or not kind.startswith("v1_"):
+            return False
+        if self.is_bf16:
+            return kind != "v1_dkv" and not f["searches"]
+        return kind != "v1_dq" or not f["f32_dq_searches"]
+
     def args(self, kind: str, label: str):
         rope = kind.startswith("rope_")
         base = kind.removeprefix("rope_").removeprefix("v1_")
@@ -327,55 +407,61 @@ class Case:
                                   torch.empty(self.S, self.hq, device=self.q.device))
             elif base == "dq":
                 self.outs[key] = (torch.empty_like(self.q),)
-            elif kind == "v1_dkv" and not self.flags[label]["summed"]:
+            elif kind == "v1_dkv" and self._per_head(label):
                 self.outs[key] = (torch.empty_like(self.q), torch.empty_like(self.q))
             else:
                 self.outs[key] = (torch.empty_like(self.k), torch.empty_like(self.v))
         outs = [t.data_ptr() for t in self.outs[key]]
         lse, delta = self.fwd_state[rope]
         bwd_in = [] if base == "fwd" else [self.do.data_ptr(), lse.data_ptr(), delta.data_ptr()]
-        if kind.startswith("v1_"):  # one id vector, the tile intervals, one length
-            return (self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(), self.seg.data_ptr(),
-                    self.mm.data_ptr(), self.mm.data_ptr(), self.tile, self.tile, *bwd_in,
-                    *outs, self.S, self.hq, self.hkv, float(D ** -0.5), self.is_bf16,
-                    self.stream)
+        if kind.startswith("v1_"):  # one id vector (and its tile intervals), one length
+            head = [self.q.data_ptr(), self.k.data_ptr(), self.v.data_ptr(), self.seg.data_ptr()]
+            if not self.flags[label]["f32_searches"]:
+                tq, tk = self.tiles[base]
+                head += [self.mm[tq].data_ptr(), self.mm[tk].data_ptr(), tq, tk]
+            return (*head, *bwd_in, *outs, self.S, self.hq, self.hkv, float(D ** -0.5),
+                    self.is_bf16, self.stream)
         return tuple(self._ptrs(rope) + bwd_in + outs + self._tail())
 
     def runner(self, fns: dict, kind: str, label: str):
         """``(fn, args)`` of what the wrapper of build ``label`` runs."""
         fn, args = fns[kind], self.args(kind, label)
-        searches = self.flags[label]["searches" if self.is_bf16 else "f32_dq_searches"]
-        if kind in ("v1_fwd", "v1_dq") and not searches:
-            seg, tile = self.seg, self.tile
+        run = fn
+        if self._reads_intervals(kind, label):
+            seg, (tq, tk) = self.seg, self.tiles[kind.removeprefix("v1_")]
 
             def intervals_and_entry(*a):
-                mm = tile_minmax(seg, tile)  # the wrapper's, before each launch
-                return fn(*a[:4], mm.data_ptr(), mm.data_ptr(), *a[6:])
+                qmm = tile_minmax(seg, tq)  # the wrapper's, before each launch
+                kmm = qmm if tk == tq else tile_minmax(seg, tk)
+                return fn(*a[:4], qmm.data_ptr(), kmm.data_ptr(), *a[6:])
 
-            return intervals_and_entry, args
-        if kind != "v1_dkv" or self.flags[label]["summed"]:
-            return fn, args
+            run = intervals_and_entry
+
+        if kind != "v1_dkv" or not self._per_head(label):
+            return run, args
         dk_h, dv_h = self.outs[(kind, label)]
 
         def entry_and_group_sums(*a):
-            err = fn(*a)
+            err = run(*a)
             self.sums[label] = (group_sum(dk_h, self.hkv), group_sum(dv_h, self.hkv))
             return err
 
         return entry_and_group_sums, args
 
-    def _outs(self, kind: str, label: str):
+    def outputs(self, kind: str, label: str):
+        """Build ``label``'s outputs of ``kind`` (a per-head v1 dk/dv's group
+        sums)."""
         return (self.sums.get(label, self.outs[(kind, label)]) if kind == "v1_dkv"
                 else self.outs[(kind, label)])
 
     def max_diff(self, kind: str, label: str) -> float:
         """Largest |difference| between build ``label``'s outputs and OLD's."""
         return max((a.float() - b.float()).abs().max().item()
-                   for a, b in zip(self._outs(kind, "old"), self._outs(kind, label)))
+                   for a, b in zip(self.outputs(kind, "old"), self.outputs(kind, label)))
 
     def max_old(self, kind: str) -> float:
         """Largest |entry| of OLD's outputs, the scale of ``max_diff``."""
-        return max(t.float().abs().max().item() for t in self._outs(kind, "old"))
+        return max(t.float().abs().max().item() for t in self.outputs(kind, "old"))
 
 
 def _label(csrc: str) -> str:
@@ -411,11 +497,13 @@ def main(argv=None) -> int:
         print(f"{label}: {csrc} (v1 bf16 forward and dq "
               f"{'search the ids' if flags_b['searches'] else 'read tile intervals'}, dk/dv "
               f"{'summed' if flags_b['summed'] else 'per head'}; v1 f32 dq "
-              f"{'searches the ids' if flags_b['f32_dq_searches'] else 'reads tile intervals'}; VQ "
+              f"{'searches the ids' if flags_b['f32_dq_searches'] else 'reads tile intervals'}, "
+              f"forward and dk/dv "
+              f"{'row 1 and row 2, summed' if flags_b['f32_searches'] else 'on tile intervals, per head'}; VQ "
               f"{'one launch' if flags_b['vq_one'] else 'two launches'})\n  "
               + "\n  ".join(_demangle(lines)))
-    print("v1_*: each build as its wrapper runs it (tile intervals before a forward or dq that "
-          "reads them, group sums after a per-head dk/dv), then each entry alone")
+    print("v1_*: each build as its wrapper runs it (tile intervals before an entry that reads "
+          "them, group sums after a per-head dk/dv), then each entry alone")
     order = list(builds) + list(builds)[::-1]
     runs = [(sname, dname) for dname in a.dtype for sname in SHAPES]
     for sname, dname in runs:
@@ -450,6 +538,10 @@ def main(argv=None) -> int:
                     part += (f", {label}/old {m / mo:.4f} (of the medians {med / medo:.4f}), share "
                              f"{100 * bound / m:.2f} %, outputs max|{label}-old| "
                              f"{case.max_diff(kind, label):.3e}")
+                    if dname == "f32" and kind in ("v1_fwd", "v1_dkv"):
+                        ok, line = f32_gate(kind, case.outputs(kind, label),
+                                            case.outputs(kind, "old"))
+                        part += f", within the f32 gate of old's {ok} ({line})"
                 parts.append(part)
             print(f"{sname} {dname} {kind}: bound {bound:.5f} ms ({by}), share old "
                   f"{100 * bound / mo:.2f} %, max|old| {case.max_old(kind):.3e}; "
