@@ -23,13 +23,24 @@ toolkit. Phases, in order; any failure exits non-zero:
    seeded random weights: encode, forward, decode_indices and a uint8
    encode through ``TiTokModel``, with launch counts, range checks, the
    kernel path against the plain path (f32 and bf16), and request times;
-5. the training path: the tiny GAN recipe at full width
-   (``perceptual_weight=0``, ``train_seq_len`` 6144, bf16-mixed), seeded
-   random weights and synthetic clips, 2 warm-up and 4 timed steps through
-   ``TrainStepBuilder`` with launch counts per step, finite metrics, moved
-   params, index ranges, ms/step and a profile of one step; then 3 steps
-   of the f32 kernel path against the f32 plain path at ``train_seq_len``
-   2048 from the same weights, batches and noise;
+5. the perceptual loss, then the training path. LPIPS and Gram of the
+   tiny path's 25 frames at 128² on the card against the same module and
+   weights on the CPU (fp32, TF32 off), ``crop_resize`` of its plan and
+   the gradient to the frames likewise, the tower's forward and backward
+   time, and the module's convolutions held to fp32 with the process's
+   cuDNN TF32 flag on. Then the tiny GAN
+   recipe of ``configs/tiny.yaml`` at full width with its own loss (L1,
+   LPIPS over 25 random 128² crops, GAN; seeded random VGG weights, as
+   ``allow_random_lpips`` allows; ``train_seq_len`` 6144, bf16-mixed),
+   seeded random weights and synthetic clips, 2 warm-up and 4 timed steps
+   through ``TrainStepBuilder`` with launch counts per step, finite metrics
+   and a positive ``gen/perceptual_loss``, moved params, unchanged LPIPS
+   weights, index ranges, ms/step, the generator's grads against an
+   LPIPS-off pass on the same batch, steps with LPIPS on and off in turn,
+   and a profile of one step (the tower's convolutions' device time); then
+   3 steps of the f32 kernel path against the f32 plain path at
+   ``train_seq_len`` 2048 (warm-up 2 steps) from the same weights,
+   batches, plans and noise;
 6. the VQ nearest-neighbour kernel against its plain version: base_vq's
    shape (S 4096, N 16384, D 8: a training step, or a serving group padded
    to 4096 rows), the unpadded S 3409 and 1152 of its request (a), a ragged
@@ -46,7 +57,7 @@ toolkit. Phases, in order; any failure exits non-zero:
    counts, decode against forward, the kernel path against the plain path
    in f32, and request times;
 8. the EMA-VQ training path: the base_vq GAN recipe at full width
-   (``perceptual_weight=0``, ``train_seq_len`` 4096, bf16-mixed, the
+   (LPIPS off, ``perceptual_weight=0``, ``train_seq_len`` 4096, bf16-mixed, the
    codebook drawn from the first batch, the config's lr warm-up), seeded
    random weights and synthetic clips, 2 warm-up and 3 timed steps with
    launch counts per step (the VQ kernel once, each attention kernel 48
@@ -68,7 +79,7 @@ toolkit. Phases, in order; any failure exits non-zero:
    request, with launch counts (the rope forward only), decode against
    forward, the f32 kernel path against the plain path, request times;
 11. the large training path at full width and depth (remat on, as the
-   config has it; ``perceptual_weight=0``, ``train_seq_len`` 8192,
+   config has it; LPIPS off, ``train_seq_len`` 8192,
    bf16-mixed): 2 warm-up and 3 timed steps with launch counts per step
    derived from the layer counts (remat replays each attention forward in
    the backward), finite metrics, moved params, peak device memory,
@@ -92,14 +103,16 @@ toolkit. Phases, in order; any failure exits non-zero:
    reject; the four times at the bench shape and the base_vq layout at
    12/4;
 13. the trainer: ``Trainer(cfg).fit()`` of ``configs/tiny_fsq16k.yaml`` at
-   full width through the v1 kernels (synthetic data, LPIPS off), 8 steps
+   full width through the v1 kernels (synthetic data, LPIPS on with random
+   VGG weights), 8 steps
    with eval at 4 and 8 and checkpoints every 4: launches per step and in
    all, zero launches of the other attention kernels, finite metrics,
    device PSNR/SSIM, codebook scores, checkpoints, ``config.yaml``, the
    trainer's rate against the bare step; then the CLI ``python -m
    titok_tpu_torch.train`` resuming that run to step 12, and a fresh run
    stopped by SIGTERM (exit 143, a checkpoint at the step reached) and
-   resumed; then f32 at ``train_seq_len`` 2048, 4 steps straight against
+   resumed; then f32 at ``train_seq_len`` 2048 (LPIPS off: a resumed run
+   draws its plans anew from ``seed + 1``), 4 steps straight against
    2 + save + resume + 2 (losses, params, the R1/R2 noise generator);
 14. the f32 rows of the kernel table: each f32 entry of rows 1-4 and the
    v1 f32 dq, its time, bound and share of bound at the shapes timed
@@ -955,11 +968,12 @@ def print_breakdown(prof, title: str, wall_ms: float, top: int) -> None:
 
 
 def train_config(**over):
-    """configs/tiny.yaml as the training phase runs it: LPIPS off (not
-    ported), warm-up 2 steps so the timed steps run at lr > 0."""
+    """configs/tiny.yaml as the training phase runs it: as shipped, its
+    loss too (L1, LPIPS over 25 random 128² crops, GAN), with one override:
+    ``allow_random_lpips``, since no converted VGG weights are in the repo."""
     from titok_tpu_torch.config import load_config
 
-    over = {"tokenizer.losses.perceptual_weight": 0, "optimizer.warmup_steps": 2, **over}
+    over = {"tokenizer.losses.allow_random_lpips": "true", **over}
     return load_config(os.path.join(REPO, "configs", "tiny.yaml"),
                        [f"{k}={v}" for k, v in over.items()])
 
@@ -1026,45 +1040,208 @@ def card_params(module, seed: int, dense_std: float = 0.02) -> dict:
 
 
 def _host_batches(cfg, n, seed=0):
-    """n packed batches and their disc layouts (host work, before timing)."""
+    """n packed batches, their disc layouts and perceptual plans (None with
+    the perceptual loss off; drawn from ``default_rng(seed + 1)``, as the
+    trainer draws them): ``(batch, disc, plan)`` triples, host work before
+    timing, and the host ms a batch."""
     import itertools
 
     from titok_tpu_torch.data.packing import build_disc_batch
-    from titok_tpu_torch.losses.loss_module import DISC_TOKENS
+    from titok_tpu_torch.losses.loss_module import DISC_TOKENS, num_perceptual_frames
+    from titok_tpu_torch.ops.frames import build_perceptual_plan
     from titok_tpu_torch.training.trainer import synthetic_batches
 
+    lc = cfg.tokenizer.losses
+    perc = float(lc.perceptual_weight) > 0 or float(lc.gram_weight) > 0
+    kw = dict(num_frames=num_perceptual_frames(cfg), sample_size=int(lc.perceptual_sampling_size),
+              patch_size=list(cfg.tokenizer.model.patch_size),
+              max_grid_hw=list(cfg.training.sampling.max_grid)[1:],
+              rng=np.random.default_rng(seed + 1))
     t0 = time.perf_counter()
-    out = [(b, build_disc_batch(b, DISC_TOKENS))
+    out = [(b, build_disc_batch(b, DISC_TOKENS), build_perceptual_plan(b, **kw) if perc else None)
            for b in itertools.islice(synthetic_batches(cfg, seed=seed), n)]
     return out, (time.perf_counter() - t0) * 1e3 / n
 
 
-def phase_training(card: str) -> dict:
-    """The tiny GAN train step at full width through the kernels."""
+def _on_card(triple):
+    """A ``(batch, disc, plan)`` triple of :func:`_host_batches` as device
+    dicts (the plan None where it is)."""
+    from titok_tpu_torch.data.packing import to_device
+
+    return tuple(None if x is None else to_device(x, "cuda") for x in triple)
+
+
+# LPIPS on the card against the CPU: per-frame LPIPS and Gram within
+# LPIPS_RTOL relative, crop_resize within CROP_ATOL. Both sides compute in
+# fp32 (TF32 off, phase_build), in another order of sums (cuDNN's and
+# oneDNN's convolutions, cuBLAS's and MKL's matmuls)
+LPIPS_RTOL = 1e-4
+CROP_ATOL = 1e-5
+
+
+def phase_lpips(card: str) -> None:
+    """The perceptual loss's modules on the card against the same modules
+    and weights on the CPU, at the tiny training path's shape: the first
+    batch's 25 frames (``crop_resize`` of its plan from the padded 168²
+    frames to 128²), and LPIPS and Gram of them against a perturbed copy;
+    then the time of the tower's forward, and of its forward and backward
+    (the gradient with respect to the reconstructed frames), CUDA events;
+    that gradient against the CPU's, and whether it gives the same bits
+    twice."""
+    import warnings
+
     import torch
 
     from titok_tpu_torch.data.packing import to_device
+    from titok_tpu_torch.losses.lpips import LPIPS, lpips_params_for
+    from titok_tpu_torch.ops.frames import crop_resize, gather_frames
+    from titok_tpu_torch.ops.patchify import decode_rows
+
+    cfg = train_config()
+    s = int(cfg.tokenizer.losses.perceptual_sampling_size)
+    patch = list(cfg.tokenizer.model.patch_size)
+    [(b, _, plan)], _ = _host_batches(cfg, 1)
+    K = plan.weight.shape[0]
+    p_cpu, p_gpu = to_device(plan, "cpu"), to_device(plan, "cuda")
+    frames = gather_frames(torch.from_numpy(decode_rows(b.patches, np.float32)), p_cpu, patch)
+    tgt = crop_resize(frames, p_cpu, s)
+    tgt_g = crop_resize(frames.cuda(), p_gpu, s)
+    crop_err = (tgt_g.cpu() - tgt).abs().max().item()
+    g = torch.Generator().manual_seed(5)
+    rec = torch.clamp(tgt + 0.2 * torch.randn(tgt.shape, generator=g), -1, 1)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the random-VGG warning
+        sd = {k: torch.from_numpy(v) for k, v in lpips_params_for(cfg).items()}
+    m_cpu, m_gpu = LPIPS(), LPIPS().cuda()
+    m_cpu.load_state_dict(sd)
+    m_gpu.load_state_dict(sd)
+    m_cpu.requires_grad_(False)
+    m_gpu.requires_grad_(False)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lp, gr = m_cpu(rec, tgt)
+    cpu_s = time.perf_counter() - t0
+    rec_g = rec.cuda()
+    with torch.no_grad():
+        lp_g, gr_g = m_gpu(rec_g, tgt_g)
+    lp_err = ((lp_g.cpu() - lp).abs() / lp.abs()).max().item()
+    gr_err = ((gr_g.cpu() - gr).abs() / gr.abs()).max().item()
+    print(f"perceptual loss, tiny path's first plan ({K} frames, padded {frames.shape[1]}x"
+          f"{frames.shape[2]} -> {s}x{s}, scales {sorted(set(np.round(plan.scale[:, 0], 4)))}), "
+          f"card vs CPU (CPU forward {cpu_s:.1f} s): crop_resize max|diff| {crop_err:.3e} (gate "
+          f"{CROP_ATOL:g}); LPIPS max rel diff {lp_err:.3e} (values {lp.min().item():.4f}-"
+          f"{lp.max().item():.4f}), Gram {gr_err:.3e} (values {gr.min().item():.4e}-"
+          f"{gr.max().item():.4e}) (gate {LPIPS_RTOL:g} relative)")
+    check(crop_err <= CROP_ATOL, "crop_resize on the card disagrees with the CPU")
+    check(lp_err <= LPIPS_RTOL and gr_err <= LPIPS_RTOL, "LPIPS on the card disagrees with the CPU")
+    check(bool((lp > 0).all()) and bool(torch.isfinite(lp_g).all()), "LPIPS not positive")
+
+    def fwd():
+        with torch.no_grad():
+            m_gpu(rec_g, tgt_g)
+
+    x = rec_g.clone().requires_grad_()
+
+    def fwd_bwd():
+        lp, gr = m_gpu(x, tgt_g)
+        return torch.autograd.grad(lp.sum() + gr.sum(), x)[0]
+
+    # the gradient to the frames against the CPU's, by its norm: LPIPS's
+    # backward through ReLU and max pool is discontinuous (ties of a clamped
+    # patch's equal features break each library's own way), so entries may
+    # move where a unit routes its gradient otherwise; a wrong backward is
+    # off by the order of the gradient itself
+    xc = rec.clone().requires_grad_()
+    lp_c, gr_c = m_cpu(xc, tgt)
+    g_cpu = torch.autograd.grad(lp_c.sum() + gr_c.sum(), xc)[0]
+    g_card = fwd_bwd().cpu()
+    g_norm = ((g_card - g_cpu).norm() / g_cpu.norm()).item()
+    g_max = ((g_card - g_cpu).abs().max() / g_cpu.abs().max()).item()
+    print(f"LPIPS gradient to the frames, card vs CPU: |diff| {g_norm:.3e} of |g| (gate 1e-2), "
+          f"max|diff| {g_max:.3e} of max|g|")
+    check(g_norm <= 1e-2, "the LPIPS gradient on the card disagrees with the CPU's")
+    # not gated: whether cuDNN's backward gives the same bits twice (the
+    # large f32 remat gate, bit for bit, runs with LPIPS off)
+    same = torch.equal(fwd_bwd(), fwd_bwd())
+    print(f"LPIPS tower, {K} + {K} frames at {s}x{s}, fp32 (TF32 off) [{card}]: forward "
+          f"{cuda_ms(fwd, 10):.3f} ms, forward + backward to the frames "
+          f"{cuda_ms(fwd_bwd, 10):.3f} ms (CUDA events, mean of 10 after 3); the backward "
+          f"twice on the same inputs gives the same bits: {same}")
+
+    # the module pins its convolutions to fp32: the same forward and backward
+    # with the process's cuDNN TF32 flag on (PyTorch's default) against it
+    # off (phase_build); and, printed only, what the tower gives with its
+    # convolutions unpinned under that flag
+    import titok_tpu_torch.losses.lpips as lpips_mod
+
+    pinned = lpips_mod._Conv32
+
+    class Unpinned:
+        apply = staticmethod(lambda x, w, b, p: torch.nn.functional.conv2d(x, w, b, padding=p))
+
+    g_off = fwd_bwd()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            lp_on, gr_on = m_gpu(rec_g, tgt_g)
+        g_on = fwd_bwd()
+        lpips_mod._Conv32 = Unpinned
+        with torch.no_grad():
+            lp_un, _ = m_gpu(rec_g, tgt_g)
+        g_un = fwd_bwd()
+    finally:
+        lpips_mod._Conv32 = pinned
+        torch.backends.cudnn.allow_tf32 = False
+
+    def rel(a, b):
+        return ((a - b).abs() / b.abs()).max().item()
+
+    pin_fwd = max(rel(lp_on, lp_g), rel(gr_on, gr_g))
+    pin_g = ((g_on - g_off).norm() / g_off.norm()).item()
+    un_g = ((g_un - g_off).norm() / g_off.norm()).item()
+    print(f"LPIPS with cuDNN's TF32 flag on vs off: LPIPS and Gram max rel diff {pin_fwd:.3e} "
+          f"(gate 1e-6), gradient to the frames |diff| {pin_g:.3e} of |g| (gate 1e-5); the "
+          f"convolutions unpinned under the flag: LPIPS {rel(lp_un, lp_g):.3e}, gradient "
+          f"{un_g:.3e} (not gated)")
+    check(pin_fwd <= 1e-6 and pin_g <= 1e-5, "LPIPS follows the process's TF32 flag")
+    del m_gpu, rec_g, tgt_g, x
+    torch.cuda.empty_cache()
+
+
+def phase_training(card: str) -> dict:
+    """The tiny GAN train step at full width through the kernels, with the
+    shipped loss (LPIPS on)."""
+    import torch
+
     from titok_tpu_torch.ops.flash_attention_mh import launches
 
     dev = torch.device("cuda")
     cfg = train_config()
     cb = 4375
     builder, state, step = _trainer(cfg)
+    ls = builder.loss_system
+    check(ls.use_perceptual and ls.num_frames == 25 and ls.sample_size == 128,
+          f"tiny's loss: perceptual {ls.use_perceptual}, K {ls.num_frames}, {ls.sample_size}")
     batches, pack_ms = _host_batches(cfg, 6)
     seq_len = int(cfg.training.sampling.train_seq_len)
     print(f"training: tiny GAN, width 256, enc/dec 4+4 layers, disc {cfg.discriminator.model.model_size}"
-          f", train_seq_len {seq_len}, {cfg.training.main.precision}, samples per batch "
-          f"{[int(b.sample_valid.sum()) for b, _ in batches]}, host packing {pack_ms:.1f} ms/batch")
+          f", train_seq_len {seq_len}, {cfg.training.main.precision}, loss L1 + LPIPS "
+          f"({ls.perceptual_weight:g} x, {ls.num_frames} frames at {ls.sample_size}², random VGG) + "
+          f"Gram ({ls.gram_weight:g} x) + GAN ({ls.disc_weight:g} x), samples per batch "
+          f"{[int(b.sample_valid.sum()) for b, _, _ in batches]}, host packing and plans "
+          f"{pack_ms:.1f} ms/batch")
     gen0 = [p.detach().clone() for p in state.model.parameters()]
     disc0 = [p.detach().clone() for p in state.disc_model.parameters()]
+    lpips0 = {k: v.clone() for k, v in ls.lpips.state_dict().items()}
 
     reset_counts()  # the main path: the 6 steps below, read right after them
     per_step, metrics_all, times = [], [], []
-    for i, (b, d) in enumerate(batches):
+    for i, (b, d, p) in enumerate(batches):
         before = dict(launches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics, idx = step(state, to_device(b, dev), to_device(d, dev))
+        state, metrics, idx = step(state, *_on_card((b, d, p)))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         per_step.append({k: launches[k] - before[k] for k in launches})
@@ -1084,66 +1261,123 @@ def phase_training(card: str) -> dict:
         check(all(np.isfinite(v) for v in vals.values()), f"step {i}: non-finite metric {vals}")
         check(vals["nonfinite_grad/generator"] == 0 and vals["nonfinite_grad/discriminator"] == 0,
               f"step {i}: a non-finite grad was zeroed")
+        check(vals.get("gen/perceptual_loss", 0) > 0, f"step {i}: no positive perceptual loss")
         print(f"  step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in vals.items()))
     moved_g = max((p.detach() - p0).abs().max().item()
                   for p, p0 in zip(state.model.parameters(), gen0))
     moved_d = max((p.detach() - p0).abs().max().item()
                   for p, p0 in zip(state.disc_model.parameters(), disc0))
-    print(f"params moved: generator max|dp| {moved_g:.3e}, discriminator {moved_d:.3e}")
+    lpips_same = all(torch.equal(v, lpips0[k]) for k, v in ls.lpips.state_dict().items())
+    print(f"params moved: generator max|dp| {moved_g:.3e}, discriminator {moved_d:.3e}; LPIPS "
+          f"weights unchanged: {lpips_same}, none requires grad: "
+          f"{not any(p.requires_grad for p in ls.lpips.parameters())}")
     check(moved_g > 0 and moved_d > 0, "the params did not move")
+    check(lpips_same and not any(p.requires_grad for p in ls.lpips.parameters()),
+          "the LPIPS weights changed or take gradients")
     timed = times[2:]
-    print(f"train step, tiny GAN bf16 S={seq_len} [{card}]: {np.mean(timed):.3f} ms/step "
+    print(f"train step, tiny GAN + LPIPS bf16 S={seq_len} [{card}]: {np.mean(timed):.3f} ms/step "
           f"(host clock, mean of 4 after 2 warm-up; steps {', '.join(f'{t:.2f}' for t in times)} "
           f"ms), {seq_len / np.mean(timed) * 1e3:.0f} tokens/s")
+
+    # the perceptual terms reach the generator: its grads on one batch with
+    # the plan against the same loss without it
+    bt, dt_, pt = _on_card(batches[0])
+    params = list(state.model.parameters())
+    recon, _ = state.model(bt)
+    g_on = torch.autograd.grad(ls.generator_loss(recon, bt, dt_, pt)[0], params,
+                               retain_graph=True)
+    g_off = torch.autograd.grad(ls.generator_loss(recon, bt, dt_, None)[0], params)
+    n_off = torch.sqrt(sum((g.double() ** 2).sum() for g in g_off)).item()
+    n_diff = torch.sqrt(sum(((a - b).double() ** 2).sum() for a, b in zip(g_on, g_off))).item()
+    print(f"generator grads with LPIPS vs without, same batch and weights: |g_on - g_off| "
+          f"{n_diff:.4e} of |g_off| {n_off:.4e} (global norms; gate > 1e-3 x |g_off|)")
+    check(np.isfinite(n_diff) and n_diff > 1e-3 * n_off, "LPIPS does not reach the generator")
+    del recon, g_on, g_off
+
+    # step time with LPIPS on and off in turn, the same batches
+    on_off = {True: [], False: []}
+    for b, d, p in batches[2:]:
+        for use in (True, False):
+            bt, dt_, pt = _on_card((b, d, p))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _, _ = step(state, bt, dt_, pt if use else None)
+            torch.cuda.synchronize()
+            on_off[use].append((time.perf_counter() - t0) * 1e3)
+    on, off = float(np.mean(on_off[True])), float(np.mean(on_off[False]))
+    print(f"train step tiny GAN bf16 S={seq_len} [{card}], LPIPS on vs off in turn on the same 4 "
+          f"batches: on {on:.3f} ms, off {off:.3f} ms (host clock, means of 4; on "
+          f"{', '.join(f'{t:.2f}' for t in on_off[True])}; off "
+          f"{', '.join(f'{t:.2f}' for t in on_off[False])}); LPIPS adds {on - off:.3f} ms")
     _train_breakdown(step, state, batches[0])
 
     # f32 kernel path vs f32 plain path (dense attention), same weights,
-    # batches and noise; the discriminator in f32 too
-    cfg32 = train_config(**{"training.main.precision": "32",
-                            "training.sampling.train_seq_len": 2048})
+    # batches, plans and noise; the discriminator in f32 too; LPIPS on in
+    # both (the same convolutions)
+    # warm-up 2 steps, so that steps 2-3 run at lr 5e-5 and 1e-4 and their
+    # losses hold the first steps' updates to account
+    f32_over = {"training.main.precision": "32", "training.sampling.train_seq_len": 2048,
+                "optimizer.warmup_steps": 2}
+    cfg32 = train_config(**f32_over)
     batches32, _ = _host_batches(cfg32, 3, seed=1)
     noise_gen = torch.Generator(device=dev).manual_seed(3)
     noises = [torch.randn(d.segment_ids.shape[0], b.patches.shape[1], generator=noise_gen,
-                          device=dev) for b, d in batches32]
+                          device=dev) for b, d, _ in batches32]
     runs = {}
     for name, over in (("kernel", {}), ("plain", {"training.main.attn_impl": "reference"})):
-        c = train_config(**{"training.main.precision": "32",
-                            "training.sampling.train_seq_len": 2048, **over})
+        c = train_config(**f32_over, **over)
         builder, st, stp = _trainer(c, f32_disc=True)
         reset_counts()
-        b0, d0 = batches32[0]
-        bt, dt_ = to_device(b0, dev), to_device(d0, dev)
+        bt, dt_, pt = _on_card(batches32[0])
         recon, _ = st.model(bt)
-        loss, _ = builder.loss_system.generator_loss(recon, bt, dt_)
-        grads = torch.autograd.grad(loss, list(st.model.parameters()))
+        params = list(st.model.parameters())
+        ls32 = builder.loss_system
+        # the first step's grads of the loss without LPIPS and with it
+        grads = torch.autograd.grad(ls32.generator_loss(recon, bt, dt_)[0], params,
+                                    retain_graph=True)
+        grads_lpips = torch.autograd.grad(ls32.generator_loss(recon, bt, dt_, pt)[0], params)
         losses = []
-        for (b, d), noise in zip(batches32, noises):
-            st, m, _ = stp(st, to_device(b, dev), to_device(d, dev), noise=noise)
+        for triple, noise in zip(batches32, noises):
+            st, m, _ = stp(st, *_on_card(triple), noise=noise)
             losses.append({k: float(v) for k, v in m.items() if "loss" in k or "penalty" in k})
         torch.cuda.synchronize()
-        runs[name] = (grads, losses, read_counts())
-        del builder, st, stp, recon, loss
+        runs[name] = (grads, grads_lpips, losses, read_counts())
+        del builder, st, stp, recon, ls32
         torch.cuda.empty_cache()
-    k_grads, k_losses, k_launch = runs["kernel"]
-    p_grads, p_losses, p_launch = runs["plain"]
+    k_grads, k_grads_lpips, k_losses, k_launch = runs["kernel"]
+    p_grads, p_grads_lpips, p_losses, p_launch = runs["plain"]
     check(all(v == 0 for v in p_launch.values()), f"the plain path launched kernels: {p_launch}")
     check(k_launch["f32"] > 0 and k_launch["bwd_dq_f32"] > 0 and k_launch["bwd_dkv_f32"] > 0,
           f"the f32 kernel path launched no kernel: {k_launch}")
     gmax = max(g.abs().max().item() for g in p_grads)
     gerr = max((a - b).abs().max().item() for a, b in zip(k_grads, p_grads))
+    # with LPIPS, by the ratio of global norms, as phase_lpips gates the
+    # gradient to the frames: LPIPS's backward through its ReLUs and max
+    # pools is a discontinuous function of the frames, so frames that differ
+    # in their last bits (kernel vs plain) route a few units' gradients
+    # otherwise, which moves single entries by more than the attention
+    # kernels do; a wrong backward is off by the order of the gradient
+    lp_gmax = max(g.abs().max().item() for g in p_grads_lpips)
+    lp_gerr = max((a - b).abs().max().item() for a, b in zip(k_grads_lpips, p_grads_lpips))
+    lp_ratio = (torch.sqrt(sum(((a - b).double() ** 2).sum()
+                               for a, b in zip(k_grads_lpips, p_grads_lpips)))
+                / torch.sqrt(sum((g.double() ** 2).sum() for g in p_grads_lpips))).item()
     pairs = [(k_losses[i][key], p_losses[i][key]) for i in range(3) for key in p_losses[i]]
     labs = max(abs(a - b) for a, b in pairs)
     lrel = max(abs(a - b) / abs(b) for a, b in pairs if b != 0)
     lok = all(abs(a - b) <= 1e-6 + 1e-4 * abs(b) for a, b in pairs)
-    print(f"f32 train path S=2048, kernel vs plain (dense attention), 3 steps: losses max|diff| "
-          f"{labs:.3e}, max rel diff {lrel:.3e} (gate atol 1e-6 + rtol 1e-4); first step's "
-          f"generator grads max|diff| {gerr:.3e} of max|g| {gmax:.3e} (gate 1e-4 x max|g|); "
-          f"kernel-path launches {k_launch}")
+    print(f"f32 train path S=2048 (LPIPS on), kernel vs plain (dense attention), 3 steps: losses "
+          f"max|diff| {labs:.3e}, max rel diff {lrel:.3e} over {len(pairs)} values (gate atol "
+          f"1e-6 + rtol 1e-4); first step's generator grads of the loss without LPIPS max|diff| "
+          f"{gerr:.3e} of max|g| {gmax:.3e} (gate 1e-4 x max|g|), with LPIPS max|diff| "
+          f"{lp_gerr:.3e} of max|g| {lp_gmax:.3e}, |g_k - g_p| / |g_p| {lp_ratio:.3e} (gate "
+          f"1e-2); kernel-path launches {k_launch}")
     for i in range(3):
         print(f"  step {i}: kernel {k_losses[i]}")
         print(f"          plain  {p_losses[i]}")
     check(lok, "f32 kernel path losses disagree with the plain path")
     check(gerr <= 1e-4 * gmax, "f32 kernel path grads disagree with the plain path")
+    check(lp_ratio <= 1e-2, "f32 kernel path grads with LPIPS disagree with the plain path")
     paths["train_f32"] = k_launch
     return paths
 
@@ -1275,10 +1509,11 @@ def phase_training_vq(card: str) -> dict:
     from titok_tpu_torch.config import load_config
 
     dev = torch.device("cuda")
-    # LPIPS is not ported; the config's own 1000-step warm-up: lr rises from
-    # 0 by 1e-7 a step (a 2-step warm-up jumps to 1e-4 at once, and a
-    # random model's latents, all near one point, then leave the codebook
-    # drawn from them for one edge code)
+    # LPIPS off: this phase holds the VQ kernel and the base-width step (the
+    # tiny path trains the full loss); the config's own 1000-step warm-up: lr
+    # rises from 0 by 1e-7 a step (a 2-step warm-up jumps to 1e-4 at once,
+    # and a random model's latents, all near one point, then leave the
+    # codebook drawn from them for one edge code)
     cfg = load_config(os.path.join(REPO, "configs", "base_vq.yaml"), [
         "tokenizer.losses.perceptual_weight=0", "tokenizer.losses.gram_weight=0"])
     batches, pack_ms = _host_batches(cfg, 5)
@@ -1289,17 +1524,18 @@ def phase_training_vq(card: str) -> dict:
     print(f"training: base_vq GAN, width 768, enc/dec 12+12 layers, heads 12/4, disc "
           f"{cfg.discriminator.model.model_size}, codebook {vq.codebook_size} x {vq.codebook_dim}, "
           f"train_seq_len {seq_len}, {cfg.training.main.precision}, samples per batch "
-          f"{[int(b.sample_valid.sum()) for b, _ in batches]}, host packing {pack_ms:.1f} ms/batch")
+          f"{[int(b.sample_valid.sum()) for b, _, _ in batches]}, host packing {pack_ms:.1f} "
+          f"ms/batch")
     n = TRAIN_LAUNCHES["base"]
     want = {**{k: 0 for k in read_counts()}, "bf16": n, "bwd_dq_bf16": n, "bwd_dkv_bf16": n,
             "vq_f32": 1}
     reset_counts()  # the main path: the 5 steps below, read right after them
     per_step, metrics_all, times = [], [], []
-    for i, (b, d) in enumerate(batches):
+    for i, (b, d, p) in enumerate(batches):
         before = read_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics, idx = step(state, to_device(b, dev), to_device(d, dev))
+        state, metrics, idx = step(state, *_on_card((b, d, p)))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         per_step.append({k: v - before[k] for k, v in read_counts().items()})
@@ -1335,21 +1571,33 @@ def phase_training_vq(card: str) -> dict:
     return paths
 
 
-def _train_breakdown(step, state, batch_disc) -> None:
-    """Device time by kernel over one train step (torch.profiler)."""
+# the ops of the LPIPS tower in a train step's profile (nothing else of a
+# step convolves or pools): forward convs (the 1x1 lins too), their
+# backward to the inputs, the pools and their backward
+LPIPS_OPS = ("aten::conv2d", "aten::convolution_backward", "aten::max_pool2d",
+             "aten::max_pool2d_with_indices_backward")
+
+
+def _train_breakdown(step, state, triple) -> None:
+    """Device time by kernel over one train step (torch.profiler), and the
+    device time of the LPIPS tower's ops where the step runs them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from titok_tpu_torch.data.packing import to_device
-
-    b, d = batch_disc
-    dev = torch.device("cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, to_device(b, dev), to_device(d, dev))
+        step(state, *_on_card(triple))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     print_breakdown(prof, f"one train step (profiled, wall {wall_ms:.3f} ms):", wall_ms, 12)
+    if triple[2] is None:
+        return
+    by_op = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+             if e.key in LPIPS_OPS}
+    total = sum(ms for ms, _ in by_op.values())
+    print(f"  LPIPS tower in that step: {total:.3f} ms of device time ("
+          + ", ".join(f"{k} {by_op[k][0]:.3f} ms x{by_op[k][1]}" if k in by_op else
+                      f"{k} not recorded" for k in LPIPS_OPS) + ")")
 
 
 # ---------------------------------------------------------------------------
@@ -1791,10 +2039,10 @@ def phase_training_large(card: str) -> dict:
     depth through the rope kernels."""
     import torch
 
-    from titok_tpu_torch.data.packing import to_device
-
     dev = torch.device("cuda")
-    # LPIPS is not ported; a 2-step warm-up so the timed steps move the params
+    # LPIPS off: this phase holds the rope kernels and the large step's
+    # memory (the tiny path trains the full loss); a 2-step warm-up so the
+    # timed steps move the params
     cfg = large_config("tokenizer.losses.perceptual_weight=0", "tokenizer.losses.gram_weight=0",
                        "optimizer.warmup_steps=2")
     check(bool(cfg.training.main.remat), "configs/large.yaml sets remat")
@@ -1809,7 +2057,7 @@ def phase_training_large(card: str) -> dict:
           f"24+24 layers, heads 16/4, disc {cfg.discriminator.model.model_size}, FSQ "
           f"{list(cfg.tokenizer.model.fsq_levels)}, {n_gen / 1e6:.1f} M + {n_disc / 1e6:.1f} M "
           f"params, train_seq_len {seq_len}, {cfg.training.main.precision}, samples per batch "
-          f"{[int(b.sample_valid.sum()) for b, _ in batches]}, host packing {pack_ms:.1f} "
+          f"{[int(b.sample_valid.sum()) for b, _, _ in batches]}, host packing {pack_ms:.1f} "
           f"ms/batch, init on the card {init_s:.2f} s")
     # a sample of the params (the first and last of each module) to see them move
     watch = [p for m in (state.model, state.disc_model)
@@ -1823,11 +2071,11 @@ def phase_training_large(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()  # the main path: the 5 steps below, read right after them
     per_step, metrics_all, times = [], [], []
-    for i, (b, d) in enumerate(batches):
+    for i, (b, d, p) in enumerate(batches):
         before = read_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics, idx = step(state, to_device(b, dev), to_device(d, dev))
+        state, metrics, idx = step(state, *_on_card((b, d, p)))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         per_step.append({k: v - before[k] for k, v in read_counts().items()})
@@ -1875,31 +2123,30 @@ def phase_remat_large_f32(card: str) -> dict:
     first."""
     import torch
 
-    from titok_tpu_torch.data.packing import to_device
-
     dev = torch.device("cuda")
+    # LPIPS off: this gate is bit for bit, and cuDNN's convolutions are not
+    # shown to give the same bits twice
     over = ["tokenizer.losses.perceptual_weight=0", "tokenizer.losses.gram_weight=0",
             "optimizer.warmup_steps=1", "training.main.precision=32",
             "training.sampling.train_seq_len=2048"]
     batches, _ = _host_batches(large_config(*over), 2, seed=1)
     noise_gen = torch.Generator(device=dev).manual_seed(3)
     noises = [torch.randn(d.segment_ids.shape[0], b.patches.shape[1], generator=noise_gen,
-                          device=dev) for b, d in batches]
+                          device=dev) for b, d, _ in batches]
     runs, paths, times = {}, {}, {}
     for remat in (True, False):
         cfg = large_config(*over, f"training.main.remat={remat}")
         builder, st, stp = _trainer(cfg, f32_disc=True, card_seed=10)
         reset_counts()
-        b0, d0 = batches[0]
-        bt, dt_ = to_device(b0, dev), to_device(d0, dev)
+        bt, dt_, _ = _on_card(batches[0])
         recon, _ = st.model(bt)
         loss, _ = builder.loss_system.generator_loss(recon, bt, dt_)
         grads = [g.detach().clone() for g in torch.autograd.grad(loss, list(st.model.parameters()))]
         del recon, loss
         losses, step_ms = [], []
-        for i, ((b, d), noise) in enumerate(zip(batches, noises)):
+        for i, (triple, noise) in enumerate(zip(batches, noises)):
             t0 = time.perf_counter()
-            st, m, _ = stp(st, to_device(b, dev), to_device(d, dev), noise=noise)
+            st, m, _ = stp(st, *_on_card(triple), noise=noise)
             torch.cuda.synchronize()
             if i > 0:  # the steps after the first
                 step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -2212,11 +2459,11 @@ RUN_DIR = os.path.join(REPO, "build", "chip_smoke")  # git-ignored, emptied per 
 
 def tiny16k_overrides(run: str, **over) -> list[str]:
     """configs/tiny_fsq16k.yaml as the trainer phases run it: synthetic
-    data, the v1 kernels, LPIPS off (not ported), 8 steps with eval at 4 and
-    8 over 16 clips, checkpoints every 4 steps keeping 2, into
-    ``RUN_DIR/<run>``."""
+    data, the v1 kernels, its loss with LPIPS on (seeded random VGG
+    weights: ``allow_random_lpips``), 8 steps with eval at 4 and 8 over 16
+    clips, checkpoints every 4 steps keeping 2, into ``RUN_DIR/<run>``."""
     base = {"dataset.train_dataset": "synthetic", "dataset.eval_dataset": "synthetic",
-            "training.main.attn_impl": "flash_v1", "tokenizer.losses.perceptual_weight": 0,
+            "training.main.attn_impl": "flash_v1", "tokenizer.losses.allow_random_lpips": "true",
             "optimizer.warmup_steps": 2, "training.main.max_steps": 8,
             "general.wandb.log_step_interval": 1, "training.eval.eval_step_interval": 4,
             "training.eval.eval_samples": 16, "general.checkpoints.save_interval": 4,
@@ -2262,7 +2509,6 @@ def phase_trainer(card: str) -> dict:
     import torch
 
     from titok_tpu_torch.config import load_config
-    from titok_tpu_torch.data.packing import to_device
     from titok_tpu_torch.train_utils.codebook_logging import codebook_scores
     from titok_tpu_torch.training.trainer import Trainer
 
@@ -2314,6 +2560,8 @@ def phase_trainer(card: str) -> dict:
         check(all(np.isfinite(v) for v in vals.values()), f"step {r['step']}: non-finite {vals}")
         check(vals["train/nonfinite_grad/generator"] == 0 and
               vals["train/nonfinite_grad/discriminator"] == 0, f"step {r['step']}: zeroed step")
+        check(vals.get("train/gen/perceptual_loss", 0) > 0,
+              f"step {r['step']}: no positive gen/perceptual_loss")
     evals = {r["step"]: r for r in rows if "eval/psnr" in r}
     check(sorted(evals) == [4, 8] and all("eval/ssim" in r for r in evals.values()),
           f"eval rows at {sorted(evals)}, want PSNR and SSIM at 4 and 8")
@@ -2343,7 +2591,7 @@ def phase_trainer(card: str) -> dict:
           f"{moved_d:.3e}")
     for r in train_rows:
         print(f"  step {r['step']}: gen/total_loss {r['train/gen/total_loss']:.6g}, "
-              f"disc/total_loss {r.get('train/disc/total_loss', float('nan')):.6g}, "
+              f"gen/perceptual_loss {r['train/gen/perceptual_loss']:.6g}, disc/total_loss {r.get('train/disc/total_loss', float('nan')):.6g}, "
               f"perf/tokens_per_sec {r['perf/tokens_per_sec']:.0f}, step_time_mean "
               f"{r.get('perf/step_time_mean_s', float('nan')):.4f} s")
 
@@ -2354,13 +2602,12 @@ def phase_trainer(card: str) -> dict:
     step_mean = train_rows[-1]["perf/step_time_mean_s"]
     step = trainer.builder.make_train_step()
     batches, pack_ms = _host_batches(cfg, 5, seed=3)
-    dev = next(state.model.parameters()).device
     times = []
-    for b, d in batches:
-        bt, dt_ = to_device(b, dev), to_device(d, dev)
+    for triple in batches:
+        on_card = _on_card(triple)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, _, _ = step(state, bt, dt_)
+        state, _, _ = step(state, *on_card)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     bare = float(np.mean(times[2:]))
@@ -2475,7 +2722,11 @@ def phase_resume_f32(card: str) -> dict:
         return itertools.cycle(list(itertools.islice(synthetic_batches(config, seed=seed), 2)))
 
     def run(name, **over):
+        # LPIPS off: a trainer draws its plans from seed + 1 again on resume
+        # (as JAX's does), so the resumed run's plans differ from the
+        # straight run's
         cfg = load_config(TINY16K, tiny16k_overrides(name, **{
+            "tokenizer.losses.perceptual_weight": 0,
             "training.main.precision": "32", "training.sampling.train_seq_len": 2048,
             "training.eval.eval_step_interval": 0, "general.checkpoints.save_interval": 0,
             **over}))
@@ -2620,6 +2871,7 @@ def main() -> int:
         bres = phase_bwd_kernels(card, train_config())
         vres = phase_vq_kernel(card)
         paths = phase_serving(card)
+        phase_lpips(card)
         paths.update(phase_training(card))
         paths.update(phase_serving_vq(card))
         paths.update(phase_training_vq(card))

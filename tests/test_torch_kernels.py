@@ -2,7 +2,8 @@
 the segment-attention forward and its backward (dq and dk/dv kernels), with
 RoPE fused and in their v1 form (``attn_impl: flash_v1``), the VQ
 nearest-neighbour kernel, train steps (FSQ, EMA-VQ, flash_rope with remat,
-flash_v1) that go through them, and a short ``Trainer.fit``.
+flash_v1) that go through them, and a short ``Trainer.fit``; and the
+perceptual loss's modules (LPIPS, ``crop_resize``) against the CPU.
 
 Every test here needs a CUDA card and the CUDA toolkit; without one it skips
 (the fixture decides, never the import). This file imports no JAX, so it
@@ -1024,3 +1025,51 @@ def test_per_sample_mean_same_bits_twice(cuda):
     sums = zeros.index_add(0, seg.long(), vals.double() * w)
     cnts = zeros.index_add(0, seg.long(), w)
     torch.testing.assert_close(a.double(), (sums / cnts.clamp(min=1.0))[1:], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [13, 14, 15, 16])
+def test_lpips_and_crop_resize_card_match_cpu(cuda, tmp_path, seed):
+    """The perceptual loss's modules on the card against the same modules
+    and weights on the CPU, fp32 with TF32 off (the fixture): ``crop_resize``
+    of 4 frames at 40x48 to 64² (scale 1, fractional up- and down-scales),
+    then LPIPS and Gram of them against a perturbed copy, and the gradient
+    with respect to that copy. Limits: the sums run in another order on each
+    side (cuDNN's and oneDNN's convolutions, cuBLAS's and MKL's matmuls).
+    The gradient is held by its norm, not entry by entry: LPIPS's backward
+    through ReLU and max pool is discontinuous, so features that differ in
+    their last bits route a few units' gradients differently, and each
+    such unit moves the gradient over its whole receptive field; a clamped
+    patch of equal pixels gives equal features, whose max-pool ties each
+    library breaks its own way. The four seeds include such cases."""
+    import warnings
+
+    from titok_tpu_torch.losses.lpips import LPIPS, load_lpips_params
+    from titok_tpu_torch.ops.frames import crop_resize
+
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.uniform(-1, 1, (4, 40, 48, 3)).astype(np.float32))
+    plan = {"scale": torch.tensor([[1.0, 1.0], [1.37, 1.6], [0.8, 0.8], [2.0, 2.0]]),
+            "translation": torch.tensor([[-3.0, -5.0], [-2.3, -0.75], [-1.5, 0.0], [-10.5, -7.25]])}
+    tgt = crop_resize(frames, plan, 64)
+    tgt_g = crop_resize(frames.to(cuda), {k: v.to(cuda) for k, v in plan.items()}, 64)
+    torch.testing.assert_close(tgt_g.cpu(), tgt, atol=1e-5, rtol=0)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        sd = {k: torch.from_numpy(v)
+              for k, v in load_lpips_params(str(tmp_path / "missing.npz")).items()}
+    rec = torch.clamp(tgt + 0.2 * torch.from_numpy(rng.standard_normal(tgt.shape)).float(), -1, 1)
+    out = {}
+    for dev in ("cpu", cuda):
+        m = LPIPS().to(dev)
+        m.load_state_dict(sd)
+        x = rec.to(dev).requires_grad_()
+        lp, gram = m(x, tgt.to(dev))
+        (g,) = torch.autograd.grad(lp.sum() + gram.sum(), x)
+        out[str(dev)] = [t.detach().cpu() for t in (lp, gram, g)]
+    (lp, gram, g), (lp_g, gram_g, g_g) = out["cpu"], out[str(cuda)]
+    assert bool((lp > 0).all()) and bool((gram > 0).all())
+    torch.testing.assert_close(lp_g, lp, rtol=1e-4, atol=0)
+    torch.testing.assert_close(gram_g, gram, rtol=1e-4, atol=0)
+    # a wrong backward is off by the order of the gradient itself
+    assert float((g_g - g).norm()) <= 1e-2 * float(g.norm())

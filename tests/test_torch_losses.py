@@ -128,10 +128,20 @@ def test_per_sample_mean_and_masked_mean():
                                     torch.tensor([True, True, False]))) == 3.0
 
 
-def test_unported_losses_raise():
-    cfg = Config(tiny_config(**{"tokenizer.losses.perceptual_weight": 1.0}).to_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        tloss.LossSystem(cfg)
-    cfg = Config(tiny_config(**{"tokenizer.losses.gram_weight": 0.5}).to_dict())
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        tloss.LossSystem(cfg)
+@pytest.mark.parametrize("weights,samples", [((1.0, 0.0), 24), ((0.0, 0.5), 2),
+                                             ((1.0, 0.5), -1)],
+                         ids=["perceptual", "gram", "both, all frames"])
+def test_perceptual_losses_accepted_and_num_frames_match_jax(weights, samples):
+    """A positive ``perceptual_weight`` or ``gram_weight`` builds the loss
+    system with LPIPS, and K as JAX builds it: samples + 1, or for -1 the
+    static worst case, max_grid[0] x the most samples a batch can hold."""
+    perceptual, gram = weights
+    cfg = tiny_config(**{"tokenizer.losses.perceptual_weight": perceptual,
+                         "tokenizer.losses.gram_weight": gram,
+                         "tokenizer.losses.perceptual_samples_per_step": samples})
+    jls, pls = JLossSystem(cfg), tloss.LossSystem(Config(cfg.to_dict()))
+    assert pls.use_perceptual and jls.use_perceptual
+    assert (pls.num_frames, pls.sample_size) == (jls.num_frames, jls.sample_size)
+    assert pls.num_frames == (samples + 1 if samples > 0 else
+                              4 * jpack.max_samples_for(128, [2, 8, 8], PATCH, 1))
+    assert not any(p.requires_grad for p in pls.lpips.parameters())

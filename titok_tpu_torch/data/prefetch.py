@@ -2,8 +2,9 @@
 step (the JAX package's ``titok_tpu/data/prefetch.py``).
 
 A background thread runs the batch stream (packing in numpy), builds each
-batch's extras (the discriminator's layout, ``build_disc_batch``) and
-copies everything to the card: from pinned host memory, on a side stream,
+batch's extras (the discriminator's layout, ``build_disc_batch``, and the
+perceptual plan, ``build_perceptual_plan``) and copies everything to the
+card: from pinned host memory, on a side stream,
 with an event recorded after the copies. The consumer's stream waits on
 that event before the step reads the tensors, and each tensor is marked
 with ``record_stream`` for the consumer's stream, so the caching allocator

@@ -3,7 +3,9 @@
 ``titok_tpu/losses/loss_module.py``).
 
 Generator loss (ref ``loss_module.py:111-163``): per-sample L1 (equal
-weight per clip whatever its size) + the relativistic GAN term
+weight per clip whatever its size) + LPIPS and the Gram loss over K
+randomly cropped frames (``:123-137``; the frames come from the host's
+``PerceptualPlan``, ``ops/frames.py``) + the relativistic GAN term
 ``softplus(-(fake - real))`` through the discriminator, whose parameters
 the caller leaves out of the generator's gradient.
 
@@ -17,9 +19,6 @@ The discriminator is a :class:`PackedEncoder` with ``out_channels=1`` and
 4 register tokens per sample; a sample's logit is the mean of its
 register-token outputs. All discriminator forwards of a step run as one
 packed pass (:meth:`LossSystem.disc_logits_stacked`).
-
-LPIPS and the Gram loss are not ported yet (ROADMAP queue 1 item 9): a
-config that weights them raises rather than training without them.
 """
 
 from __future__ import annotations
@@ -27,8 +26,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from titok_tpu_torch.data.packing import max_samples_for
+from titok_tpu_torch.losses.lpips import LPIPS
 from titok_tpu_torch.models.blocks import PackedEncoder
 from titok_tpu_torch.models.titok import init_params
+from titok_tpu_torch.ops.frames import extract_perceptual_frames
 from titok_tpu_torch.ops.patchify import decode_rows
 
 DISC_TOKENS = 4  # register tokens per sample (ref loss_module.py:42)
@@ -67,11 +69,27 @@ def stacked_segment_ids(segment_ids: torch.Tensor, n: int, B1: int) -> torch.Ten
                       for c in range(n)])
 
 
+def num_perceptual_frames(config) -> int:
+    """K, the perceptual plan's frame count: ``perceptual_samples_per_step
+    + 1`` (the reference keeps K+1, ``loss_module.py:90-93``), or for -1
+    (the reference's every frame) the static worst case, ``max_grid[0]``
+    times the most samples a batch can hold."""
+    n_perc = int(config.tokenizer.losses.perceptual_samples_per_step)
+    if n_perc != -1:
+        return n_perc + 1
+    cs = config.training.sampling
+    bmax = max_samples_for(int(cs.train_seq_len), cs.min_grid,
+                           config.tokenizer.model.patch_size, cs.token_range[0])
+    return int(cs.max_grid[0]) * bmax
+
+
 class LossSystem:
-    """The discriminator module and the loss math.
+    """The discriminator and LPIPS modules and the loss math.
 
     The discriminator computes in bf16 with fp32 parameters whatever
-    ``training.main.precision`` says, as the JAX package builds it.
+    ``training.main.precision`` says, and LPIPS in fp32, as the JAX package
+    builds them. LPIPS's weights are frozen; ``TrainStepBuilder.init_state``
+    loads them.
     """
 
     def __init__(self, config):
@@ -81,21 +99,21 @@ class LossSystem:
 
         self.perceptual_weight = float(loss_c.perceptual_weight)
         self.gram_weight = float(loss_c.gram_weight)
-        if self.perceptual_weight > 0 or self.gram_weight > 0:
-            raise NotImplementedError(
-                "tokenizer.losses.perceptual_weight / gram_weight > 0 need LPIPS, "
-                "which is not ported yet (ROADMAP queue 1 item 9); set both to 0")
         self.disc_weight = float(loss_c.disc_weight)
         self.gp_weight = float(loss_d.gp_weight)
         self.gp_noise = float(loss_d.gp_noise)
         self.centering_weight = float(loss_d.centering_weight)
+        self.sample_size = int(loss_c.perceptual_sampling_size)
+        self.num_frames = num_perceptual_frames(config)
         self.patch_size = tuple(config.tokenizer.model.patch_size)
+        self.use_perceptual = self.perceptual_weight > 0 or self.gram_weight > 0
         self.use_disc = self.disc_weight > 0
         if tuple(model_d.patch_size) != self.patch_size:
             raise ValueError("disc patch_size must equal tokenizer patch_size in the "
                              "packed pipeline (both read the same patch rows)")
 
         self.disc_tokens = DISC_TOKENS
+        self.lpips = LPIPS().requires_grad_(False) if self.use_perceptual else None
         self.disc_model = PackedEncoder(
             model_size=model_d.model_size,
             patch_size=self.patch_size,
@@ -145,9 +163,10 @@ class LossSystem:
         return torch.stack([all_means[c * stride: c * stride + Bmax] for c in range(n)])
 
     # -- generator loss ----------------------------------------------------
-    def generator_loss(self, recon_rows, batch, disc):
+    def generator_loss(self, recon_rows, batch, disc, perc=None):
         """``(total, {"gen/...": tensor})`` for decoder rows ``[S, P]``;
-        ``disc`` is the DiscBatch on the device, or None."""
+        ``disc`` is the DiscBatch on the device, or None; ``perc`` the
+        PerceptualPlan on the device, or None (no perceptual terms)."""
         target_rows = decode_rows(batch["patches"], torch.float32)
         recon_f = recon_rows.to(torch.float32)
         seg = batch["segment_ids"]
@@ -160,6 +179,23 @@ class LossSystem:
         recon_loss = _per_sample_mean(l1_rows, seg, patch_mask, B1)  # [Bmax]
         loss_dict["recon_loss"] = _masked_mean(recon_loss, valid)
 
+        perceptual_loss = 0.0
+        gram_loss = 0.0
+        if self.use_perceptual and perc is not None:
+            tgt_frames = extract_perceptual_frames(target_rows, perc, self.patch_size,
+                                                   self.sample_size)
+            rec_frames = extract_perceptual_frames(torch.clamp(recon_f, -1.0, 1.0), perc,
+                                                   self.patch_size, self.sample_size)
+            lp, gr = self.lpips(rec_frames, tgt_frames)
+            w = perc["weight"]
+            denom = torch.clamp(w.sum(), min=1.0)
+            perceptual_loss = (lp * w).sum() / denom
+            gram_loss = (gr * w).sum() / denom
+            if self.perceptual_weight > 0:
+                loss_dict["perceptual_loss"] = perceptual_loss
+            if self.gram_weight > 0:
+                loss_dict["gram_loss"] = gram_loss
+
         g_loss_mean = 0.0
         if self.use_disc and disc is not None:
             real, fake = self.disc_logits_stacked(
@@ -169,7 +205,10 @@ class LossSystem:
             g_loss_mean = _masked_mean(g_loss, valid)
             loss_dict["g_loss"] = g_loss_mean
 
-        total = _masked_mean(recon_loss, valid) + self.disc_weight * g_loss_mean
+        total = (_masked_mean(recon_loss, valid)
+                 + self.perceptual_weight * perceptual_loss
+                 + self.gram_weight * gram_loss
+                 + self.disc_weight * g_loss_mean)
         loss_dict["total_loss"] = total
         return total, {"gen/" + k: v for k, v in loss_dict.items()}
 

@@ -9,7 +9,7 @@ e.g. a data-free run on the synthetic stream:
 
     python -m titok_tpu_torch.train config=configs/tiny_fsq16k.yaml \\
         dataset.train_dataset=synthetic dataset.eval_dataset=synthetic \\
-        tokenizer.losses.perceptual_weight=0 training.main.max_steps=100
+        tokenizer.losses.allow_random_lpips=true training.main.max_steps=100
 
 It runs on the card; ``main(argv, device="cpu")`` runs the plain path on
 the CPU. The parallel modes (``train_devices``, ``cp_devices`` or

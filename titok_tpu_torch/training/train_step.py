@@ -2,14 +2,17 @@
 (reference ``train.py:48-115``; the JAX package's
 ``titok_tpu/training/train_step.py``).
 
-One step: the generator's forward, loss (L1 + GAN through the
-discriminator, plus the commitment and entropy terms of EMA-VQ) and
+One step: the generator's forward, loss (L1, LPIPS and Gram over the
+perceptual plan's frames, GAN through the discriminator, plus the
+commitment and entropy terms of EMA-VQ) and
 gradient with respect to the generator's parameters only; the non-finite
 guard, global-norm clipping and an AdamW update at the cosine schedule's
 lr; for EMA-VQ the codebook's EMA update from the forward's statistics
 (kept as it was after a non-finite generator step); then the
 discriminator's loss on the detached reconstruction, its gradient, guard,
-clipping and AdamW update at ``lr * disc_lr_ratio``.
+clipping and AdamW update at ``lr * disc_lr_ratio``. LPIPS's weights are
+frozen constants of the loss (reference ``train.py:218-220``): no grad, no
+optimizer, no checkpoint.
 
 Optimizers mirror the JAX package's optax chain
 ``clip_by_global_norm(max) -> adamw(sched, b1, b2, eps=1e-8, wd)``:
@@ -37,6 +40,7 @@ from typing import Callable, Sequence
 import torch
 
 from titok_tpu_torch import resolve_device
+from titok_tpu_torch.losses.lpips import lpips_params_for
 from titok_tpu_torch.models.titok import TiTok, init_params, state_tensors
 from titok_tpu_torch.models.vq import init_vq_state, init_vq_state_from_latents
 from titok_tpu_torch.train_utils.lr_schedulers import get_scheduler
@@ -134,10 +138,15 @@ class TrainStepBuilder:
 
     def init_state(self, seed: int | None = None, gen_params: dict | None = None,
                    disc_params: dict | None = None, device=None,
-                   batch: dict | None = None) -> TrainState:
+                   batch: dict | None = None, lpips_params: dict | None = None) -> TrainState:
         """Load the params (state dicts of numpy arrays or tensors, e.g. from
         ``weights.from_flax_train_state``; seeded init when None), move both modules
         to ``device`` (``cuda`` when None) and make fresh optimizers.
+
+        With a perceptual loss, the loss system's LPIPS gets ``lpips_params``
+        (``losses/lpips.py:lpips_params_for(config)`` when None, which
+        raises without weights unless the config allows random ones),
+        frozen, on ``device``.
 
         EMA-VQ: the codebook and its statistics come from ``gen_params``'
         ``quantize.*`` entries when it has them; else the codebook is drawn
@@ -177,6 +186,11 @@ class TrainStepBuilder:
             ls.disc_model.load_state_dict(state_tensors(disc_params))
             ls.disc_model.to(dev).train()
             disc_opt = self._adamw(ls.disc_model.parameters())
+        if ls.use_perceptual:
+            if lpips_params is None:
+                lpips_params = lpips_params_for(self.config)
+            ls.lpips.load_state_dict(state_tensors(lpips_params))
+            ls.lpips.to(dev).requires_grad_(False)
         noise_gen = torch.Generator(device=dev)
         noise_gen.manual_seed(seed)
         return TrainState(step=0, model=self.model, disc_model=ls.disc_model,
@@ -184,9 +198,10 @@ class TrainStepBuilder:
                           noise_gen=noise_gen)
 
     def make_train_step(self) -> Callable:
-        """Returns ``train_step(state, batch, disc, noise=None) -> (state,
-        metrics, indices)``. ``batch``/``disc`` are ``to_device`` dicts;
-        ``noise`` is the standard-normal ``[Sd, P]`` draw of the R1/R2
+        """Returns ``train_step(state, batch, disc, perc=None, *, noise=None)
+        -> (state, metrics, indices)``. ``batch``/``disc``/``perc`` (the
+        PerceptualPlan; None leaves the perceptual terms out) are
+        ``to_device`` dicts; ``noise`` is the standard-normal ``[Sd, P]`` draw of the R1/R2
         penalty, taken from ``state.noise_gen`` when None. The state is
         updated in place; metrics are detached 0-d tensors."""
         ls = self.loss_system
@@ -213,11 +228,11 @@ class TrainStepBuilder:
                         torch.sqrt(torch.sum(g.to(torch.float32) ** 2))
             return None if bad is None else bad == 0
 
-        def train_step(state: TrainState, batch, disc, noise=None):
+        def train_step(state: TrainState, batch, disc, perc=None, *, noise=None):
             metrics = {}
             # -- generator update (ref train.py:64-84) ----------------------
             recon, aux = state.model(batch)
-            loss, loss_dict = ls.generator_loss(recon, batch, disc)
+            loss, loss_dict = ls.generator_loss(recon, batch, disc, perc)
             if "commit_loss" in aux:  # EMA-VQ commitment term
                 loss = loss + aux["commit_loss"]
                 loss_dict["gen/commit_loss"] = aux["commit_loss"]

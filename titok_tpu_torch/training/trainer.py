@@ -34,10 +34,15 @@ from titok_tpu_torch.data.packing import (
 )
 from titok_tpu_torch.data.prefetch import PrefetchLoader
 from titok_tpu_torch.losses.loss_module import LossSystem
+from titok_tpu_torch.losses.lpips import lpips_params_for
 from titok_tpu_torch.metrics.eval_metrics import EvalMetrics
 from titok_tpu_torch.metrics.psnr_device import psnr_from_stats
 from titok_tpu_torch.models.titok import make_titok
-from titok_tpu_torch.ops.frames import build_eval_frame_plan, max_eval_frames
+from titok_tpu_torch.ops.frames import (
+    build_eval_frame_plan,
+    build_perceptual_plan,
+    max_eval_frames,
+)
 from titok_tpu_torch.ops.patchify import decode_rows
 from titok_tpu_torch.train_utils.checkpoints import CheckpointManager, restore_weights_only
 from titok_tpu_torch.train_utils.codebook_logging import CodebookLogger
@@ -134,12 +139,24 @@ class Trainer:
                                       save_interval=int(ck.get("save_interval", 1000)),
                                       keep=ck.get("keep_prior", 2))
         self.batches_fn = batches_fn or select_data_backend(config)
+        # the JAX trainer's _load_lpips: raises here, before any step, when
+        # the weights are missing and random ones are not allowed
+        self.lpips_params = lpips_params_for(config) if self.loss_system.use_perceptual \
+            else None
         self.max_grid = list(cs.max_grid)
 
-    def _build_extras(self, batch: PackedBatch) -> dict:
-        if self.loss_system.use_disc:
-            return {"disc": build_disc_batch(batch, self.loss_system.disc_tokens)}
-        return {}
+    def _build_extras(self, batch: PackedBatch, rng: np.random.Generator) -> dict:
+        """The discriminator's layout and the perceptual plan of ``batch``,
+        the plan drawn from ``rng``."""
+        ls = self.loss_system
+        extras = {}
+        if ls.use_disc:
+            extras["disc"] = build_disc_batch(batch, ls.disc_tokens)
+        if ls.use_perceptual:
+            extras["perc"] = build_perceptual_plan(
+                batch, num_frames=ls.num_frames, sample_size=ls.sample_size,
+                patch_size=self.patch_size, max_grid_hw=self.max_grid[1:], rng=rng)
+        return extras
 
     def _init_state(self, seed: int):
         """Fresh train state (seeded init; EMA-VQ draws its codebook from one
@@ -148,7 +165,8 @@ class Trainer:
         if self.model.quantizer == "vq":
             batch = next(iter(self.batches_fn(self.config, eval=False, seed=seed)))
             probe = to_device(batch, self.device)
-        state = self.builder.init_state(seed=seed, device=self.device, batch=probe)
+        state = self.builder.init_state(seed=seed, device=self.device, batch=probe,
+                                        lpips_params=self.lpips_params)
         return self._maybe_restore(state)
 
     def _maybe_restore(self, state):
@@ -180,8 +198,11 @@ class Trainer:
         state = self._init_state(seed)  # raises for steps_per_call > 1
         self._eval_step = self.builder.make_eval_metrics_step(self.device_im)
         train_step = self.builder.make_train_step()
+        # the plans' stream restarts at seed + 1 on resume, as JAX's does
+        extras_rng = np.random.default_rng(seed + 1)
         loader = PrefetchLoader(lambda: self.batches_fn(self.config, eval=False, seed=seed),
-                                build_extras=self._build_extras, device=self.device)
+                                build_extras=lambda b: self._build_extras(b, extras_rng),
+                                device=self.device)
         profile_dir = cm.get("profile_dir", None)
         profile_steps = cm.get("profile_steps", None)
         timer = StepTimer()
@@ -198,7 +219,8 @@ class Trainer:
                     break
                 if profile_dir and profile_steps and step_num == int(profile_steps):
                     prof = start_trace(profile_dir)
-                state, metrics, indices = train_step(state, dev_batch, dev_extras.get("disc"))
+                state, metrics, indices = train_step(state, dev_batch, dev_extras.get("disc"),
+                                                     dev_extras.get("perc"))
                 self._check_preempt(state)
                 if prof is not None and step_num == int(profile_steps) + 3:
                     stop_trace(prof)

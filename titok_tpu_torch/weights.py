@@ -4,14 +4,18 @@ The port's module tree mirrors the flax names (``encoder.model_layers.
 attn_0.to_qkv`` …), so the mapping is mechanical:
 
 - a flax ``Dense`` ``kernel [in, out]`` becomes ``Linear.weight [out, in]``;
+- a flax ``Conv`` ``kernel [kh, kw, in, out]`` (HWIO) becomes
+  ``Conv2d.weight [out, in, kh, kw]`` (OIHW);
 - ``bias``, RMSNorm ``weight`` and ``mask_token [1, 1]`` are copied as
   they are.
 
 The same holds for the discriminator, a ``PackedEncoder`` under the same
 names. The EMA-VQ state (the JAX ``VQState``: codebook, ema_counts,
 ema_sums, ages) maps onto the buffers of ``TiTok.quantize`` under the same
-field names. Takes a nested dict (or a ``VQState``) whose leaves convert
-with ``np.asarray`` (numpy arrays, or the arrays of a JAX tree); imports no
+field names. An LPIPS tree (``net/conv{i}`` HWIO kernels and biases,
+``lin{k}/kernel [1, 1, C, 1]``) maps by :func:`from_flax_params` too.
+Takes a nested dict (or a ``VQState``) whose leaves convert with
+``np.asarray`` (numpy arrays, or the arrays of a JAX tree); imports no
 JAX.
 """
 
@@ -26,7 +30,9 @@ from titok_tpu_torch.models.vq import STATE_NAMES
 
 def from_flax_params(tree: Mapping) -> dict[str, np.ndarray]:
     """Nested flax params (numpy leaves) -> flat torch state dict (numpy
-    values, f32)."""
+    values, f32): the TiTok and discriminator trees, and the LPIPS tree of
+    a converted ``.npz`` (``net.conv{i}.weight`` OIHW and ``.bias``,
+    ``lin{k}.weight [1, C, 1, 1]``)."""
     out: dict[str, np.ndarray] = {}
 
     def walk(node: Mapping, prefix: str) -> None:
@@ -36,9 +42,11 @@ def from_flax_params(tree: Mapping) -> dict[str, np.ndarray]:
                 walk(val, name + ".")
             elif key == "kernel":
                 arr = np.asarray(val, np.float32)
-                if arr.ndim != 2:
-                    raise ValueError(f"{name}: expected a 2-D Dense kernel, got {arr.shape}")
-                out[f"{prefix}weight"] = np.ascontiguousarray(arr.T)
+                if arr.ndim not in (2, 4):
+                    raise ValueError(f"{name}: expected a 2-D Dense or a 4-D Conv kernel, "
+                                     f"got {arr.shape}")
+                perm = (1, 0) if arr.ndim == 2 else (3, 2, 0, 1)
+                out[f"{prefix}weight"] = np.ascontiguousarray(arr.transpose(perm))
             else:
                 out[name] = np.asarray(val, np.float32)
 
