@@ -114,18 +114,37 @@ toolkit. Phases, in order; any failure exits non-zero:
    resumed; then f32 at ``train_seq_len`` 2048 (LPIPS off: a resumed run
    draws its plans anew from ``seed + 1``), 4 steps straight against
    2 + save + resume + 2 (losses, params, the R1/R2 noise generator);
-14. the f32 rows of the kernel table: each f32 entry of rows 1-4 and the
+14. the data layer: one probe of libav (``pkg-config``) decides what runs.
+   Everywhere: the ``pack`` library (``native/packer.cpp``, built with
+   ``g++``) against its plain version on 4 seeded uint8 clips, bit for bit;
+   packing ms a 6144-row tiny batch on the f32, bf16 and uint8 wires, fused
+   and plain; H2D bytes and ms a batch on each wire; ``decode_rows`` of the
+   uint8 rows on the card against the host's f32 rows, bit for bit; at
+   precision 32 the uint8 and f32 wires' steps on the same 3 batches,
+   identical grads and losses; ``tarfile_to_samples`` over the eval-set
+   tars against ``MANIFEST.json``; ``Trainer(cfg).fit()`` of
+   ``configs/tiny.yaml`` as shipped (LPIPS on, random VGG weights) for 6
+   steps and an eval on synthetic clips, then on the bf16 and the uint8
+   wire, with launch counts per step (rows 1-2, 16 each) and tokens/s.
+   With libav, those two fits read the eval-set tars
+   (``docs/eval_set/{00000..00002}.tar``), and the phase adds decode and
+   chunk ms a clip at 0 and 3 threads, the decode hashes against the CPU
+   pins (printed, not gated), ``configs/tiny_csv.yaml`` on a CSV of clips,
+   the converter and the CLI on the tars; without it, they read seeded
+   uint8 clips, and a ``VideoReader`` must raise;
+15. the f32 rows of the kernel table: each f32 entry of rows 1-4 and the
    v1 f32 dq, its time, bound and share of bound at the shapes timed
    above, with the launch shape the library reports (threads, registers,
    dynamic shared memory, CTAs an SM) for the pipelined forward, dq and
    dk/dv;
-15. one JSON line listing every kernel with its numbers; ``launches`` is
+16. one JSON line listing every kernel with its numbers; ``launches`` is
    the kernel's count on the training path of its dtype (the VQ kernel's:
    the base_vq training path; the rope kernels': the large training path,
    f32 its remat run; the v1 kernels': the trainer's fit, f32 the straight
    f32 run), and ``launches_by_path`` its count on each path, each read
-   from counters set to 0 just before that path;
-16. last line: ``{"ok": true, "device": {...}}``.
+   from counters set to 0 just before that path (the data phase's fits
+   too: ``train_data_bf16``, ``train_data_uint8``);
+17. last line: ``{"ok": true, "device": {...}}``.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -194,6 +213,40 @@ TOL = {"f32": (1e-5, 0.0, 1e-5), "bf16": (3e-2, 1e-2, 1e-3)}
 # over the five cases on an H100 (PERF.md, Findings); the planted faults of
 # phase_bwd_kernels show what they reject.
 BWD_TOL = {"f32": (1e-6, 1e-4, 3e-6), "bf16": (1.5e-3, 1e-2, 5e-4)}
+EVAL_SET = os.path.join(REPO, "docs", "eval_set")
+# SHA-256 of the decoded uint8 frames (every frame) of the first three clips
+# of docs/eval_set/00000.tar, and of their resize_center_crop to 128x128, as
+# the JAX package's reader and resize give them on a CPU host with libavformat
+# 59.27.100, libavcodec 59.37.100, libavutil 57.28.100 and libswscale 6.7.100;
+# tests/test_torch_data.py holds the port's reader to them. Decode and
+# swscale bits may differ across libav builds: the data phase prints whether
+# a machine's libav gives them, and does not gate on it
+EVAL_SET_SHA256 = {
+    "bdec1c95231840d5a4f8e6fc8ec7b795": (
+        "1cb323413f67642a8ac86072db2474a412ed15db09302ac259e36b093efba12a",
+        "c666d50d510e485e80a61c75b6434522c9544073fbfdf1f4fa456dafa318c219"),
+    "b6ef2518f4614a8a8635898ebb90dac3": (
+        "e990867168a07c41dc02de18923adefa7f4bbd9372846c4be2d2bc3294705554",
+        "0661fc4e385b7e2fed85feddf1e984e39b9cbb8219f97f01dedbf60473e37777"),
+    "35674a8ce72144fdb3755e0bafb52144": (
+        "0da489e69d500545575bc4f92255bf0207c6cd0251395cd11f8ae7690cefc890",
+        "0135b5fba91fda38d1ed70e680baba8f1b7d370aaf1a54ed500c9faedf2bde52"),
+}
+
+
+def eval_set_sha256(tarfile_to_samples, reader, resize_center_crop) -> dict:
+    """``{key: (frames sha256, 128x128 center crop sha256)}`` of the first
+    three clips of ``00000.tar`` through the given reader functions."""
+    import hashlib
+    import itertools
+
+    out = {}
+    for s in itertools.islice(tarfile_to_samples(os.path.join(EVAL_SET, "00000.tar")), 3):
+        r = reader(s["mp4"])
+        frames = r.get_batch(np.arange(len(r)))
+        crop = np.ascontiguousarray(resize_center_crop(frames, (128, 128)))
+        out[s["__key__"]] = tuple(hashlib.sha256(a.tobytes()).hexdigest() for a in (frames, crop))
+    return out
 
 
 class SmokeFailure(Exception):
@@ -2790,6 +2843,411 @@ def phase_resume_f32(card: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# The data layer: the host libraries (native/), the packer and the wires,
+# and the readers of the shipped configs' data (the eval-set tars, a CSV)
+# ---------------------------------------------------------------------------
+
+TINY = os.path.join(REPO, "configs", "tiny.yaml")
+TARS = os.path.join(EVAL_SET, "{00000..00002}.tar")
+# seeded uint8 clips for the packer gate, THWC: the odd ones leave a
+# remainder in each dim that patch (4, 8, 8) cuts off
+PACK_GATE_DIMS = [(8, 128, 128), (16, 168, 168), (9, 131, 165), (13, 141, 133)]
+
+
+def u8_clip_batches(config, eval: bool = False, seed: int = 0):
+    """Seeded uint8 THWC clips, each dim drawn between ``min_grid`` and
+    ``max_grid`` in patch steps, through the packer in the config's wire
+    dtype: the decoder's output layout without a decoder. Endless in
+    training; ``eval_samples`` clips and the partial last batch in eval."""
+    import itertools
+
+    from titok_tpu_torch.data.packing import Packer, wire_dtype
+
+    cs = config.training.sampling
+    rng = np.random.default_rng(seed)
+    stream = _u8_stream(config, rng)
+    if eval:
+        stream = itertools.islice(stream, int(config.training.eval.eval_samples))
+    return Packer(seq_len=int(cs.eval_seq_len if eval else cs.train_seq_len),
+                  token_range=cs.token_range, patch_size=list(config.tokenizer.model.patch_size),
+                  min_grid=cs.min_grid, rng=rng, dtype=wire_dtype(config),
+                  flush_final=eval)(stream)
+
+
+def _u8_stream(config, rng: np.random.Generator):
+    """The clips of :func:`u8_clip_batches`, drawn from ``rng``."""
+    cs = config.training.sampling
+    ps = list(config.tokenizer.model.patch_size)
+    while True:
+        dims = [int(rng.integers(lo // p, hi // p + 1)) * p
+                for lo, hi, p in zip(cs.min_grid, cs.max_grid, ps)]
+        yield {"video": rng.integers(0, 256, size=dims + [3], dtype=np.uint8), "fps": 4}
+
+
+def _data_packer(card: str) -> None:
+    """The fused packer against its plain version, bit for bit; packing ms
+    a 6144-row tiny batch on each wire, fused and plain; H2D bytes and ms a
+    batch on each wire; on the card, ``decode_rows`` of the uint8 rows
+    against the host's f32 rows of the same clips, bit for bit."""
+    import itertools
+
+    import torch
+
+    from titok_tpu_torch.data import packing
+    from titok_tpu_torch.data.video_reader import patchify_normalize
+    from titok_tpu_torch.ops.patchify import decode_rows
+
+    rng = np.random.default_rng(11)
+    for dims in PACK_GATE_DIMS:
+        clip = rng.integers(0, 256, size=dims + (3,), dtype=np.uint8)
+        got = patchify_normalize(clip, (4, 8, 8))
+        cut = clip[: dims[0] // 4 * 4, : dims[1] // 8 * 8, : dims[2] // 8 * 8]
+        want = packing.patchify_normalize_reference(cut, (4, 8, 8))
+        check(got.shape == want.shape and np.array_equal(got.view(np.uint32),
+                                                         want.view(np.uint32)),
+              f"pk_patchify_normalize != its plain version at {dims}")
+    print(f"data: pk_patchify_normalize equals its plain version (decode_rows of the byte "
+          f"shuffle) bit for bit on {len(PACK_GATE_DIMS)} seeded uint8 clips "
+          f"{PACK_GATE_DIMS} at patch (4, 8, 8)")
+
+    wires = {"f32": {"training.main.precision": "32"}, "bf16": {},
+             "uint8": {"dataset.uint8_wire": "true"}}
+    cfg = train_config()
+    clips = [s["video"] for s in itertools.islice(_u8_stream(cfg, np.random.default_rng(12)), 40)]
+    ps = list(cfg.tokenizer.model.patch_size)
+    batches = {}
+    for wire, over in wires.items():
+        c = train_config(**over)
+        dtype = packing.wire_dtype(c)
+        for impl in ("fused", "plain"):
+            if wire == "uint8" and impl == "plain":
+                continue  # the uint8 wire is a byte shuffle: no packer
+            packer = packing.Packer(seq_len=6144, token_range=c.training.sampling.token_range,
+                                    patch_size=ps, min_grid=c.training.sampling.min_grid,
+                                    rng=np.random.default_rng(13), dtype=dtype)
+            fused = packing.patchify_normalize
+            if impl == "plain":
+                packing.patchify_normalize = packing.patchify_normalize_reference
+            try:
+                t0 = time.perf_counter()
+                out = list(packer({"video": v, "fps": 4} for v in clips))
+                ms = (time.perf_counter() - t0) * 1e3 / len(out)
+            finally:
+                packing.patchify_normalize = fused
+            batches.setdefault(wire, out)
+            print(f"data: packing [{card}, host clock] {wire} wire, {impl} packer: {ms:.3f} ms "
+                  f"a 6144-row batch ({len(out)} batches of {sum(b.num_samples for b in out)} "
+                  f"uint8 clips, tiny sampling)")
+    for wire, out in batches.items():
+        host = packing.host_tensors(out[0])
+        pinned = {k: v.pin_memory() for k, v in host.items()}
+        nbytes = sum(v.numel() * v.element_size() for v in pinned.values())
+        pbytes = pinned["patches"].numel() * pinned["patches"].element_size()
+
+        def copy():
+            return [v.to("cuda", non_blocking=True) for v in pinned.values()]
+
+        ms = cuda_ms(copy, reps=20)
+        print(f"data: H2D [{card}, CUDA events] {wire} wire: {nbytes} bytes a batch "
+              f"({pbytes} of patch rows, {pinned['patches'].dtype}), {ms:.4f} ms from pinned "
+              f"memory ({nbytes / ms / 1e6:.2f} GB/s)")
+
+    # the uint8 rows decoded on the card against the host's f32 rows
+    b8, b32 = batches["uint8"][0], batches["f32"][0]
+    check(np.array_equal(b8.segment_ids, b32.segment_ids), "the wires packed other layouts")
+    slots = (~b8.token_mask) & (b8.segment_ids > 0)
+    dev = decode_rows(packing.to_device(b8, "cuda")["patches"], torch.float32).cpu().numpy()
+    same = np.array_equal(dev[slots].view(np.uint32), b32.patches[slots].view(np.uint32))
+    print(f"data: decode_rows of the uint8 rows on the card == the host's f32 rows (fused "
+          f"packer), bit for bit at the {int(slots.sum())} patch rows: {same}")
+    check(same, "decode_rows on the card differs from the host's f32 rows")
+
+
+
+def _data_wire_steps(card: str) -> None:
+    """At precision 32 (the discriminator in f32 too, LPIPS off: cuDNN's
+    backward is not bit-reproducible), the same 3 batches of uint8 clips on
+    the uint8 and the f32 wire, from the same weights and noise: the first
+    step's generator grads and the 3 steps' losses must be identical."""
+    import itertools
+
+    import torch
+
+    from titok_tpu_torch.data.packing import build_disc_batch
+    from titok_tpu_torch.losses.loss_module import DISC_TOKENS
+
+    over = {"training.main.precision": "32", "training.sampling.train_seq_len": 2048,
+            "optimizer.warmup_steps": 2, "tokenizer.losses.perceptual_weight": 0,
+            "tokenizer.losses.gram_weight": 0}
+    runs = {}
+    for wire, w_over in (("f32", {}), ("uint8", {"dataset.uint8_wire": "true"})):
+        cfg = train_config(**over, **w_over)
+        batches = [(b, build_disc_batch(b, DISC_TOKENS), None)
+                   for b in itertools.islice(u8_clip_batches(cfg, seed=21), 3)]
+        noise_gen = torch.Generator(device="cuda").manual_seed(3)
+        noises = [torch.randn(d.segment_ids.shape[0], b.patches.shape[1], generator=noise_gen,
+                              device="cuda") for b, d, _ in batches]
+        builder, st, stp = _trainer(cfg, f32_disc=True)
+        bt, dt_, _ = _on_card(batches[0])
+        check(bt["patches"].dtype == (torch.uint8 if wire == "uint8" else torch.float32),
+              f"{wire} wire: patch rows in {bt['patches'].dtype}")
+        recon, _ = st.model(bt)
+        grads = torch.autograd.grad(builder.loss_system.generator_loss(recon, bt, dt_)[0],
+                                    list(st.model.parameters()))
+        losses = []
+        for triple, noise in zip(batches, noises):
+            st, m, _ = stp(st, *_on_card(triple), noise=noise)
+            losses.append({k: float(v) for k, v in m.items() if "loss" in k or "penalty" in k})
+        torch.cuda.synchronize()
+        runs[wire] = (batches, grads, losses)
+        del builder, st, stp, recon
+        torch.cuda.empty_cache()
+    (b_f, g_f, l_f), (b_8, g_8, l_8) = runs["f32"], runs["uint8"]
+    check(all(np.array_equal(x[0].segment_ids, y[0].segment_ids) for x, y in zip(b_f, b_8)),
+          "the wires packed other layouts")
+    gdiff = max((a - b).abs().max().item() for a, b in zip(g_8, g_f))
+    gsame = all(torch.equal(a, b) for a, b in zip(g_8, g_f))
+    pairs = [(l_8[i][k], l_f[i][k]) for i in range(3) for k in l_f[i]]
+    ldiff = max(abs(a - b) for a, b in pairs)
+    print(f"data: uint8 wire vs f32 wire [{card}], precision 32, S=2048, the same 3 batches of "
+          f"uint8 clips, weights and noise: first step's generator grads identical {gsame} "
+          f"(max|diff| {gdiff:.3e}); losses of 3 steps max|diff| {ldiff:.3e} over {len(pairs)} "
+          f"values (gate: identical)")
+    for i in range(3):
+        print(f"  step {i}: uint8 {l_8[i]}")
+    check(gsame and ldiff == 0, "the uint8 wire's step differs from the f32 wire's")
+
+
+def _data_fit(card: str, run: str, batches_fn, **over) -> tuple[dict, dict, float]:
+    """``Trainer(cfg).fit()`` of configs/tiny.yaml (its loss, random VGG
+    weights) for 6 steps with an eval at 6 over 16 clips, into
+    ``RUN_DIR/<run>``: launches per step (rows 1-2 bf16, 16 each), finite
+    losses, a positive perceptual loss, device PSNR/SSIM written. Returns
+    the fit's launch counts, its rows, and its tokens/s (steps 2-5)."""
+    import shutil
+
+    import torch
+
+    from titok_tpu_torch.training.trainer import Trainer
+
+    shutil.rmtree(os.path.join(RUN_DIR, run), ignore_errors=True)
+    cfg = train_config(**{"training.main.max_steps": 6, "training.eval.eval_step_interval": 6,
+                          "training.eval.eval_samples": 16, "general.wandb.log_step_interval": 1,
+                          "general.checkpoints.save_path": os.path.join(RUN_DIR, run), **over})
+    trainer = Trainer(cfg, batches_fn=batches_fn)
+    per_step = []
+    _count_steps(trainer, per_step)
+    reset_counts()  # this path: the whole fit, read right after it
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    total = read_counts()
+    n = TRAIN_LAUNCHES["tiny"]
+    want = {**{k: 0 for k in total}, "bf16": n, "bwd_dq_bf16": n, "bwd_dkv_bf16": n}
+    check(len(per_step) == 6, f"{run}: {len(per_step)} train steps, want 6")
+    for i, got in enumerate(per_step):
+        check(got == want, f"{run} step {i}: launches {got}, want {want}")
+    rows = _jsonl(run)
+    train_rows = [r for r in rows if "train/gen/total_loss" in r]
+    check([r["step"] for r in train_rows] == list(range(6)), f"{run}: a step was not logged")
+    for r in train_rows:
+        vals = {k: v for k, v in r.items() if k.startswith("train/")}
+        check(all(np.isfinite(v) for v in vals.values()), f"{run} step {r['step']}: {vals}")
+        check(vals.get("train/gen/perceptual_loss", 0) > 0, f"{run}: no perceptual loss")
+    evals = [r for r in rows if "eval/psnr" in r]
+    check([r["step"] for r in evals] == [6] and "eval/ssim" in evals[0]
+          and np.isfinite(evals[0]["eval/psnr"]), f"{run}: eval rows {evals}")
+    tps = float(np.mean([r["perf/tokens_per_sec"] for r in train_rows[2:]]))
+    print(f"data: fit {run} [{card}] (configs/tiny.yaml, bf16-mixed, S 6144, LPIPS on): 6 steps "
+          f"in {fit_s:.2f} s, {tps:.0f} tokens/s (perf/tokens_per_sec, steps 2-5); launches per "
+          f"step {per_step[0]['bf16']} forward, {per_step[0]['bwd_dq_bf16']} dq, "
+          f"{per_step[0]['bwd_dkv_bf16']} dk/dv; losses "
+          + ", ".join(f"{r['train/gen/total_loss']:.5g}" for r in train_rows)
+          + f"; eval psnr {evals[0]['eval/psnr']:.4f} dB, ssim {evals[0]['eval/ssim']:.5f}")
+    del trainer
+    torch.cuda.empty_cache()
+    return total, rows, tps
+
+
+def _data_real_clips(card: str, synth_tps: float) -> dict:
+    """With libav: decode and chunk ms a clip over the 160 eval-set clips
+    at 0 and 3 decode threads, the decode hashes, ``Trainer.fit`` of
+    configs/tiny.yaml on the tars (bf16 and uint8 wire), configs/tiny_csv.yaml
+    on a CSV of clips taken from one tar, the converter, and the CLI."""
+    import itertools
+    import shutil
+
+    from titok_tpu_torch.config import load_config
+    from titok_tpu_torch.data.chunking import clip_chunks, resize_center_crop
+    from titok_tpu_torch.data.convert_to_wds import convert
+    from titok_tpu_torch.data.video_reader import VideoReader
+    from titok_tpu_torch.data.wds_dataset import expand_shards, tarfile_to_samples, wds_batches
+    from titok_tpu_torch.data.workers import WorkerPool
+
+    got = eval_set_sha256(tarfile_to_samples, VideoReader, resize_center_crop)
+    for key, (frames_h, crop_h) in got.items():
+        print(f"data: decode hash {key}: frames {frames_h[:16]}.. (the CPU pin's: "
+              f"{frames_h == EVAL_SET_SHA256[key][0]}), 128x128 crop {crop_h[:16]}.. ("
+              f"{crop_h == EVAL_SET_SHA256[key][1]})")
+    print(f"data: this machine's libav decodes the eval set to the CPU pins' bits: "
+          f"{got == EVAL_SET_SHA256} (printed, not gated)")
+
+    cs = train_config().training.sampling
+    shards = expand_shards(TARS)
+
+    def chunks_of(paths, seed):
+        rng = np.random.default_rng(seed)
+        for p in paths:
+            for s in tarfile_to_samples(p):
+                yield sum(1 for _ in clip_chunks(s["mp4"], cs, [4, 8, 8], rng, False))
+
+    for workers in (0, 3):
+        t0 = time.perf_counter()
+        if workers:
+            counts = list(WorkerPool([lambda w=w: chunks_of(shards[w::3], w) for w in range(3)]))
+        else:
+            counts = list(chunks_of(shards, 0))
+        ms = (time.perf_counter() - t0) * 1e3 / len(counts)
+        print(f"data: decode + chunk + resize [{card} host, host clock], {workers} threads: "
+              f"{ms:.3f} ms a clip over {len(counts)} clips, {sum(counts)} chunks (tiny sampling)")
+        check(len(counts) == 160, f"{len(counts)} eval-set clips, want 160")
+
+    paths = {}
+    data = {"dataset.train_dataset": TARS, "dataset.eval_dataset": TARS}
+    for wire, over in (("bf16", {}), ("uint8", {"dataset.uint8_wire": "true"})):
+        paths[f"train_data_{wire}"], _, tps = _data_fit(card, f"data_tars_{wire}", None,
+                                                        **data, **over)
+        print(f"data: tokens/s on the eval-set tars, {wire} wire: {tps:.0f} against "
+              f"{synth_tps:.0f} on synthetic float clips")
+
+    tmp = os.path.join(RUN_DIR, "data_clips")
+    for d in (tmp, os.path.join(RUN_DIR, "data_csv"), os.path.join(RUN_DIR, "data_cli")):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(os.path.join(tmp, "mp4"))
+    for s in itertools.islice(tarfile_to_samples(os.path.join(EVAL_SET, "00000.tar")), 8):
+        with open(os.path.join(tmp, "mp4", f"{s['__key__']}.mp4"), "wb") as f:
+            f.write(s["mp4"])
+    csv_path = os.path.join(tmp, "clips.csv")
+    with open(csv_path, "w") as f:
+        f.write("path\n" + "".join(os.path.join(tmp, "mp4", n) + "\n"
+                                   for n in sorted(os.listdir(os.path.join(tmp, "mp4")))))
+    from titok_tpu_torch.training.trainer import Trainer
+
+    csv_cfg = load_config(os.path.join(REPO, "configs", "tiny_csv.yaml"), [
+        f"dataset.train_dataset={csv_path}", f"dataset.eval_dataset={csv_path}",
+        "tokenizer.losses.allow_random_lpips=true", "training.main.max_steps=2",
+        "training.eval.eval_step_interval=2", "training.eval.eval_samples=4",
+        "general.wandb.log_step_interval=1",
+        f"general.checkpoints.save_path={os.path.join(RUN_DIR, 'data_csv')}"])
+    Trainer(csv_cfg).fit()
+    rows = _jsonl("data_csv")
+    check([r["step"] for r in rows if "train/gen/total_loss" in r] == [0, 1]
+          and all(np.isfinite(r["train/gen/total_loss"]) for r in rows
+                  if "train/gen/total_loss" in r)
+          and any("eval/psnr" in r for r in rows), f"CSV run rows {rows}")
+    print(f"data: configs/tiny_csv.yaml on a CSV of 8 eval-set clips: 2 steps, losses "
+          + ", ".join(f"{r['train/gen/total_loss']:.5g}" for r in rows
+                      if "train/gen/total_loss" in r))
+
+    n = convert(os.path.join(tmp, "mp4"), os.path.join(tmp, "shards"), shard_size=4)
+    check(n == 8, f"converter wrote {n} samples, want 8")
+    conv_cfg = train_config(**{"dataset.train_dataset":
+                               os.path.join(tmp, "shards", "{00000..00001}.tar")})
+    b = next(iter(wds_batches(conv_cfg, seed=0)))
+    check(b.num_samples >= 1, "no clip read back from the converter's shards")
+    print(f"data: convert_to_wds wrote 8 clips into 2 shards; wds_batches read back a batch of "
+          f"{b.num_samples} clips")
+
+    p = _cli([f"config={TINY}", f"dataset.train_dataset={TARS}", f"dataset.eval_dataset={TARS}",
+              "tokenizer.losses.allow_random_lpips=true", "training.main.max_steps=3",
+              "training.eval.eval_step_interval=0", "general.checkpoints.save_interval=0",
+              "general.wandb.log_step_interval=1",
+              f"general.checkpoints.save_path={os.path.join(RUN_DIR, 'data_cli')}"])
+    try:
+        out, _ = p.communicate(timeout=600)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    steps = [r["step"] for r in _jsonl("data_cli") if "train/gen/total_loss" in r]
+    check(p.returncode == 0 and steps == [0, 1, 2], f"CLI on the tars: exit {p.returncode}, "
+          f"steps {steps}:\n{out[-3000:]}")
+    print("data: python -m titok_tpu_torch.train on the eval-set tars: 3 steps, exit 0")
+    return paths
+
+
+def phase_data(card: str) -> dict:
+    """The data layer on this machine. One probe of libav (pkg-config)
+    decides what runs: everywhere, the ``pack`` library's packer against its
+    plain version, packing and H2D on each wire, the uint8 wire decoded on
+    the card against the host's f32 rows, the uint8 and f32 wires' steps,
+    ``tarfile_to_samples`` over the eval-set tars against their manifest,
+    and ``Trainer.fit`` of configs/tiny.yaml on the bf16 and the uint8 wire
+    (and on synthetic clips, for the rate). With libav, the fits read the
+    eval-set tars and :func:`_data_real_clips` runs; without it, they read
+    seeded uint8 clips, and constructing a ``VideoReader`` must raise."""
+    import hashlib
+
+    from titok_tpu_torch.data import _native
+    from titok_tpu_torch.data.video_reader import VideoReader
+    from titok_tpu_torch.data.wds_dataset import tarfile_to_samples
+    from titok_tpu_torch.training.trainer import synthetic_batches
+
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True)
+    print(f"data: {gxx.stdout.splitlines()[0] if gxx.returncode == 0 else 'no g++'}")
+    try:
+        versions = _native.libav_versions()
+    except _native.NativeLibraryError as e:
+        versions = None
+        print(f"data: libav absent on this machine: {' '.join(str(e).split())}")
+    else:
+        print(f"data: libav found: {versions}")
+    # the pack library may have been built earlier in this run (the serving
+    # phase's uint8 encode packs through it)
+    names = ("pack",) if versions is None else ("pack", "av")
+    for name in names:
+        _native.load(name)  # a build failure here fails the run
+        print(f"data: the {name} library: g++ took {_native.build_seconds[name]:.2f} s at its "
+              f"first load in this run (0: found built under build/native)")
+
+    _data_packer(card)
+    _data_wire_steps(card)
+
+    with open(os.path.join(EVAL_SET, "MANIFEST.json")) as f:
+        manifest = json.load(f)["clips"]
+    t0 = time.perf_counter()
+    seen = {}
+    for shard in ("00000", "00001", "00002"):
+        for s in tarfile_to_samples(os.path.join(EVAL_SET, f"{shard}.tar")):
+            seen[f"{shard}.tar::{s['__key__']}.mp4"] = hashlib.sha256(s["mp4"]).hexdigest()
+    print(f"data: tarfile_to_samples over the eval-set tars: {len(seen)} clips in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, bytes equal to MANIFEST.json's hashes: "
+          f"{seen == manifest}")
+    check(seen == manifest, "the eval-set tars read back other clips than MANIFEST.json lists")
+
+    paths = {}
+    _, _, synth_tps = _data_fit(card, "data_synthetic", synthetic_batches)
+    if versions is None:
+        try:
+            VideoReader(os.path.join(EVAL_SET, "00000.tar"))
+        except _native.NativeLibraryError as e:
+            print(f"data: VideoReader raises without libav: {' '.join(str(e).split())[:160]}")
+        else:
+            raise SmokeFailure("VideoReader opened without libav")
+        print("data: decode and chunk ms a clip, the decode hashes, the fits on the tars, the "
+              "CSV run, the converter and the CLI on the tars: not measured (no libav)")
+        for wire, over in (("bf16", {}), ("uint8", {"dataset.uint8_wire": "true"})):
+            paths[f"train_data_{wire}"], _, tps = _data_fit(
+                card, f"data_u8clips_{wire}", u8_clip_batches, **over)
+            print(f"data: tokens/s on seeded uint8 clips, {wire} wire: {tps:.0f} against "
+                  f"{synth_tps:.0f} on synthetic float clips")
+    else:
+        paths.update(_data_real_clips(card, synth_tps))
+    return paths
+
+
 def f32_launch_shape(kind: str, hq: int, hkv: int, rope: bool) -> dict:
     """The launch shape the library reports for the pipelined f32 forward
     (``kind`` "fwd"), dq ("dq") or dk/dv ("dkv") at hq / hkv heads:
@@ -2885,6 +3343,7 @@ def main() -> int:
         paths.update(phase_trainer(card))
         phase_trainer_cli(card)
         paths.update(phase_resume_f32(card))
+        paths.update(phase_data(card))
         print_f32_table(card, kres, bres, rres, v1res)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

@@ -67,6 +67,22 @@ def _jax_vjp(q, k, v, seg, do):
         return out, vjp(do)
 
 
+@pytest.fixture(scope="module")
+def jax_vjp():
+    """:func:`_jax_vjp`, each set of inputs computed once in this file: the
+    f32 backward tests at S256 4/2 draw the same inputs from the same seed,
+    and JAX's vjp in interpret mode is the slowest part of either."""
+    cache = {}
+
+    def cached(q, k, v, seg, do):
+        key = tuple((np.asarray(x).dtype.str, np.asarray(x).tobytes()) for x in (q, k, v, seg, do))
+        if key not in cache:
+            cache[key] = _jax_vjp(q, k, v, seg, do)
+        return cache[key]
+
+    return cached
+
+
 def _bf16(x):
     """numpy f32 -> (jax bf16, torch bf16) holding the same values."""
     jb = jnp.asarray(x, jnp.bfloat16)
@@ -105,13 +121,13 @@ def test_forward_matches_jax_bf16(rng):
 
 
 @pytest.mark.parametrize("case", ["S256 4/2 pad", "S300 4/2 ragged pad"])
-def test_backward_matches_jax_vjp_f32(rng, case):
+def test_backward_matches_jax_vjp_f32(rng, case, jax_vjp):
     S, hq, hkv, segs = CASES[case]
     if case.startswith("S300"):
         hq = 6  # GQA ratio 3 with the ragged layout
     q, k, v, seg = _inputs(rng, S, hq, hkv, segs)
     do = rng.normal(size=q.shape).astype(np.float32)
-    _, want = _jax_vjp(*(jnp.asarray(x) for x in (q, k, v)), seg, jnp.asarray(do))
+    _, want = jax_vjp(*(jnp.asarray(x) for x in (q, k, v)), seg, jnp.asarray(do))
     tq, tk, tv, tseg, tdo = (torch.from_numpy(x) for x in (q, k, v, seg, do))
     out, lse = f1.flash_segment_attention_reference(tq, tk, tv, tseg)
     got = f1.flash_segment_attention_bwd_reference(tq, tk, tv, tseg, out, lse, tdo)
@@ -153,7 +169,7 @@ def test_bf16_dkv_round_each_q_head_before_the_group_sum(rng):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("heads", [(4, 2), (8, 1)], ids=["4/2", "8/1"])
-def test_bwd_cpu_path_matches_jax_vjp(rng, heads, dtype):
+def test_bwd_cpu_path_matches_jax_vjp(rng, heads, dtype, jax_vjp):
     """``_bwd`` on CPU tensors, the backward that autograd runs, against
     JAX's v1 vjp: f32 within 2e-5; bf16 within one ulp, dk/dv with each q
     head rounded before the group sum (at 8/1 one kv head sums eight)."""
@@ -166,7 +182,7 @@ def test_bwd_cpu_path_matches_jax_vjp(rng, heads, dtype):
     else:
         ins = [_bf16(x) for x in (q, k, v, do)]
     (jq, tq), (jk, tk), (jv, tv), (jdo, tdo) = ins
-    jout, want = _jax_vjp(jq, jk, jv, seg, jdo)
+    jout, want = jax_vjp(jq, jk, jv, seg, jdo)
     _, lse = f1.flash_segment_attention_reference(tq, tk, tv, tseg)
     out = torch.from_numpy(np.array(jout.astype(jnp.float32))).to(tq.dtype)
     got = f1._bwd(tq, tk, tv, tseg, out, lse, tdo)

@@ -188,8 +188,6 @@ def test_cli_parallel_keys_raise(tmp_path, over):
 
 
 @pytest.mark.parametrize("over,match", [
-    ("dataset.train_dataset=data/train.tar", "readers"),
-    ("dataset.uint8_wire=true", "uint8_wire"),
     ("training.main.steps_per_call=2", "steps_per_call"),
     ("training.eval.log_metrics=[psnr,fvd]", "item 11"),
 ])

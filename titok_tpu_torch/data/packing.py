@@ -15,10 +15,13 @@ one fixed ``[S, ...]`` buffer:
 - ``rope_cos/sin`` f32 [S, R]: per-slot rotary tables, host-computed in
   float64 (see ``models/rope.py``); pad slots rotate by the identity.
 
-The rows are kept on the host in f32 (numpy has no bf16) with the values
-of the packer's dtype, and cross to the device in that dtype, the batch's
-``wire`` (:func:`wire_dtype`: bf16 at 'bf16-mixed', as the JAX package
-ships them).
+The batch's ``wire`` (:func:`wire_dtype`) is the dtype its rows cross to
+the device in. On a float wire (f32, or bf16 at 'bf16-mixed', as the JAX
+package ships them) the rows are kept on the host in f32 (numpy has no
+bf16) with the values of that dtype. On the uint8 wire
+(``dataset.uint8_wire``) they are the raw pixel bytes, uint8 on the host
+and on the device, where every consumer normalizes them through
+``decode_rows``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Iterable, Iterator, Sequence
 import numpy as np
 import torch
 
+from titok_tpu_torch.data.video_reader import patchify_normalize
 from titok_tpu_torch.models.rope import positions_for_sample, rope_cos_sin
 from titok_tpu_torch.ops.patchify import decode_rows, patchify, patchify_thwc_u8, unpatchify
 
@@ -38,7 +42,7 @@ from titok_tpu_torch.ops.patchify import decode_rows, patchify, patchify_thwc_u8
 class PackedBatch:
     """Host-side packed batch. All arrays are numpy with static shapes."""
 
-    patches: np.ndarray       # [S, P] f32 (values of the packer's dtype)
+    patches: np.ndarray       # [S, P] f32 (values of the wire dtype), or uint8 (uint8 wire)
     segment_ids: np.ndarray   # int32 [S]
     token_mask: np.ndarray    # bool  [S]
     rope_cos: np.ndarray      # f32   [S, R]
@@ -73,14 +77,14 @@ class PackedBatch:
 
 
 def wire_dtype(config) -> torch.dtype:
-    """The dtype packed pixel rows cross to the device in: the compute
-    dtype of ``training.main.precision`` (bf16 at 'bf16-mixed'). The JAX
-    package's ``dataset.uint8_wire`` (raw pixel bytes, normalized on the
-    device) comes with the data readers, which are not ported yet."""
+    """The dtype packed pixel rows cross to the device in.
+    ``dataset.uint8_wire: true`` ships the raw pixel bytes, normalized on
+    the device (``decode_rows``): a pixel is 1 byte, against bf16's 2 and
+    f32's 4, and no bf16 rounding of the normalized value. Otherwise the
+    compute dtype of ``training.main.precision`` (bf16 at 'bf16-mixed'),
+    the reference-shaped float wire."""
     if bool(config.dataset.get("uint8_wire", False)):
-        raise NotImplementedError(
-            "dataset.uint8_wire is not ported yet: it comes with the CSV/WebDataset "
-            "readers and native/ (ROADMAP queue 1, data readers)")
+        return torch.uint8
     from titok_tpu_torch.models.titok import compute_dtype
 
     return compute_dtype(config)
@@ -88,11 +92,13 @@ def wire_dtype(config) -> torch.dtype:
 
 def host_tensors(batch: "PackedBatch | DiscBatch") -> dict:
     """``device_arrays()`` as CPU tensors, a PackedBatch's patch rows in its
-    ``wire`` dtype."""
+    ``wire`` dtype: float rows cast, uint8 rows as they are."""
     out = {k: torch.from_numpy(np.ascontiguousarray(v))
            for k, v in batch.device_arrays().items()}
     wire = getattr(batch, "wire", torch.float32)
-    if "patches" in out and wire != torch.float32:
+    if "patches" in out and out["patches"].dtype != wire:
+        if wire == torch.uint8 or not out["patches"].is_floating_point():
+            raise ValueError(f"{out['patches'].dtype} patch rows on a {wire} wire")
         out["patches"] = out["patches"].to(wire)
     return out
 
@@ -142,11 +148,30 @@ def video_dims(vid) -> tuple[int, ...]:
     return tuple(vid.shape[1:])
 
 
-def _video_rows(vid: np.ndarray, patch_size: Sequence[int]) -> np.ndarray:
-    """[-1,1] f32 patch rows for a clip. uint8 THWC clips are byte-shuffled
-    and normalized by ``decode_rows`` (f32 ``x*(2/255)-1``)."""
+def patchify_normalize_reference(vid: np.ndarray, patch_size: Sequence[int]) -> np.ndarray:
+    """The plain version of the fused packer (``video_reader.patchify_normalize``):
+    byte shuffle, then f32 ``x*(2/255)-1`` (``decode_rows``); equal bit for bit."""
+    return decode_rows(patchify_thwc_u8(vid, patch_size))
+
+
+def _video_rows(vid: np.ndarray, patch_size: Sequence[int], dtype=None) -> np.ndarray:
+    """Patch rows for a clip.
+
+    Float wire (``dtype`` None or a float dtype): [-1,1] f32 rows; a uint8
+    THWC clip goes through the fused packer (``pk_patchify_normalize``), a
+    float CTHW clip through ``patchify``.
+
+    uint8 wire (``dtype=torch.uint8``): raw pixel-byte rows; a uint8 THWC
+    clip is a byte shuffle (``patchify_thwc_u8``), a float source (the
+    synthetic stream) is quantized back to pixel bytes, as the JAX package
+    quantizes it, so that a run keeps one wire dtype."""
+    if dtype == torch.uint8:
+        if _is_thwc_u8(vid):
+            return patchify_thwc_u8(vid, patch_size)
+        rows = patchify(np.asarray(vid, np.float32), patch_size)
+        return np.clip(np.rint((rows + 1.0) * 127.5), 0, 255).astype(np.uint8)
     if _is_thwc_u8(vid):
-        return decode_rows(patchify_thwc_u8(vid, patch_size))
+        return patchify_normalize(vid, patch_size)
     return patchify(np.asarray(vid), patch_size)
 
 
@@ -162,9 +187,11 @@ def pack_samples(
     dtype: torch.dtype = torch.float32,
 ) -> PackedBatch:
     """Pack a list of CTHW (or uint8 THWC, or ``GridOnly``) clips into one
-    PackedBatch. The patch rows are rounded to ``dtype``, as the JAX
-    package's packer stores them in its host dtype (bf16 at 'bf16-mixed'),
-    kept in f32 on the host (numpy has no bf16) and shipped in ``dtype``."""
+    PackedBatch. On a float ``dtype`` the patch rows are rounded to it, as
+    the JAX package's packer stores them in its host dtype (bf16 at
+    'bf16-mixed'), kept in f32 on the host (numpy has no bf16) and shipped
+    in ``dtype``. On ``torch.uint8`` they are pixel bytes (zero bytes at
+    token and pad slots, as the JAX package packs them)."""
     n_dims = len(patch_size)
     B = len(videos)
     if B != len(token_counts) or B > max_samples:
@@ -185,7 +212,8 @@ def pack_samples(
     valid = np.zeros((max_samples,), dtype=bool)
     fps_arr = np.zeros((max_samples,), dtype=np.float32)
 
-    patches = np.zeros((seq_len, p_elems), dtype=np.float32)
+    u8 = dtype == torch.uint8
+    patches = np.zeros((seq_len, p_elems), dtype=np.uint8 if u8 else np.float32)
     segment_ids = np.zeros((seq_len,), dtype=np.int32)
     token_mask = np.zeros((seq_len,), dtype=bool)
     positions = np.zeros((seq_len, n_dims), dtype=np.float64)
@@ -209,11 +237,11 @@ def pack_samples(
         segment_ids[offset:end] = b + 1
         token_mask[offset : offset + tc] = True
         if not isinstance(vid, GridOnly):
-            patches[offset + tc : end] = _video_rows(vid, patch_size)
+            patches[offset + tc : end] = _video_rows(vid, patch_size, dtype)
         positions[offset:end] = positions_for_sample(grid, tc)
         offset = end
 
-    if dtype != torch.float32:
+    if not u8 and dtype != torch.float32:
         patches = torch.from_numpy(patches).to(dtype).to(torch.float32).numpy()
     cos, sin = rope_cos_sin(positions, head_dim, n_dims)
     # pad slots rotate by the identity: no position signal

@@ -79,9 +79,10 @@ def synthetic_batches(config, eval: bool = False, seed: int = 0) -> Iterator[Pac
 
 
 def select_data_backend(config):
-    """Dataset backend by file extension (reference ``train.py:254-261``),
-    plus ``synthetic`` for data-free runs. The WebDataset (``.tar``) and CSV
-    readers are not ported yet."""
+    """Dataset backend by file extension (reference ``train.py:254-261``):
+    ``.tar`` shards (``data/wds_dataset.py``) or a ``.csv`` list of clips
+    (``data/csv_dataset.py``), plus ``synthetic`` for data-free runs. The
+    eval set is read through the same backend."""
     path = str(config.dataset.train_dataset)
     if path == "synthetic":
         return synthetic_batches
@@ -89,10 +90,14 @@ def select_data_backend(config):
     if config.dataset.eval_dataset and str(config.dataset.eval_dataset) != "synthetic":
         if str(config.dataset.eval_dataset)[-4:] != ext:
             raise ValueError("train and eval datasets must share format")
-    if ext in (".tar", ".csv"):
-        raise NotImplementedError(
-            f"dataset {path!r}: the WebDataset and CSV readers are not ported yet (they "
-            "need native/ and libav; ROADMAP queue 1, data readers)")
+    if ext == ".tar":
+        from titok_tpu_torch.data.wds_dataset import wds_batches
+
+        return wds_batches
+    if ext == ".csv":
+        from titok_tpu_torch.data.csv_dataset import csv_batches
+
+        return csv_batches
     raise ValueError(f"Unsupported dataset format: {ext}")
 
 
