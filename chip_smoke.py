@@ -132,19 +132,38 @@ toolkit. Phases, in order; any failure exits non-zero:
    pins (printed, not gated), ``configs/tiny_csv.yaml`` on a CSV of clips,
    the converter and the CLI on the tars; without it, they read seeded
    uint8 clips, and a ``VideoReader`` must raise;
-15. the f32 rows of the kernel table: each f32 entry of rows 1-4 and the
+15. the trained tiny checkpoint (``docs/runs/r4_tiny_lpips/config.yaml``,
+   step 5000): the sha256 of its three committed fixtures
+   (``docs/artifacts/r4_tiny_lpips_5000_torch/``: the converted generator,
+   the first eval clips of ``docs/eval_set/00000.tar`` as uint8 chunks,
+   JAX's f32 results), then the evaluate CLI's ``token_sweep`` over those
+   clips at 1, 16 and 128 tokens through the f32 kernel (8 row 1 launches
+   a batch): indices against JAX's on >= 99.9 % of tokens with every miss a
+   near tie (JAX's value within 1e-4 of its rounding boundary), PSNR
+   within 0.01 dB and SSIM within 1e-3 of JAX's, the ``token_sweep.jsonl``
+   rows; the plain path (dense attention) likewise; bf16-mixed through
+   the bf16 kernel against f32; ms an eval batch in f32 and bf16;
+16. ``training.main.steps_per_call`` on seeded uint8 clips: at precision
+   32 with LPIPS off, K = 3 with a tail of 1 against K = 1 (losses, grad
+   norms and params bit for bit); then the r4 config as shipped (K = 8,
+   bf16-mixed, LPIPS on with random VGG weights, the uint8 wire) for 16
+   steps with an eval and a checkpoint at 16, against K = 1: launches a
+   call (16 of each of rows 1-2 a step), one H2D transfer a call, finite
+   losses, tokens/s and peak device memory;
+17. the f32 rows of the kernel table: each f32 entry of rows 1-4 and the
    v1 f32 dq, its time, bound and share of bound at the shapes timed
    above, with the launch shape the library reports (threads, registers,
    dynamic shared memory, CTAs an SM) for the pipelined forward, dq and
    dk/dv;
-16. one JSON line listing every kernel with its numbers; ``launches`` is
+18. one JSON line listing every kernel with its numbers; ``launches`` is
    the kernel's count on the training path of its dtype (the VQ kernel's:
    the base_vq training path; the rope kernels': the large training path,
    f32 its remat run; the v1 kernels': the trainer's fit, f32 the straight
    f32 run), and ``launches_by_path`` its count on each path, each read
    from counters set to 0 just before that path (the data phase's fits
-   too: ``train_data_bf16``, ``train_data_uint8``);
-17. last line: ``{"ok": true, "device": {...}}``.
+   too: ``train_data_bf16``, ``train_data_uint8``; the parity sweeps,
+   ``eval_r4_f32``, ``eval_r4_bf16``; the K = 8 fit, ``train_r4_k8``);
+19. last line: ``{"ok": true, "device": {...}}``.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -3248,6 +3267,389 @@ def phase_data(card: str) -> dict:
     return paths
 
 
+# the trained checkpoint's parity fixtures (tests/torch_parity_fixtures.py
+# writes them on a machine with JAX, orbax and libav; the card machine has
+# none of the three): the converted generator, the first eval clips of
+# docs/eval_set/00000.tar as uint8 THWC chunks, and JAX's f32 results
+R4 = os.path.join(REPO, "docs", "runs", "r4_tiny_lpips", "config.yaml")
+PARITY_DIR = os.path.join(REPO, "docs", "artifacts", "r4_tiny_lpips_5000_torch")
+PARITY_SHA256 = {
+    "5000/state.pt": "f10ffa31504c398573974bb1105d29cf3a3095165ec1a84ab37fa55950d30006",
+    "eval_clips.npz": "d795b3521b3ee8122d8a90fdca20d6a15f8fd6e18760cd89db700b382b9ea4c9",
+    "jax_f32.npz": "d60e63a8203bf9b69dd3bc4562156ca7c1c25381ddca8bc15e91760a0f4f28b3",
+}
+PARITY_STEP = 5000
+PARITY_COUNTS = (1, 16, 128)
+# f32 kernel path against JAX's committed f32 results: indices identical on
+# >= 99.9 % of tokens and every miss a near tie (JAX's value FSQ rounds
+# within NEAR_TIE of its rounding boundary); PSNR within 0.01 dB, SSIM 1e-3
+PARITY_SHARE = 0.999
+NEAR_TIE = 1e-4
+PARITY_PSNR_DB = 0.01
+PARITY_SSIM = 1e-3
+# bf16-mixed scores against f32's on the same clips. bf16 rounds weights
+# and activations to 8-bit mantissas and moves about 3 % of the indices at
+# 128 tokens; the first card run moved PSNR by at most 0.0192 dB and SSIM
+# by 4.0e-4 (1, 16, 128 tokens; the CPU's plain bf16 path 0.0213 dB), so
+# the bounds are 5x those: room for the rounding, yet a twentieth of the
+# 2 dB between 16 and 128 tokens
+BF16_EVAL_PSNR_DB = 0.1
+BF16_EVAL_SSIM = 2e-3
+
+
+def r4_overrides(run: str, **over) -> list[str]:
+    """The r4 config as the parity phase scores it: f32, the committed
+    clips' count of eval samples, the losses off (as the evaluate CLI
+    switches them off), no recon videos, no train probe, into
+    ``RUN_DIR/<run>``."""
+    base = {"training.main.precision": 32, "training.eval.eval_samples": 10,
+            "tokenizer.losses.disc_weight": 0.0, "tokenizer.losses.perceptual_weight": 0.0,
+            "tokenizer.losses.gram_weight": 0.0, "training.eval.log_recon_num": 0,
+            "training.eval.train_probe_dataset": "null",
+            "general.checkpoints.save_path": os.path.join(RUN_DIR, run), **over}
+    return [f"{k}={v}" for k, v in base.items()]
+
+
+def _sha256(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def clip_batches(clips: list):
+    """A ``batches_fn`` over decoded clips: the readers' eval packer
+    (``pack_chunks``) fed from a list, so the card needs no decoder."""
+    from titok_tpu_torch.data.chunking import pack_chunks
+
+    def batches_fn(config, eval: bool = False, seed: int = 0):
+        return pack_chunks(config, iter(clips), np.random.default_rng(seed), eval)
+
+    return batches_fn
+
+
+def _r4_scorer(clips: list, run: str, **over):
+    """A ``Trainer`` of the r4 config over ``clips`` with the committed
+    weights, its eval step wrapped to keep each batch's outputs."""
+    from titok_tpu_torch.config import load_config
+    from titok_tpu_torch.train_utils.checkpoints import restore_weights_only
+    from titok_tpu_torch.training.trainer import Trainer
+
+    cfg = load_config(R4, r4_overrides(run, **over))
+    trainer = Trainer(cfg, batches_fn=clip_batches(clips))
+    report = {}
+    state = restore_weights_only(os.path.join(PARITY_DIR, str(PARITY_STEP)),
+                                 trainer.builder.init_state(), verbose=False, report=report)
+    check(report["loaded"] == 76 and not report["missing"] and not report["mismatched"],
+          f"the committed weights loaded as {report}")
+    step, seen = trainer.builder.make_eval_metrics_step(trainer.device_im), []
+
+    def eval_step(batch, plan=None):
+        out = step(batch, plan)
+        seen.append((int(cfg.training.sampling.token_range[0]), batch, out))
+        return out
+
+    trainer._eval_step = eval_step
+    return trainer, state, seen
+
+
+def _indices_of(seen, count: int, n_clips: int) -> np.ndarray:
+    """``[clips, count]`` indices of the eval epoch at ``count`` tokens,
+    from the eval step's kept batches and outputs."""
+    out = []
+    for c, batch, (_, indices, _) in seen:
+        if c != count:
+            continue
+        tc, gs = batch["token_counts"].cpu().numpy(), batch["grid_sizes"].cpu().numpy()
+        offs = np.concatenate([[0], np.cumsum(tc + gs)])
+        ix = indices.cpu().numpy()
+        out += [ix[offs[b]: offs[b] + tc[b]] for b in range(int(batch["sample_valid"].sum()))]
+    check(len(out) == n_clips and all(len(x) == count for x in out),
+          f"{len(out)} clips of indices at {count} tokens")
+    return np.stack(out)
+
+
+def _near_tie_gate(got: np.ndarray, want: np.ndarray, prebound: np.ndarray, what: str) -> str:
+    """Indices against JAX's: the share identical and the largest distance
+    of a miss from its rounding boundary; fails below ``PARITY_SHARE`` or on
+    a miss that is not a near tie."""
+    miss = got != want
+    dist = np.abs(np.abs(prebound - np.floor(prebound)) - 0.5).min(axis=-1)
+    share = 1.0 - float(miss.mean())
+    worst = float(dist[miss].max()) if miss.any() else 0.0
+    check(share >= PARITY_SHARE, f"{what}: {share * 100:.3f} % of indices equal JAX's")
+    check(worst <= NEAR_TIE, f"{what}: a miss lies {worst:.3e} from its rounding boundary, "
+          f"more than {NEAR_TIE:g}")
+    return (f"{share * 100:.3f} % identical ({int(miss.sum())} of {miss.size} differ; largest "
+            f"distance of a miss from its boundary {worst:.3e}; nearest committed value to a "
+            f"boundary {float(dist.min()):.3e})")
+
+
+def phase_parity(card: str) -> dict:
+    """The trained tiny checkpoint on the card against JAX's committed f32
+    results: the evaluate CLI's sweep (``token_sweep``) over the committed
+    clips at 1, 16 and 128 tokens through the f32 kernels, then the plain
+    path (dense attention) and bf16-mixed (the config's precision) through
+    the bf16 kernel."""
+    import torch
+
+    from titok_tpu_torch.tools.evaluate import token_sweep
+
+    for rel, want in PARITY_SHA256.items():
+        path = os.path.join(PARITY_DIR, rel)
+        check(os.path.exists(path), f"parity fixture {rel} is missing")
+        got = _sha256(path)
+        check(got == want, f"parity fixture {rel}: sha256 {got}, want {want}")
+    print(f"parity: the three fixtures under {os.path.relpath(PARITY_DIR, REPO)} match their "
+          "sha256 pins")
+    with np.load(os.path.join(PARITY_DIR, "eval_clips.npz")) as f:
+        clips = [{"video": f[f"clip_{i}"], "fps": int(fps)} for i, fps in enumerate(f["fps"])]
+    with np.load(os.path.join(PARITY_DIR, "jax_f32.npz")) as f:
+        jax = dict(f)
+
+    paths = {}
+    kernel, state, seen = _r4_scorer(clips, "parity_f32")
+    sweep = os.path.join(RUN_DIR, "parity_f32", "token_sweep.jsonl")
+    reset_counts()  # this path: the f32 sweep, read right after it
+    rows = token_sweep(kernel, state, PARITY_STEP, PARITY_COUNTS, sweep)
+    paths["eval_r4_f32"] = read_counts()
+    n_batches = len(seen) // len(PARITY_COUNTS)
+    want = {**{k: 0 for k in paths["eval_r4_f32"]}, "f32": 8 * len(seen)}
+    check(paths["eval_r4_f32"] == want, f"f32 sweep launches {paths['eval_r4_f32']}, want {want}"
+          f" (4 + 4 forwards a batch, {len(seen)} batches)")
+    with open(sweep) as f:
+        written = [json.loads(line) for line in f]
+    check(written == rows and [r["token_count"] for r in rows] == list(PARITY_COUNTS)
+          and all(set(r) == {"step", "token_count", "quant", "eval/psnr", "eval/ssim"}
+                  for r in rows), f"token_sweep.jsonl rows {written}")
+    print(f"parity: docs/runs/r4_tiny_lpips/config.yaml at precision 32 on {len(clips)} committed "
+          f"clips, {n_batches} batches of eval_seq_len 4096 a count; the evaluate CLI's "
+          f"token_sweep through the f32 kernel: {paths['eval_r4_f32']['f32']} row 1 f32 launches "
+          f"(8 a batch); token_sweep.jsonl {len(written)} rows")
+    scores = {}
+    for r in rows:
+        c = r["token_count"]
+        kernel_ix = _indices_of(seen, c, len(clips))
+        line = _near_tie_gate(kernel_ix, jax[f"indices_{c}"], jax[f"prebound_{c}"], f"f32 at {c}")
+        dp, ds = r["eval/psnr"] - float(jax[f"psnr_{c}"]), r["eval/ssim"] - float(jax[f"ssim_{c}"])
+        check(abs(dp) <= PARITY_PSNR_DB and abs(ds) <= PARITY_SSIM,
+              f"f32 at {c} tokens: psnr {r['eval/psnr']:.6f} / ssim {r['eval/ssim']:.6f} against "
+              f"JAX's {float(jax[f'psnr_{c}']):.6f} / {float(jax[f'ssim_{c}']):.6f}")
+        scores[c] = {"f32": (r["eval/psnr"], r["eval/ssim"]), "ix": kernel_ix}
+        print(f"  {c:3d} tokens, f32 kernel: indices against JAX {line}; psnr {r['eval/psnr']:.6f}"
+              f" dB (JAX {float(jax[f'psnr_{c}']):.6f}, {dp:+.2e}), ssim {r['eval/ssim']:.6f} "
+              f"(JAX {float(jax[f'ssim_{c}']):.6f}, {ds:+.2e})")
+
+    # the plain path on the card (dense attention), same weights and clips
+    plain, pstate, pseen = _r4_scorer(clips, "parity_plain",
+                                      **{"training.main.attn_impl": "reference"})
+    reset_counts()
+    for c in PARITY_COUNTS:
+        plain.config.set_dotted("training.sampling.token_range", [c, c])
+        plain._eval_cache = None
+        s = plain.validate(pstate, PARITY_STEP)
+        ix = _indices_of(pseen, c, len(clips))
+        line = _near_tie_gate(ix, jax[f"indices_{c}"], jax[f"prebound_{c}"], f"plain at {c}")
+        same = float((ix == scores[c]["ix"]).mean())
+        check(abs(s["eval/psnr"] - float(jax[f"psnr_{c}"])) <= PARITY_PSNR_DB,
+              f"plain path at {c}: psnr {s['eval/psnr']}")
+        print(f"  {c:3d} tokens, plain path: indices against JAX {line}; against the f32 kernel "
+              f"path {same * 100:.3f} % identical; psnr {s['eval/psnr']:.6f} dB, ssim "
+              f"{s['eval/ssim']:.6f}")
+    check(all(v == 0 for v in read_counts().values()), "the plain path launched a kernel")
+
+    # bf16-mixed, the config's own precision, through row 1's bf16 kernel
+    bf16, bstate, bseen = _r4_scorer(clips, "parity_bf16",
+                                     **{"training.main.precision": "bf16-mixed"})
+    reset_counts()  # this path: the bf16 sweep
+    brows = token_sweep(bf16, bstate, PARITY_STEP, PARITY_COUNTS,
+                        os.path.join(RUN_DIR, "parity_bf16", "token_sweep.jsonl"))
+    paths["eval_r4_bf16"] = read_counts()
+    want = {**{k: 0 for k in paths["eval_r4_bf16"]}, "bf16": 8 * len(bseen)}
+    check(paths["eval_r4_bf16"] == want, f"bf16 sweep launches {paths['eval_r4_bf16']}, want {want}")
+    for r in brows:
+        c = r["token_count"]
+        ix = _indices_of(bseen, c, len(clips))
+        p32, s32 = scores[c]["f32"]
+        dp, ds = r["eval/psnr"] - p32, r["eval/ssim"] - s32
+        check(np.isfinite(r["eval/psnr"]) and abs(dp) <= BF16_EVAL_PSNR_DB
+              and abs(ds) <= BF16_EVAL_SSIM,
+              f"bf16 at {c} tokens: psnr {r['eval/psnr']:.6f}, ssim {r['eval/ssim']:.6f} against f32 "
+              f"{p32:.6f}, {s32:.6f} (bounds {BF16_EVAL_PSNR_DB} dB, {BF16_EVAL_SSIM})")
+        print(f"  {c:3d} tokens, bf16-mixed (bf16 kernel): psnr {r['eval/psnr']:.6f} dB ({dp:+.4f} "
+              f"against f32), ssim {r['eval/ssim']:.6f} ({ds:+.5f}); indices equal to f32's "
+              f"{float((ix == scores[c]['ix']).mean()) * 100:.3f} %")
+
+    # ms an eval batch on the card (CUDA events), f32 and bf16, at 128 tokens
+    from titok_tpu_torch.data.packing import to_device
+    from titok_tpu_torch.ops.frames import build_eval_frame_plan
+
+    for name, tr in (("f32", kernel), ("bf16", bf16)):
+        tr.config.set_dotted("training.sampling.token_range", [128, 128])
+        batches = list(tr.batches_fn(tr.config, eval=True, seed=0))
+        step = tr.builder.make_eval_metrics_step(tr.device_im)
+        dev = [(to_device(b, "cuda"), to_device(build_eval_frame_plan(
+            b, num_frames=tr._eval_kmax, patch_size=tr.patch_size,
+            max_grid_hw=tr.max_grid[1:]), "cuda")) for b in batches]
+        ms = cuda_ms(lambda: [step(b, p) for b, p in dev], reps=5) / len(dev)
+        print(f"parity: eval step {name} [{card}]: {ms:.3f} ms an eval batch of 4096 rows at 128 "
+              f"tokens (CUDA events over 5 passes of {len(dev)} batches: model, PSNR and SSIM sums)")
+    del kernel, plain, bf16, state, pstate, bstate
+    torch.cuda.empty_cache()
+    return paths
+
+
+
+
+def _scan_fit(card: str, run: str, batches_fn, K: int, **over) -> dict:
+    """``Trainer(cfg).fit()`` of the r4 config (its sampling, loss and wire;
+    seeded uint8 clips) at ``steps_per_call`` K, into ``RUN_DIR/<run>``:
+    launches a call and a step, the loader's transfers and what each held,
+    the rows, the checkpoints, peak device memory and the fit's seconds."""
+    import shutil
+
+    import torch
+
+    from titok_tpu_torch.config import load_config
+    from titok_tpu_torch.data.prefetch import PrefetchLoader
+    from titok_tpu_torch.training.trainer import Trainer
+
+    shutil.rmtree(os.path.join(RUN_DIR, run), ignore_errors=True)
+    base = {"training.main.steps_per_call": K, "training.eval.log_recon_num": 0,
+            "training.eval.train_probe_dataset": "null", "training.eval.eval_samples": 16,
+            "general.wandb.log_step_interval": 1,
+            "general.checkpoints.save_path": os.path.join(RUN_DIR, run), **over}
+    cfg = load_config(R4, [f"{k}={v}" for k, v in base.items()])
+    trainer = Trainer(cfg, batches_fn=batches_fn)
+    calls, loaders, held = [], [], []
+    make_scan, make_step, make_loader = (trainer.builder.make_train_step_scan,
+                                         trainer.builder.make_train_step, trainer._make_loader)
+
+    def counted(fn):
+        def run_counted(*args, **kw):
+            before = read_counts()
+            out = fn(*args, **kw)
+            calls.append({k: v - before[k] for k, v in read_counts().items()})
+            return out
+        return run_counted
+
+    if K > 1:  # the K-step call (its steps run the builder's own single step)
+        trainer.builder.make_train_step_scan = lambda k: counted(make_scan(k))
+    else:
+        trainer.builder.make_train_step = lambda: counted(make_step())
+
+    def kept_loader(seed, group=1):
+        loader = make_loader(seed, group)
+        put = loader._put
+
+        def put_kept(trees):
+            held.append(tuple(trees[0]["patches"].shape))
+            return put(trees)
+
+        loader._put = put_kept
+        loaders.append(loader)
+        return loader
+
+    trainer._make_loader = kept_loader
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # this path: the whole fit, read right after it
+    t0 = time.perf_counter()
+    state = trainer.fit()
+    torch.cuda.synchronize()
+    return {"cfg": cfg, "state": state, "trainer": trainer, "calls": calls, "held": held,
+            "transfers": loaders[0].transfers, "total": read_counts(), "rows": _jsonl(run),
+            "ckpts": trainer.ckpt.all_steps(), "peak": torch.cuda.max_memory_allocated(),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_scan(card: str) -> dict:
+    """``training.main.steps_per_call`` on the card, on seeded uint8 clips
+    (no libav here). At precision 32 with LPIPS off (cuDNN's LPIPS backward
+    is not bit-reproducible): K = 3 with a tail of 1 against K = 1, losses,
+    grad norms and params bit for bit. Then the r4 config as shipped: K = 8,
+    bf16-mixed, LPIPS on (random VGG), the uint8 wire, 16 steps with an eval
+    and a checkpoint at 16, against the same run at K = 1."""
+    import torch
+
+    f32 = {"training.main.precision": 32, "tokenizer.losses.perceptual_weight": 0,
+           "optimizer.warmup_steps": 2, "training.main.max_steps": 4,
+           "training.sampling.train_seq_len": 2048, "training.eval.eval_step_interval": 0,
+           "general.checkpoints.save_interval": 0}
+    runs = {K: _scan_fit(card, f"scan_f32_k{K}", u8_clip_batches, K, **f32) for K in (1, 3)}
+    rows = {K: [{k: v for k, v in r.items() if k.startswith("train/") or k == "step"}
+                for r in runs[K]["rows"] if "train/gen/total_loss" in r] for K in (1, 3)}
+    check(rows[1] == rows[3] and len(rows[3]) == 4,
+          f"f32 K = 3 rows differ from K = 1: {rows[3]} against {rows[1]}")
+    for part in ("model", "disc_model"):
+        a, b = (getattr(runs[K]["state"], part).state_dict() for K in (1, 3))
+        check(all(torch.equal(a[k], b[k]) for k in a), f"f32 K = 3 {part} differs from K = 1")
+    check(len(runs[3]["calls"]) == 2 and all(h[0] == 3 for h in runs[3]["held"]),
+          f"f32 K = 3: {len(runs[3]['calls'])} calls, transfers {runs[3]['held']} (a group of 3 "
+          "a transfer; the tail is the first slice of one)")
+    print(f"scan: f32 (r4 config at precision 32, LPIPS off, seq 2048, uint8 clips), 4 steps at "
+          f"K = 3 (a call of 3, a tail of 1) and K = 1: losses and grad norms of every step "
+          f"({len(rows[3][0]) - 1} metrics a step) and both modules' params identical, bit for "
+          f"bit; losses " + ", ".join(f"{r['train/gen/total_loss']:.8g}" for r in rows[3]))
+
+    paths = {}
+    shipped = {"training.main.max_steps": 16, "training.eval.eval_step_interval": 16,
+               "general.checkpoints.save_interval": 16}
+    res = {}
+    for K in (8, 1):
+        r = res[K] = _scan_fit(card, f"scan_r4_k{K}", u8_clip_batches, K, **shipped)
+        cfg = r["cfg"]
+        check(cfg.dataset.uint8_wire and cfg.training.main.precision == "bf16-mixed"
+              and r["trainer"].loss_system.use_perceptual, "the r4 config is not as shipped")
+        n = TRAIN_LAUNCHES["tiny"]
+        steps = [r2 for r2 in r["rows"] if "train/gen/total_loss" in r2]
+        check([s["step"] for s in steps] == list(range(16)), f"K {K}: train rows "
+              f"{[s['step'] for s in steps]}")
+        for s in steps:
+            vals = [v for k, v in s.items() if k.startswith("train/")]
+            check(all(np.isfinite(v) for v in vals), f"K {K} step {s['step']}: non-finite")
+        # checkpoints: K = 8 saves at the crossing of 16; K = 1 as orbax's
+        # policy saves, at the first step too
+        evals = [r2["step"] for r2 in r["rows"] if "eval/psnr" in r2]
+        want_ckpts = [16] if K > 1 else [0, 16]
+        check(evals == [16] and r["ckpts"] == want_ckpts, f"K {K}: eval at {evals}, "
+              f"checkpoints {r['ckpts']}, want the eval at 16 and checkpoints {want_ckpts}")
+        want_call = {**{k: 0 for k in r["calls"][0]}, "bf16": K * n, "bwd_dq_bf16": K * n,
+                     "bwd_dkv_bf16": K * n}
+        check(len(r["calls"]) == 16 // K and all(c == want_call for c in r["calls"]),
+              f"K {K}: {len(r['calls'])} calls, launches {r['calls'][0]}, want {want_call}")
+        # one transfer a call: what the loader made beyond the calls is the
+        # item the loop took before it saw max_steps, its queue of 2 and the
+        # one in hand
+        lead = [h[0] for h in r["held"]] if K > 1 else [1] * len(r["held"])
+        check(0 <= r["transfers"] - len(r["calls"]) <= 4 and lead == [K] * len(lead)
+              and (K > 1 or all(len(h) == 2 for h in r["held"])),
+              f"K {K}: {r['transfers']} transfers for {len(r['calls'])} calls, patch shapes "
+              f"{r['held'][:3]}")
+        tps = [s["perf/tokens_per_sec"] for s in steps if s["step"] >= K]
+        r["tps"] = float(np.mean(tps))
+        print(f"scan: the r4 config as shipped (bf16-mixed, LPIPS on, uint8 wire, seq 6144, "
+              f"seeded uint8 clips) at K = {K} [{card}]: 16 steps in {r['seconds']:.2f} s, "
+              f"{len(r['calls'])} calls of {K} steps, {r['transfers']} H2D transfers (each of "
+              f"{K} stacked batches; prefetched ones included), launches a step "
+              f"{r['calls'][0]['bf16'] // K} forward, {r['calls'][0]['bwd_dq_bf16'] // K} dq, "
+              f"{r['calls'][0]['bwd_dkv_bf16'] // K} dk/dv; eval and checkpoint at 16; "
+              f"{r['tps']:.0f} tokens/s (perf/tokens_per_sec of the logged steps after the first "
+              f"call); peak device memory {r['peak'] / 2**30:.3f} GiB; losses "
+              + ", ".join(f"{s['train/gen/total_loss']:.5g}" for s in steps[:4]) + " ...")
+    paths["train_r4_k8"] = res[8]["total"]
+    print(f"scan: K = 8 against K = 1 [{card}]: tokens/s {res[8]['tps']:.0f} / {res[1]['tps']:.0f}"
+          f" ({res[8]['tps'] / res[1]['tps']:.3f}x), peak memory {res[8]['peak'] / 2**30:.3f} / "
+          f"{res[1]['peak'] / 2**30:.3f} GiB (one run each: no claim)")
+    check(res[8]["peak"] <= 1.25 * res[1]["peak"], "K = 8 holds more than one step's tensors")
+    del runs, res
+    torch.cuda.empty_cache()
+    return paths
+
+
 def f32_launch_shape(kind: str, hq: int, hkv: int, rope: bool) -> dict:
     """The launch shape the library reports for the pipelined f32 forward
     (``kind`` "fwd"), dq ("dq") or dk/dv ("dkv") at hq / hkv heads:
@@ -3344,6 +3746,8 @@ def main() -> int:
         phase_trainer_cli(card)
         paths.update(phase_resume_f32(card))
         paths.update(phase_data(card))
+        paths.update(phase_parity(card))
+        paths.update(phase_scan(card))
         print_f32_table(card, kres, bres, rres, v1res)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

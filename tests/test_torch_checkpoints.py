@@ -18,12 +18,14 @@ import threading
 import time
 import types
 
+import numpy as np
 import pytest
 import torch
 
 from tests.torch_threads import one_torch_thread  # noqa: F401
 from tests.util import tiny_config
 from titok_tpu_torch.config import Config
+from titok_tpu_torch.data.packing import build_disc_batch
 from titok_tpu_torch.losses.loss_module import LossSystem
 from titok_tpu_torch.models.titok import make_titok
 from titok_tpu_torch.train_utils.checkpoints import CheckpointManager, restore_weights_only
@@ -274,7 +276,9 @@ def test_sigterm_saves_at_the_step_boundary_and_exits_143(tmp_path):
 def test_prefetch_loader_surfaces_errors_and_stops():
     """The loader's thread: an error in the stream reaches the consumer
     after the batches before it; ``stop`` ends the thread of an endless
-    stream; ``group > 1`` (``steps_per_call``) is not ported."""
+    stream; ``group=K`` (``steps_per_call``) stacks K batches and their
+    extras on a leading axis in one transfer a group, and yields a finite
+    stream's last partial group as it is."""
     from titok_tpu_torch.data.prefetch import PrefetchLoader
 
     cfg = _cfg()
@@ -295,5 +299,16 @@ def test_prefetch_loader_surfaces_errors_and_stops():
     assert torch.equal(dev["patches"], torch.from_numpy(batch.patches))
     loader.stop()
     assert not loader._thread.is_alive()
-    with pytest.raises(NotImplementedError, match="steps_per_call"):
-        PrefetchLoader(failing, device="cpu", group=2)
+    seven = list(itertools.islice(synthetic_batches(cfg, seed=0), 7))
+    grouped = PrefetchLoader(lambda: iter(seven), device="cpu", group=3,
+                             build_extras=lambda b: {"disc": build_disc_batch(b, 4)})
+    groups = list(grouped)
+    assert [len(b) for _, b, _ in groups] == [3, 3, 1] and grouped.transfers == 3
+    for g, (dev, batches, extras) in enumerate(groups):
+        assert dev["patches"].shape == (len(batches), *seven[0].patches.shape)
+        for j, b in enumerate(batches):
+            assert b is seven[3 * g + j]
+            assert torch.equal(dev["patches"][j], torch.from_numpy(b.patches))
+            want = build_disc_batch(b, 4).device_arrays()
+            assert all(torch.equal(extras["disc"][k][j], torch.from_numpy(np.asarray(v)))
+                       for k, v in want.items())

@@ -226,12 +226,17 @@ def test_three_gan_steps_match_jax(disc_dtype):
     ("optimizer.name", "adafactor", "adafactor"),
     # ported: remat is accepted and reaches every transformer stack
     pytest.param("training.main.remat", True, None, id="training.main.remat-True-remat"),
-    ("training.main.steps_per_call", 4, "steps_per_call"),
+    # ported: the K-step call equals K single steps
+    pytest.param("training.main.steps_per_call", 4, None,
+                 id="training.main.steps_per_call-4-steps_per_call"),
 ])
 def test_unported_options_raise(key, value, match):
     _, pcfg = _configs()
     pcfg.set_dotted(key, value)
     pb = TrainStepBuilder(make_titok(pcfg), LossSystem(pcfg), pcfg)
+    if key == "training.main.steps_per_call":
+        _scan_equals_single_steps(pcfg, value)
+        return
     if match is None:
         pb.make_optimizers()
         stacks = [pb.model.encoder, pb.model.decoder, pb.loss_system.disc_model]
@@ -239,6 +244,40 @@ def test_unported_options_raise(key, value, match):
         return
     with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP"):
         pb.make_optimizers()
+
+
+def _scan_equals_single_steps(pcfg, K):
+    """``make_train_step_scan(K)`` on K batches stacked on a leading axis
+    (with the discriminator on, its R1/R2 noise drawn from the state's
+    generator) trains the same bits as K calls of the single step: params
+    of both modules, the noise generator's state, and the metrics and
+    indices, which come back stacked ``[K]``, the learning rates on the
+    host."""
+    states, ls = [], []
+    for _ in range(2):
+        ls.append(LossSystem(pcfg))
+        b = TrainStepBuilder(make_titok(pcfg), ls[-1], pcfg)
+        states.append((b, b.init_state(device="cpu")))
+    batches = [to_device(b, "cpu") for b in itertools.islice(synthetic_batches(pcfg, seed=3), K)]
+    discs = [to_device(build_disc_batch(b, ls[0].disc_tokens), "cpu")
+             for b in itertools.islice(synthetic_batches(pcfg, seed=3), K)]
+    (b1, one), (bk, many) = states
+    step = b1.make_train_step()
+    single = [step(one, b, d)[1:] for b, d in zip(batches, discs)]
+    stack = lambda ds: {k: torch.stack([d[k] for d in ds]) for k in ds[0]}  # noqa: E731
+    many, metrics, indices = bk.make_train_step_scan(K)(many, stack(batches), stack(discs))
+    assert one.step == many.step == K and indices.shape == (K, batches[0]["patches"].shape[0])
+    for k, v in metrics.items():
+        want = [m[k] for m, _ in single]
+        if isinstance(v, torch.Tensor):
+            assert v.shape == (K,) and torch.equal(v, torch.stack(want)), k
+        else:
+            np.testing.assert_array_equal(v, want, err_msg=k)
+    assert torch.equal(indices, torch.stack([ix for _, ix in single]))
+    for a, b in ((one.model, many.model), (one.disc_model, many.disc_model)):
+        assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
+                                                     b.state_dict().values()))
+    assert torch.equal(one.noise_gen.get_state(), many.noise_gen.get_state())
 
 
 def test_eval_step_runs_the_model_without_grad():

@@ -188,9 +188,20 @@ def test_cli_parallel_keys_raise(tmp_path, over):
 
 
 @pytest.mark.parametrize("over,match", [
-    ("training.main.steps_per_call=2", "steps_per_call"),
+    # ported: the CLI trains at K = 2, two calls of two steps
+    pytest.param("training.main.steps_per_call=2", None,
+                 id="training.main.steps_per_call=2-steps_per_call"),
     ("training.eval.log_metrics=[psnr,fvd]", "item 11"),
 ])
 def test_unported_trainer_options_raise(tmp_path, over, match):
+    if match is None:
+        state = cli.main([f"config={_write_cfg(tmp_path)}", over], device="cpu")
+        rows = _rows(tmp_path / "run")
+        assert state.step == 4
+        assert [r["step"] for r in rows if "train/gen/total_loss" in r] == [0, 1, 2, 3]
+        assert [r["step"] for r in rows if "eval/psnr" in r] == [2, 4]  # eval every 2
+        assert CheckpointManager(str(tmp_path / "run")).all_steps() == [4]
+        _leave_nothing(tmp_path)
+        return
     with pytest.raises(NotImplementedError, match=match):
         cli.main([f"config={_write_cfg(tmp_path)}", over], device="cpu")

@@ -17,8 +17,15 @@ emits ``(device arrays, PackedBatch, device extras)``. For CPU runs the
 "device" tensors are the host tensors. Errors raised in the thread
 surface to the consumer. :meth:`stop` ends the thread and waits for it,
 so no packing runs on after the loop (nor while the interpreter exits).
-``group > 1`` (the JAX loader's stacked batches for ``steps_per_call``) is
-not ported.
+
+``group = K > 1`` (``training.main.steps_per_call``, the input of
+``TrainStepBuilder.make_train_step_scan``): K consecutive batches and
+their extras are stacked on the host on a new leading axis and cross in
+one transfer, as the JAX loader ships them in one ``device_put``. It emits
+``(stacked device tensors, list of K PackedBatch, stacked device
+extras)``; a final partial group of a finite stream is emitted with its
+own, shorter length. ``transfers`` counts the transfers made: one a batch,
+or one a group.
 """
 
 from __future__ import annotations
@@ -43,10 +50,8 @@ class PrefetchLoader:
         device=None,
         group: int = 1,
     ):
-        if int(group) > 1:
-            raise NotImplementedError(
-                "PrefetchLoader(group > 1), the stacked batches of "
-                "training.main.steps_per_call, is not ported yet (ROADMAP queue 1 item 13)")
+        self.group = int(group)
+        self.transfers = 0
         self.factory = batch_iter_factory
         self.build_extras = build_extras
         self.device = resolve_device(device)
@@ -56,17 +61,36 @@ class PrefetchLoader:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
-    def _put(self, tensors: dict):
-        """Host tensors on the device: ``(device tensors, event)``, the
-        event recorded on the copy stream after the copies (None on CPU)."""
+    def _put(self, trees: list[dict]):
+        """Host tensor dicts on the device in one transfer: ``(device dicts,
+        event)``, the event recorded on the copy stream after the copies
+        (None on CPU)."""
+        self.transfers += 1
         if not self._cuda:
-            return tensors, None
-        pinned = {k: v.pin_memory() for k, v in tensors.items()}
+            return trees, None
+        pinned = [{k: v.pin_memory() for k, v in t.items()} for t in trees]
         with torch.cuda.stream(self._copy_stream):
-            dev = {k: v.to(self.device, non_blocking=True) for k, v in pinned.items()}
+            dev = [{k: v.to(self.device, non_blocking=True) for k, v in t.items()}
+                   for t in pinned]
             event = torch.cuda.Event()
             event.record(self._copy_stream)
         return dev, event
+
+    def _item(self, pending: list):
+        """The emitted item of ``(batch, host tensors, host extras)`` tuples:
+        one batch, or a group stacked on a new leading axis; its tensors and
+        extras on the device in one transfer."""
+        batches, host, extras = (list(x) for x in zip(*pending))
+        if self.group > 1:
+            def stack(dicts):
+                return {k: torch.stack([d[k] for d in dicts]) for k in dicts[0]}
+
+            host, extras = stack(host), {n: stack([e[n] for e in extras]) for n in extras[0]}
+        else:
+            batches, host, extras = batches[0], host[0], extras[0]
+        names = list(extras)
+        dev, event = self._put([host, *(extras[n] for n in names)])
+        return dev[0], batches, dict(zip(names, dev[1:])), event
 
     def _enqueue(self, item) -> bool:
         """Put ``item`` for the consumer unless the loader is stopped."""
@@ -80,17 +104,20 @@ class PrefetchLoader:
 
     def _worker(self):
         try:
+            pending = []
             for batch in self.factory():
                 if self._stop.is_set():
                     return
                 extras = self.build_extras(batch) if self.build_extras else {}
-                dev, ev = self._put(host_tensors(batch))
-                dev_extras, events = {}, [ev]
-                for k, v in extras.items():
-                    dev_extras[k], e = self._put(host_tensors(v))
-                    events.append(e)
-                if not self._enqueue((dev, batch, dev_extras, events)):
-                    return
+                pending.append((batch, host_tensors(batch),
+                                {k: host_tensors(v) for k, v in extras.items()}))
+                if len(pending) == self.group:
+                    if not self._enqueue(self._item(pending)):
+                        return
+                    pending = []
+            # a finite stream's last partial group
+            if pending and not self._enqueue(self._item(pending)):
+                return
             self._enqueue(None)  # end of stream
         except Exception as e:  # surface errors to the consumer
             self._enqueue(e)
@@ -115,8 +142,8 @@ class PrefetchLoader:
                 return
             if isinstance(item, Exception):
                 raise item
-            dev, batch, dev_extras, events = item
-            self._ready(dev, events)
+            dev, batch, dev_extras, event = item
+            self._ready(dev, (event,))
             for v in dev_extras.values():
                 self._ready(v, ())
             yield dev, batch, dev_extras

@@ -22,9 +22,11 @@ The source notes say what bounds each on the H100 and how it is laid out.
   backward ``(dq, dk, dv)``.
 - :func:`flash_segment_attention_mh_reference` and
   :func:`flash_segment_attention_mh_bwd_reference` — the plain versions,
-  computed densely one head and one chunk of q rows at a time (the
-  stacked discriminator buffer has 24,752 rows: one dense f32 score matrix
-  for all heads would not fit).
+  computed densely one head and one block of q rows at a time: on the
+  packed layout (non-decreasing ids) each segment against its own keys,
+  so a 4096-row eval batch of four clips costs a quarter of the dense
+  S x S scores (the stacked discriminator buffer has 24,752 rows: one
+  dense f32 score matrix for all heads would not fit).
 - With ``rope_cos``/``rope_sin`` tables, q and k come in unrotated and
   the rope kernels rotate them as they load them: :class:`_FlashSegmentAttnRope`,
   :func:`_rope_fwd` / :func:`_rope_bwd`, and the plain versions
@@ -57,8 +59,10 @@ launches = {"bf16": 0, "f32": 0, "bwd_dq_bf16": 0, "bwd_dkv_bf16": 0,
             "rope_bwd_dq_f32": 0, "rope_bwd_dkv_f32": 0,
             "v1_bf16": 0, "v1_f32": 0, "v1_bwd_dq_bf16": 0, "v1_bwd_dkv_bf16": 0,
             "v1_bwd_dq_f32": 0, "v1_bwd_dkv_f32": 0}
-# elements of one dense f32 [q rows, Sk] block in the plain versions (1 GiB)
+# elements of one dense f32 [q rows, keys] block in the plain versions (1 GiB)
 _DENSE_ELEMS = 2**28
+# q rows below which a segment shares its dense block with the next
+_MIN_BLOCK_ROWS = 64
 
 
 def reset_launches() -> None:
@@ -74,13 +78,44 @@ def _remap_pad(segment_ids: torch.Tensor) -> torch.Tensor:
                        segment_ids.to(torch.int32))
 
 
-def _dense_blocks(S: int, Sk: int, Hq: int):
-    """(head, first q row, end q row) blocks of at most ``_DENSE_ELEMS``
-    scores each."""
-    chunk = max(1, _DENSE_ELEMS // max(Sk, 1))
+def _segment_blocks(seg_q: torch.Tensor, seg_k: torch.Tensor) -> list[tuple]:
+    """``(first q row, end q row, first key, end key, masked)`` blocks that
+    hold every live score: with both id vectors non-decreasing (the packed
+    layout), each run of one id in ``seg_q`` against the keys of that id
+    (unmasked: every score in it is live), runs of fewer than
+    ``_MIN_BLOCK_ROWS`` rows merged with the next (masked); else one masked
+    block of all rows and keys."""
+    S, Sk = seg_q.shape[0], seg_k.shape[0]
+    whole = [(0, S, 0, Sk, True)]
+    if S < 2 or not (bool((seg_q[1:] >= seg_q[:-1]).all())
+                     and bool((seg_k[1:] >= seg_k[:-1]).all())):
+        return whole
+    ids, counts = torch.unique_consecutive(seg_q, return_counts=True)
+    lo = torch.searchsorted(seg_k, ids).tolist()
+    hi = torch.searchsorted(seg_k, ids, right=True).tolist()
+    ends = torch.cumsum(counts, 0).tolist()
+    blocks, a = [], 0
+    for i, b in enumerate(ends):
+        if blocks and blocks[-1][1] - blocks[-1][0] < _MIN_BLOCK_ROWS:
+            a0, _, lo0, _, _ = blocks.pop()
+            blocks.append((a0, b, lo0, hi[i], True))
+        else:
+            blocks.append((a, b, lo[i], hi[i], False))
+        a = b
+    # a block whose rows see no key keeps the dense form (all masked)
+    return [(a, b, lo, hi, m) if hi > lo else (a, b, 0, Sk, True) for a, b, lo, hi, m in blocks]
+
+
+def _dense_blocks(S: int, Sk: int, Hq: int, blocks: list[tuple] | None = None):
+    """(head, first q row, end q row, first key, end key, masked) blocks of
+    at most ``_DENSE_ELEMS`` scores each: the q rows of each of ``blocks``
+    (:func:`_segment_blocks`; default one masked block of all rows and
+    keys) cut into chunks."""
     for h in range(Hq):
-        for a in range(0, S, chunk):
-            yield h, a, min(a + chunk, S)
+        for a0, b0, lo, hi, masked in blocks or [(0, S, 0, Sk, True)]:
+            chunk = max(1, _DENSE_ELEMS // max(hi - lo, 1))
+            for a in range(a0, b0, chunk):
+                yield h, a, min(a + chunk, b0), lo, hi, masked
 
 
 def _prepare(q, k, segment_ids, scale, k_segment_ids):
@@ -115,15 +150,19 @@ def flash_segment_attention_mh_reference(
     rep, scale, seg_q, seg_k = _prepare(q, k, segment_ids, scale, k_segment_ids)
     out = torch.empty_like(q)
     lse = torch.empty((S, Hq), dtype=torch.float32, device=q.device)
-    for h, a, b in _dense_blocks(S, k.shape[0], Hq):
-        kf = k[:, h // rep].to(torch.float32)
+    blocks = _segment_blocks(seg_q, seg_k)
+    for h, a, b, lo, hi, masked in _dense_blocks(S, k.shape[0], Hq, blocks):
+        kf = k[lo:hi, h // rep].to(torch.float32)
         s = (q[a:b, h].to(torch.float32) @ kf.T) * scale
-        mask = seg_q[a:b, None] == seg_k[None, :]
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        if masked:
+            mask = seg_q[a:b, None] == seg_k[None, lo:hi]
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         m = s.amax(dim=-1, keepdim=True)
-        p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+        p = torch.exp(s - m)
+        if masked:
+            p = torch.where(mask, p, torch.zeros_like(s))
         l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-        acc = p.to(v.dtype).to(torch.float32) @ v[:, h // rep].to(torch.float32)
+        acc = p.to(v.dtype).to(torch.float32) @ v[lo:hi, h // rep].to(torch.float32)
         out[a:b, h] = (acc / l).to(q.dtype)
         lse[a:b, h] = (m + torch.log(l))[:, 0]
     return out, lse
@@ -164,18 +203,20 @@ def flash_segment_attention_mh_bwd_reference(
     dq = torch.empty(q.shape, dtype=f32, device=q.device)
     dk = torch.zeros(k.shape, dtype=f32, device=q.device)
     dv = torch.zeros(v.shape, dtype=f32, device=q.device)
-    for h, a, b in _dense_blocks(S, k.shape[0], Hq):
+    blocks = _segment_blocks(seg_q, seg_k)
+    for h, a, b, lo, hi, masked in _dense_blocks(S, k.shape[0], Hq, blocks):
         hk = h // rep
         qf, dof = q[a:b, h].to(f32), dout[a:b, h].to(f32)
-        kf, vf = k[:, hk].to(f32), v[:, hk].to(f32)
-        mask = seg_q[a:b, None] == seg_k[None, :]
+        kf, vf = k[lo:hi, hk].to(f32), v[lo:hi, hk].to(f32)
         s = (qf @ kf.T) * scale
-        p = torch.where(mask, torch.exp(s - lse[a:b, h, None]), torch.zeros_like(s))
-        dv[:, hk] += p.to(dt).to(f32).T @ dof
+        p = torch.exp(s - lse[a:b, h, None])
+        if masked:
+            p = torch.where(seg_q[a:b, None] == seg_k[None, lo:hi], p, torch.zeros_like(s))
+        dv[lo:hi, hk] += p.to(dt).to(f32).T @ dof
         ds = p * (dof @ vf.T - delta[a:b, h, None]) * scale
         ds = ds.to(dt).to(f32)
         dq[a:b, h] = ds @ kf
-        dk[:, hk] += ds.T @ qf
+        dk[lo:hi, hk] += ds.T @ qf
     if f32_grads:
         return dq, dk, dv
     return dq.to(dt), dk.to(dt), dv.to(dt)

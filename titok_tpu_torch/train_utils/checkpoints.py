@@ -21,8 +21,11 @@ and renamed, so a reader never sees half a checkpoint.
   generator and discriminator weights by key (torch ``strict=False``),
   keeping fresh init for missing and mismatched keys.
 
-Reading the JAX package's orbax checkpoints is not ported (ROADMAP queue
-1 item 8).
+A checkpoint of the JAX package (orbax) is read on a machine with JAX by
+``tools/convert_orbax_to_torch.py``, which writes it in this format with
+weights only (``step``, ``gen``, ``disc``; no optimizer or noise state):
+:func:`restore_weights_only` loads it, and :meth:`CheckpointManager.restore`
+refuses it with a message that names ``init_from_checkpoint``.
 """
 
 from __future__ import annotations
@@ -88,6 +91,19 @@ def _read(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
+def _read_full(path: str) -> dict:
+    """A checkpoint to resume from: one that holds the optimizers' state.
+    A weights-only one (``tools/convert_orbax_to_torch.py``) raises, naming
+    the load modes that take it."""
+    payload = _read(path)
+    if "gen_opt" not in payload:
+        raise ValueError(
+            f"{path} holds weights only (no optimizer state), so a run cannot resume from it: "
+            "load it with general.checkpoints.init_from_checkpoint=<its dir> or score it with "
+            "python -m titok_tpu_torch.tools.evaluate --ckpt <its dir>")
+    return payload
+
+
 def _steps(directory: str) -> list[int]:
     if not os.path.isdir(directory):
         return []
@@ -138,7 +154,7 @@ class CheckpointManager:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
-        return load_payload(state, _read(os.path.join(self.directory, str(step))))
+        return load_payload(state, _read_full(os.path.join(self.directory, str(step))))
 
     # -- host snapshots -----------------------------------------------------
 
@@ -168,7 +184,7 @@ class CheckpointManager:
         if snap_step is not None and (ckpt_step is None or snap_step > ckpt_step):
             print(f"restored host snapshot at step {snap_step} "
                   f"(newer than checkpoint {ckpt_step})")
-            return load_payload(state, _read(os.path.join(self.snapshot_dir, str(snap_step))))
+            return load_payload(state, _read_full(os.path.join(self.snapshot_dir, str(snap_step))))
         return self.restore(state, ckpt_step)
 
 

@@ -57,16 +57,19 @@ def trace(log_dir: str | None):
 
 
 class StepTimer:
-    def __init__(self, window: int = 100):
+    def __init__(self, window: int = 100, steps_per_tick: int = 1):
         self.times: deque = deque(maxlen=window)
         self._last: float | None = None
+        # steps_per_call ticks once a K-step call; the stats stay per step
+        self.steps_per_tick = max(1, int(steps_per_tick))
 
     def tick(self) -> float | None:
-        """Call once per step; returns the last step's duration."""
+        """Call once per step (or per K-step call); returns the last
+        per-step duration."""
         now = time.perf_counter()
         dt = None
         if self._last is not None:
-            dt = now - self._last
+            dt = (now - self._last) / self.steps_per_tick
             self.times.append(dt)
         self._last = now
         return dt

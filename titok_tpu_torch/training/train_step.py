@@ -28,8 +28,10 @@ Optimizers mirror the JAX package's optax chain
 
 ``training.main.remat`` checkpoints every ``Attn`` and ``GEGLU`` call of
 the tokenizer and the discriminator (``models/transformer.py``); the step
-itself does not change. Not ported yet (each raises, naming its ROADMAP
-entry): the adafactor optimizer and ``training.main.steps_per_call``.
+itself does not change. ``training.main.steps_per_call: K`` takes K
+steps a call over K stacked batches (:meth:`TrainStepBuilder.
+make_train_step_scan`). Not ported yet (raises, naming its ROADMAP entry):
+the adafactor optimizer.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from titok_tpu_torch import resolve_device
@@ -117,10 +120,6 @@ class TrainStepBuilder:
                 "item 6, train-step options)")
         if name != "adamw":
             raise ValueError(f"optimizer.name={name!r}: expected 'adamw' or 'adafactor'")
-        if int(cm.get("steps_per_call", 1)) > 1:
-            raise NotImplementedError(
-                "training.main.steps_per_call > 1 is not ported yet (ROADMAP queue 1 "
-                "item 13, with the parallel modes)")
         lr = float(opt_c.learning_rate)
         elr = float(opt_c.end_lr)
         dlr = float(opt_c.get("disc_lr_ratio", 1.0))
@@ -264,6 +263,39 @@ class TrainStepBuilder:
             return state, metrics, aux["indices"]
 
         return train_step
+
+    def make_train_step_scan(self, steps_per_call: int) -> Callable:
+        """K train steps a call (``training.main.steps_per_call``; the JAX
+        package's ``lax.scan`` over K stacked batches). Returns
+        ``scan_step(state, batches, discs, percs=None) -> (state, metrics,
+        indices)``: ``batches``/``discs``/``percs`` are dicts of tensors
+        stacked on a leading axis of K (``PrefetchLoader(group=K)``; a
+        shorter final group takes as many steps as it holds), and the step
+        of :meth:`make_train_step` runs on each slice ``[j]`` in turn.
+        Metrics come back stacked ``[K]`` (device tensors; the schedule's
+        learning rates as a host array) and indices ``[K, S]``, with no
+        host sync inside the call. Each step's activations are freed when
+        it returns, so a call holds one step's, not K."""
+        step = self.make_train_step()
+
+        def scan_step(state: TrainState, batches, discs, percs=None):
+            n = len(next(iter(batches.values())))
+            if n > steps_per_call:
+                raise ValueError(f"a group of {n} batches for a call of {steps_per_call} steps")
+            ms, idxs = [], []
+            for j in range(n):
+                def at(tree):
+                    return None if tree is None else {k: v[j] for k, v in tree.items()}
+
+                state, m, ix = step(state, at(batches), at(discs), at(percs))
+                ms.append(m)
+                idxs.append(ix)
+            metrics = {k: torch.stack([m[k] for m in ms])
+                       if isinstance(ms[0][k], torch.Tensor) else np.asarray([m[k] for m in ms])
+                       for k in ms[0]}
+            return state, metrics, torch.stack(idxs)
+
+        return scan_step
 
     def make_eval_step(self) -> Callable:
         """``eval_step(batch) -> (recon, indices)`` without gradients."""

@@ -4,9 +4,11 @@
 The host loop is thin: a background thread packs batches and copies them
 to the card (``data/prefetch.py``), the step (``train_step.py``) updates
 the modules in place, and the loop logs scalars, runs the periodic eval
-with PSNR/SSIM summed on the device, and saves checkpoints. The JAX
-package's ``steps_per_call`` scan loop and its parallel trainers are not
-ported (ROADMAP queue 1 item 13).
+with PSNR/SSIM summed on the device, and saves checkpoints. With
+``training.main.steps_per_call: K`` it takes K steps a call over K batches
+stacked in one transfer (:meth:`Trainer._fit_scan`, the JAX package's
+scan loop). The JAX package's parallel trainers are not ported (ROADMAP
+queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -111,6 +113,22 @@ def _host_scalars(metrics: dict) -> dict:
     return {k: out[k] for k in metrics}
 
 
+def _host_series(metrics: dict) -> dict:
+    """Stacked ``[K]`` metric values as host arrays, the device tensors
+    fetched in one copy."""
+    keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+    out = {k: np.asarray(v, np.float64) for k, v in metrics.items() if k not in keys}
+    if keys:
+        vals = torch.stack([metrics[k].detach().to(torch.float32) for k in keys]).cpu().numpy()
+        out.update(zip(keys, vals))
+    return {k: out[k] for k in metrics}
+
+
+def _head(tree: dict | None, n: int) -> dict | None:
+    """The first ``n`` entries of each stacked tensor of ``tree``."""
+    return None if tree is None else {k: v[:n] for k, v in tree.items()}
+
+
 class Trainer:
     def __init__(self, config, batches_fn=None, device=None):
         self.config = config
@@ -200,69 +218,159 @@ class Trainer:
         seed = int(cm.get("seed", 0))
 
         self._pre_fit_setup()
-        state = self._init_state(seed)  # raises for steps_per_call > 1
+        state = self._init_state(seed)
         self._eval_step = self.builder.make_eval_metrics_step(self.device_im)
-        train_step = self.builder.make_train_step()
-        # the plans' stream restarts at seed + 1 on resume, as JAX's does
+        steps_per_call = int(cm.get("steps_per_call", 1))
+        loader = self._make_loader(seed, steps_per_call)
+        previous = self._install_preemption_save()
+        try:
+            if steps_per_call > 1:
+                return self._fit_scan(state, loader, steps_per_call, max_steps, log_every,
+                                      eval_every)
+            return self._fit_steps(state, loader, max_steps, log_every, eval_every)
+        finally:
+            loader.stop()
+            self._restore_signal_handlers(previous)
+
+    def _make_loader(self, seed: int, group: int = 1) -> PrefetchLoader:
+        """The training stream prefetched to the device with its extras, in
+        groups of ``group`` stacked batches when ``group > 1``; the plans'
+        stream restarts at seed + 1 on resume, as JAX's does."""
         extras_rng = np.random.default_rng(seed + 1)
-        loader = PrefetchLoader(lambda: self.batches_fn(self.config, eval=False, seed=seed),
-                                build_extras=lambda b: self._build_extras(b, extras_rng),
-                                device=self.device)
+        return PrefetchLoader(lambda: self.batches_fn(self.config, eval=False, seed=seed),
+                              build_extras=lambda b: self._build_extras(b, extras_rng),
+                              device=self.device, group=group)
+
+    def _fit_steps(self, state, loader, max_steps, log_every, eval_every):
+        """One step a call."""
+        cm = self.config.training.main
+        train_step = self.builder.make_train_step()
         profile_dir = cm.get("profile_dir", None)
         profile_steps = cm.get("profile_steps", None)
         timer = StepTimer()
         prof = None
-
-        previous = self._install_preemption_save()
-        try:
-            t_last = time.time()
-            tokens_since = 0
-            last_eval = -1
-            step_num = int(state.step)
-            for dev_batch, batch, dev_extras in loader:
-                if step_num >= max_steps:
-                    break
-                if profile_dir and profile_steps and step_num == int(profile_steps):
-                    prof = start_trace(profile_dir)
-                state, metrics, indices = train_step(state, dev_batch, dev_extras.get("disc"),
-                                                     dev_extras.get("perc"))
-                self._check_preempt(state)
-                if prof is not None and step_num == int(profile_steps) + 3:
-                    stop_trace(prof)
-                    prof = None
-                timer.tick()
-                tokens_since += batch.seq_len
-
-                if self.codebook_logger is not None:
-                    self.codebook_logger(unpack_indices(indices.cpu().numpy(), batch))
-
-                if step_num % log_every == 0:
-                    scalars = {"train/" + k: v for k, v in _host_scalars(metrics).items()}
-                    dt = time.time() - t_last
-                    scalars["perf/tokens_per_sec"] = tokens_since / max(dt, 1e-9)
-                    scalars.update(timer.stats())
-                    t_last, tokens_since = time.time(), 0
-                    self.logger.log_metrics(scalars, step_num)
-                    self.logger.log_console(scalars, step_num)
-
-                if eval_every and step_num > 0 and step_num % eval_every == 0:
-                    self.validate(state, step_num)
-                    last_eval = step_num
-
-                self.ckpt.maybe_save(step_num, state)
-                self._maybe_host_snapshot(state, step_num)
-                step_num += 1
-            if prof is not None:
+        t_last = time.time()
+        tokens_since = 0
+        last_eval = -1
+        step_num = int(state.step)
+        for dev_batch, batch, dev_extras in loader:
+            if step_num >= max_steps:
+                break
+            if profile_dir and profile_steps and step_num == int(profile_steps):
+                prof = start_trace(profile_dir)
+            state, metrics, indices = train_step(state, dev_batch, dev_extras.get("disc"),
+                                                 dev_extras.get("perc"))
+            self._check_preempt(state)
+            if prof is not None and step_num == int(profile_steps) + 3:
                 stop_trace(prof)
+                prof = None
+            timer.tick()
+            tokens_since += batch.seq_len
 
-            # final eval: the loop exits at max_steps before the in-loop
-            # trigger fires for that step
-            if eval_every and step_num > 0 and step_num != last_eval:
+            if self.codebook_logger is not None:
+                self.codebook_logger(unpack_indices(indices.cpu().numpy(), batch))
+
+            if step_num % log_every == 0:
+                scalars = {"train/" + k: v for k, v in _host_scalars(metrics).items()}
+                dt = time.time() - t_last
+                scalars["perf/tokens_per_sec"] = tokens_since / max(dt, 1e-9)
+                scalars.update(timer.stats())
+                t_last, tokens_since = time.time(), 0
+                self.logger.log_metrics(scalars, step_num)
+                self.logger.log_console(scalars, step_num)
+
+            if eval_every and step_num > 0 and step_num % eval_every == 0:
                 self.validate(state, step_num)
+                last_eval = step_num
+
+            self.ckpt.maybe_save(step_num, state)
+            self._maybe_host_snapshot(state, step_num)
+            step_num += 1
+        if prof is not None:
+            stop_trace(prof)
+
+        # final eval: the loop exits at max_steps before the in-loop
+        # trigger fires for that step
+        if eval_every and step_num > 0 and step_num != last_eval:
+            self.validate(state, step_num)
+        self.ckpt.save(int(state.step), state)
+        return state
+
+    def _fit_scan(self, state, loader, K: int, max_steps, log_every, eval_every):
+        """``training.main.steps_per_call: K``: K steps a call
+        (``TrainStepBuilder.make_train_step_scan``) over K batches stacked
+        in one transfer (``PrefetchLoader(group=K)``), with one fetch of the
+        metrics and one of the indices a call (the JAX package's
+        ``_fit_scan``).
+
+        Eval, checkpoint and host snapshot fire on interval crossings: when
+        a multiple of the interval falls inside a call's window of steps,
+        the trigger runs at the end of that call (the state is then up to
+        K - 1 steps past the multiple; exact when K divides the interval
+        and the run starts aligned). Logging fetches the window's metrics
+        once and logs each of its steps on the cadence. The tail of
+        ``(max_steps - start) % K`` steps runs one step at a time over the
+        first slices of the last stacked transfer. A preemption signal is
+        acted on at the end of the call it arrived in."""
+        cfg = self.config
+        scan_step = self.builder.make_train_step_scan(K)
+        timer = StepTimer(steps_per_tick=K)
+        snap_every = int(cfg.general.checkpoints.get("host_snapshot_interval", 0))
+        save_every = self.ckpt.save_interval
+
+        def crossed(interval, start, end) -> bool:
+            """A positive multiple of ``interval`` lies in (start, end]."""
+            return bool(interval) and end // interval > start // interval
+
+        t_last = time.time()
+        tokens_since = 0
+        last_eval = last_saved = -1
+        step_num = int(state.step)
+        for dev, batches, dev_extras in loader:
+            if step_num >= max_steps:
+                break
+            take = min(len(batches), max_steps - step_num)
+            if take < len(batches):  # the tail: the first slices of this transfer
+                dev, batches = _head(dev, take), batches[:take]
+                dev_extras = {k: _head(v, take) for k, v in dev_extras.items()}
+            state, metrics, indices = scan_step(state, dev, dev_extras.get("disc"),
+                                                dev_extras.get("perc"))
+            self._check_preempt(state)
+            start, step_num = step_num, step_num + take
+            timer.tick()
+            tokens_since += sum(b.seq_len for b in batches)
+
+            if self.codebook_logger is not None:
+                idx = indices.cpu().numpy()
+                for j, b in enumerate(batches):
+                    self.codebook_logger(unpack_indices(idx[j], b))
+
+            if crossed(log_every, start - 1, step_num - 1) or start == 0:
+                host = _host_series(metrics)  # one fetch for the window
+                perf = {"perf/tokens_per_sec": tokens_since / max(time.time() - t_last, 1e-9),
+                        **timer.stats()}
+                t_last, tokens_since = time.time(), 0
+                for j in range(take):
+                    if (start + j) % log_every:
+                        continue
+                    scalars = {"train/" + k: float(v[j]) for k, v in host.items()}
+                    scalars.update(perf)
+                    self.logger.log_metrics(scalars, start + j)
+                    self.logger.log_console(scalars, start + j)
+
+            if crossed(eval_every, start, step_num):
+                self.validate(state, step_num)
+                last_eval = step_num
+            if crossed(save_every, start, step_num):
+                self.ckpt.save(step_num, state)
+                last_saved = step_num
+            elif crossed(snap_every, start, step_num):
+                self.ckpt.save_snapshot(int(state.step), state)
+
+        if eval_every and step_num > 0 and step_num != last_eval:
+            self.validate(state, step_num)
+        if last_saved != step_num:
             self.ckpt.save(int(state.step), state)
-        finally:
-            loader.stop()
-            self._restore_signal_handlers(previous)
         return state
 
     def _maybe_host_snapshot(self, state, step_num: int):
