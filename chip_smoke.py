@@ -113,7 +113,9 @@ toolkit. Phases, in order; any failure exits non-zero:
    stopped by SIGTERM (exit 143, a checkpoint at the step reached) and
    resumed; then f32 at ``train_seq_len`` 2048 (LPIPS off: a resumed run
    draws its plans anew from ``seed + 1``), 4 steps straight against
-   2 + save + resume + 2 (losses, params, the R1/R2 noise generator);
+   2 + save + resume + 2 (losses, params, the R1/R2 noise generator), under
+   AdamW and then under adafactor, bit for bit (losses, params, both
+   optimizers' state, the noise generator);
 14. the data layer: one probe of libav (``pkg-config``) decides what runs.
    Everywhere: the ``pack`` library (``native/packer.cpp``, built with
    ``g++``) against its plain version on 4 seeded uint8 clips, bit for bit;
@@ -150,20 +152,35 @@ toolkit. Phases, in order; any failure exits non-zero:
    steps with an eval and a checkpoint at 16, against K = 1: launches a
    call (16 of each of rows 1-2 a step), one H2D transfer a call, finite
    losses, tokens/s and peak device memory;
-17. the f32 rows of the kernel table: each f32 entry of rows 1-4 and the
+17. the repo's all-large adafactor recipe (``docs/runs/r3f_alllarge_adafactor``:
+   ``configs/tiny.yaml`` with large encoder, decoder and discriminator,
+   ``optimizer.name=adafactor``, remat, the uint8 wire, synthetic data,
+   LPIPS off) at full width: in this process 3 steps under AdamW and under
+   adafactor (launches a step: rows 1-2 in bf16, the forwards twice for
+   remat), each optimizer's state bytes, peak device memory, ms a step and
+   its update alone; then through ``python -m
+   titok_tpu_torch.tools.train_supervised`` for 8 steps with a checkpoint
+   every 2: the child SIGKILLed once checkpoint 4 exists (the supervisor
+   relaunches, the child resumes from step 5), the supervisor SIGTERMed
+   once the resumed child logs a step (the child saves and exits 143, the
+   supervisor exits 143 without a relaunch), and a new supervisor over
+   the same directory (it resumes on its first launch and ends rc 0 at
+   step 8, every logged value finite);
+18. the f32 rows of the kernel table: each f32 entry of rows 1-4 and the
    v1 f32 dq, its time, bound and share of bound at the shapes timed
    above, with the launch shape the library reports (threads, registers,
    dynamic shared memory, CTAs an SM) for the pipelined forward, dq and
    dk/dv;
-18. one JSON line listing every kernel with its numbers; ``launches`` is
+19. one JSON line listing every kernel with its numbers; ``launches`` is
    the kernel's count on the training path of its dtype (the VQ kernel's:
    the base_vq training path; the rope kernels': the large training path,
    f32 its remat run; the v1 kernels': the trainer's fit, f32 the straight
    f32 run), and ``launches_by_path`` its count on each path, each read
    from counters set to 0 just before that path (the data phase's fits
    too: ``train_data_bf16``, ``train_data_uint8``; the parity sweeps,
-   ``eval_r4_f32``, ``eval_r4_bf16``; the K = 8 fit, ``train_r4_k8``);
-19. last line: ``{"ok": true, "device": {...}}``.
+   ``eval_r4_f32``, ``eval_r4_bf16``; the K = 8 fit, ``train_r4_k8``; the
+   all-large adafactor steps, ``train_alllarge``);
+20. last line: ``{"ok": true, "device": {...}}``.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -2775,11 +2792,35 @@ def phase_trainer_cli(card: str) -> None:
                 p.wait()
 
 
+def _bitwise_equal(a, b) -> dict:
+    """Which parts of two train states hold the same bits: ``params`` (both
+    modules), ``opt`` (both optimizers' state: counts and moments) and
+    ``noise`` (the R1/R2 noise generator)."""
+    import torch
+
+    def same_opt(x, y):
+        sx, sy = x.state_dict()["state"], y.state_dict()["state"]
+        return sx.keys() == sy.keys() and all(
+            sx[i].keys() == sy[i].keys() and all(
+                torch.equal(v, sy[i][k]) and v.dtype == sy[i][k].dtype if torch.is_tensor(v)
+                else v == sy[i][k] for k, v in sx[i].items()) for i in sx)
+
+    return {"params": all(torch.equal(p, q) for m, n in ((a.model, b.model),
+                                                        (a.disc_model, b.disc_model))
+                          for p, q in zip(m.parameters(), n.parameters())),
+            "opt": same_opt(a.gen_opt, b.gen_opt) and same_opt(a.disc_opt, b.disc_opt),
+            "noise": torch.equal(a.noise_gen.get_state(), b.noise_gen.get_state())}
+
+
 def phase_resume_f32(card: str) -> dict:
     """f32 at train_seq_len 2048 (the discriminator rebuilt in f32 too): 4
     steps straight against 2 steps, a save, a new Trainer that resumes and 2
     more, from the same period-2 stream (a trainer restarts its stream on
-    resume, as the JAX package's does)."""
+    resume, as the JAX package's does). Under AdamW (gated within 1e-5 of
+    the params; whether the bits agree is printed), then under adafactor,
+    gated bit for bit: losses, both modules' params, both optimizers'
+    state (counts, factored moments, bf16 momentum) and the noise
+    generator."""
     import itertools
 
     import torch
@@ -2859,6 +2900,27 @@ def phase_resume_f32(card: str) -> dict:
     want = {**{k: 0 for k in k32}, "v1_f32": 4 * n, "v1_bwd_dq_f32": 4 * n,
             "v1_bwd_dkv_f32": 4 * n}
     check(k32 == want, f"f32 trainer launches {k32}, want {want}")
+    bits = _bitwise_equal(resumed, straight)
+    print(f"f32 resume under AdamW, bit for bit: losses {all(a == b for a, b in pairs)}, "
+          f"{bits} (printed, not gated)")
+
+    af = {"optimizer.name": "adafactor"}
+    af_straight, s_rows, _ = run("f32_af_straight", **af, **{"training.main.max_steps": 4})
+    _, a_rows, _ = run("f32_af_resumed", **af, **{"training.main.max_steps": 2})
+    af_resumed, b_rows, _ = run("f32_af_resumed", **af, **{
+        "training.main.max_steps": 4, "general.checkpoints.resume_from_checkpoint": True})
+    got = {**a_rows, **b_rows}
+    check(sorted(got) == sorted(s_rows) == [0, 1, 2, 3], f"adafactor logged steps {sorted(got)}")
+    same_rows = all(got[st][k] == s_rows[st][k] for st in s_rows for k in s_rows[st]
+                    if k.startswith("train/"))
+    bits = _bitwise_equal(af_resumed, af_straight)
+    kinds = {type(o).__name__ for o in (af_straight.gen_opt, af_straight.disc_opt)}
+    print(f"f32 resume under adafactor, tiny_fsq16k flash_v1 S=2048 [{card}]: 4 steps straight "
+          f"vs 2 + save + resume + 2, bit for bit: logged values {same_rows}, {bits}; "
+          f"optimizers {sorted(kinds)}")
+    check(kinds == {"Adafactor"}, f"the adafactor runs stepped {kinds}")
+    check(same_rows and all(bits.values()),
+          "the resumed adafactor run is not bit for bit the straight one")
     return paths
 
 
@@ -3650,6 +3712,291 @@ def phase_scan(card: str) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# The repo's all-large adafactor recipe (docs/runs/r3f_alllarge_adafactor)
+# under the supervisor
+# ---------------------------------------------------------------------------
+
+# r3f's overrides of configs/tiny.yaml (launch_synth.sh): large encoder,
+# decoder and discriminator, adafactor, remat, the uint8 wire, synthetic
+# data, LPIPS off, no eval; its snapshot and preemption settings
+R3F = ("tokenizer.losses.perceptual_weight=0.0",
+       "general.checkpoints.host_snapshot_interval=0",
+       "general.checkpoints.preemption_save_timeout_s=60",
+       "training.eval.eval_step_interval=0",
+       "tokenizer.model.encoder_size=large", "tokenizer.model.decoder_size=large",
+       "discriminator.model.model_size=large", "optimizer.name=adafactor",
+       "training.main.remat=true", "dataset.uint8_wire=true",
+       "dataset.train_dataset=synthetic", "dataset.eval_dataset=synthetic")
+R3F_STEPS = 8
+
+
+def r3f_args(run: str) -> list[str]:
+    """The supervisor's arguments for r3f's recipe into ``RUN_DIR/<run>``:
+    ``R3F_STEPS`` steps, a checkpoint every 2, every step logged."""
+    return [f"config={TINY}", *R3F, f"training.main.max_steps={R3F_STEPS}",
+            "general.checkpoints.save_interval=2", "general.wandb.log_step_interval=1",
+            f"general.checkpoints.save_path={os.path.join(RUN_DIR, run)}", "--poll-sec", "1"]
+
+
+def _opt_bytes(opt) -> int:
+    """Bytes of every tensor of an optimizer's state."""
+    return sum(v.numel() * v.element_size() for s in opt.state.values() for v in s.values()
+               if hasattr(v, "element_size"))
+
+
+def _timed_step(opt, into: list):
+    """``opt.step`` wrapped to append its ms (synchronized on both sides)
+    to ``into``; ``del opt.step`` puts the class's back."""
+    import torch
+
+    inner = opt.step
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        into.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    opt.step = timed
+
+
+def _alllarge_optimizers(card: str) -> dict:
+    """r3f's recipe in this process under AdamW and under adafactor, one
+    after the other from the same weights (drawn on the card) and batches:
+    4 steps each (the first a warm-up), then one more with each optimizer's
+    update timed alone; the optimizers' state bytes, peak device memory
+    above what was allocated before (nothing is left of the other run) and
+    ms a step. Launches: the adafactor run's, rows 1-2 in bf16 with
+    remat."""
+    import gc
+
+    import torch
+
+    from titok_tpu_torch.config import load_config
+
+    out, paths = {}, {}
+    n = TRAIN_LAUNCHES["large"]
+    want = {**{k: 0 for k in read_counts()}, "bf16": 2 * n, "bwd_dq_bf16": n, "bwd_dkv_bf16": n}
+    for name in ("adamw", "adafactor"):
+        cfg = load_config(TINY, [*R3F, f"optimizer.name={name}"])
+        batches, pack_ms = _host_batches(cfg, 5)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        builder, state, step = _trainer(cfg, card_seed=0)
+        n_params = sum(p.numel() for m in (state.model, state.disc_model) for p in m.parameters())
+        n_tensors = sum(1 for m in (state.model, state.disc_model) for _ in m.parameters())
+        times, per_step = [], []
+        reset_counts()  # this path: the 4 steps below, read right after them
+        for triple in batches[:4]:
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics, _ = step(state, *_on_card(triple))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_step.append({k: v - before[k] for k, v in read_counts().items()})
+            vals = {k: float(v) for k, v in metrics.items()}
+            check(all(np.isfinite(v) for v in vals.values()), f"{name}: non-finite {vals}")
+        if name == "adafactor":
+            paths["train_alllarge"] = read_counts()
+        for i, got in enumerate(per_step):
+            check(got == want, f"all-large {name} step {i}: launches {got}, want {want}")
+        peak = torch.cuda.max_memory_allocated() - base
+        opt_ms = {"gen": [], "disc": []}
+        _timed_step(state.gen_opt, opt_ms["gen"])
+        _timed_step(state.disc_opt, opt_ms["disc"])
+        state, metrics, _ = step(state, *_on_card(batches[4]))
+        del state.gen_opt.step, state.disc_opt.step
+        state_bytes = _opt_bytes(state.gen_opt) + _opt_bytes(state.disc_opt)
+        out[name] = {"bytes": state_bytes, "peak": peak, "ms": times,
+                     "opt_ms": opt_ms["gen"] + opt_ms["disc"]}
+        print(f"all-large {name} (r3f's recipe in this process) [{card}]: {n_params / 1e6:.1f} M "
+              f"params in {n_tensors} tensors; optimizer state {state_bytes} B "
+              f"({state_bytes / n_params:.4f} B/param, {state_bytes / 2**30:.3f} GiB); peak "
+              f"device memory {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated over 4 "
+              f"steps, less the {base / 2**30:.3f} GiB allocated before); steps "
+              f"{', '.join(f'{t:.2f}' for t in times)} ms (host clock; mean of the last 3 "
+              f"{np.mean(times[1:]):.2f} ms); in a 5th step the generator's and discriminator's "
+              f"updates alone {opt_ms['gen'][0]:.2f} / {opt_ms['disc'][0]:.2f} ms; host packing "
+              f"{pack_ms:.1f} ms/batch; launches a step "
+              f"{ {k: v for k, v in per_step[0].items() if v} }")
+        del builder, state, step, batches, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - base
+        check(left < 2**28, f"all-large {name}: {left} B still allocated after its run")
+    af, aw = out["adafactor"], out["adamw"]
+    print(f"all-large adafactor against AdamW [{card}]: state {af['bytes'] / 2**30:.3f} / "
+          f"{aw['bytes'] / 2**30:.3f} GiB, peak {af['peak'] / 2**30:.3f} / "
+          f"{aw['peak'] / 2**30:.3f} GiB (adafactor minus AdamW "
+          f"{(af['peak'] - aw['peak']) / 2**30:+.3f} GiB), step {np.mean(af['ms'][1:]):.2f} / "
+          f"{np.mean(aw['ms'][1:]):.2f} ms ({np.mean(af['ms'][1:]) / np.mean(aw['ms'][1:]):.3f}x), "
+          f"updates {sum(af['opt_ms']):.2f} / {sum(aw['opt_ms']):.2f} ms (one run each: no claim)")
+    check(af["bytes"] < 0.3 * aw["bytes"], "adafactor's state is not under 0.3 of AdamW's")
+    return paths
+
+
+def _start_supervisor(args: list[str], log: str):
+    """``python -m titok_tpu_torch.tools.train_supervised`` from the repo
+    root in a session of its own (so that its children can be stopped
+    with it), its output and its children's into ``log``."""
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-m", "titok_tpu_torch.tools.train_supervised",
+                                 *args], cwd=REPO, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+
+def _text(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def _launches(log: str) -> list[tuple[int, str]]:
+    """``(pid, arguments)`` of each launch line of a supervisor's log."""
+    return [(int(pid), rest) for pid, rest in re.findall(
+        r"\[supervisor\] launch \(restart \d+, pid (\d+)\): (.*)", _text(log))]
+
+
+def _wait_for(cond, timeout: float, what: str, sup, log: str) -> float:
+    """Seconds until ``cond()``; fails at ``timeout`` or when ``sup`` ends
+    first, with the end of ``log``."""
+    t0 = time.perf_counter()
+    while not cond():
+        if sup is not None and sup.poll() is not None:
+            raise SmokeFailure(f"{what}: the supervisor exited {sup.returncode} first:\n"
+                               f"{_text(log)[-4000:]}")
+        if time.perf_counter() - t0 > timeout:
+            raise SmokeFailure(f"{what}: not within {timeout:.0f} s:\n{_text(log)[-4000:]}")
+        time.sleep(0.1)
+    return time.perf_counter() - t0
+
+
+def phase_supervised_alllarge(card: str) -> dict:
+    """r3f's all-large adafactor recipe at full width (24 + 24 layers, width
+    1024, a large discriminator, ``train_seq_len`` 6144, bf16-mixed, remat)
+    in this process under both optimizers (:func:`_alllarge_optimizers`),
+    then as its launch script runs it, through ``python -m
+    titok_tpu_torch.tools.train_supervised`` for ``R3F_STEPS`` steps with
+    a checkpoint every 2: (a) its child SIGKILLed once checkpoint 4 exists
+    (the state after step 4, whose count is 5): the supervisor reports the
+    unexpected exit and relaunches with resume, which resumes from step 5;
+    (b) the supervisor SIGTERMed once the resumed child logs its first step:
+    the child saves and exits 143, the supervisor exits 143 without a
+    relaunch; (c) a new supervisor over the same directory resumes on its
+    first launch and ends rc 0 with the last checkpoint at ``R3F_STEPS``,
+    every step logged but the one that saw the SIGTERM, and every logged
+    value finite."""
+    import shutil
+    import signal as _signal
+
+    from titok_tpu_torch.train_utils.checkpoints import CheckpointManager
+
+    paths = _alllarge_optimizers(card)
+    run = "alllarge"
+    run_dir = os.path.join(RUN_DIR, run)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(RUN_DIR, exist_ok=True)
+    print(f"supervised all-large: {shutil.disk_usage(RUN_DIR).free / 2**30:.1f} GiB free for its "
+          f"checkpoints")
+    args = r3f_args(run)
+    logs = [os.path.join(RUN_DIR, f"{run}_supervisor_{i}.log") for i in (1, 2)]
+    resume_args = "general.checkpoints.resume_from_checkpoint=true"
+    sups = []
+    t_phase = time.perf_counter()
+    try:
+        # (a) the child SIGKILLed once checkpoint 4 exists
+        sups.append(_start_supervisor(args, logs[0]))
+        sup = sups[0]
+        saved_at = {}  # seconds from the launch to each checkpoint of the first child
+        t_launch = time.perf_counter()
+        for k in (0, 2, 4):
+            _wait_for(lambda k=k: os.path.exists(os.path.join(run_dir, str(k), "state.pt")), 900,
+                      f"checkpoint {k} of the first child", sup, logs[0])
+            saved_at[k] = time.perf_counter() - t_launch
+        first_pid = _launches(logs[0])[0][0]
+        os.kill(first_pid, _signal.SIGKILL)
+        rows_at_kill = len(_jsonl(run))
+        _wait_for(lambda: "unexpected rc=-9" in _text(logs[0]), 60, "the kill reported", sup,
+                  logs[0])
+        ckpt = CheckpointManager(run_dir)
+        killed_at = ckpt.latest_step()
+        check(killed_at is not None and killed_at >= 4, f"checkpoints at the kill {ckpt.all_steps()}")
+        print(f"supervised all-large (a): checkpoints 0, 2, 4 of the first child "
+              f"{', '.join(f'{t:.1f}' for t in saved_at.values())} s after its launch; SIGKILL "
+              f"to the child (pid {first_pid}); newest checkpoint {killed_at}", flush=True)
+        _wait_for(lambda: len(_launches(logs[0])) == 2 and "resumed from step" in
+                  _text(logs[0]).split("launch (restart 1")[-1], 600, "the relaunch's resume",
+                  sup, logs[0])
+        relaunch = _launches(logs[0])[1][1]
+        after = _text(logs[0]).split("launch (restart 1")[-1]
+        check(resume_args in relaunch, f"the relaunch does not resume: {relaunch}")
+        check(f"resumed from step {killed_at + 1}" in after,
+              f"the relaunch did not resume from step {killed_at + 1}:\n{after[-3000:]}")
+
+        # (b) the supervisor SIGTERMed once the resumed child logs a step
+        took = _wait_for(lambda: any("train/gen/total_loss" in r
+                                     for r in _jsonl(run)[rows_at_kill:]), 600,
+                         "a step of the resumed child", sup, logs[0])
+        resumed_step = next(r["step"] for r in _jsonl(run)[rows_at_kill:]
+                            if "train/gen/total_loss" in r)
+        sup.send_signal(_signal.SIGTERM)
+        rc = sup.wait(timeout=300)
+        text = _text(logs[0])
+        saved = re.findall(r"preemption save at step (\d+)", text)
+        check(rc == 143, f"the SIGTERMed supervisor exited {rc}, want 143:\n{text[-3000:]}")
+        check("shutdown requested: the child exited rc=143, not relaunching" in text and
+              len(_launches(logs[0])) == 2 and len(saved) == 1,
+              f"SIGTERM: no preemption save and clean stop, or a relaunch:\n{text[-3000:]}")
+        saved = int(saved[0])
+        check(ckpt.latest_step() == saved, f"checkpoints {ckpt.all_steps()}, want the newest at "
+              f"the preemption save {saved}")
+        print(f"supervised all-large (b): the resumed child logged step {resumed_step} after "
+              f"{took:.1f} s; SIGTERM to the supervisor: the child saved at step {saved} and "
+              f"exited 143, the supervisor exited {rc} without a relaunch", flush=True)
+
+        # (c) a new supervisor over the same directory
+        sups.append(_start_supervisor(args, logs[1]))
+        t0 = time.perf_counter()
+        rc = sups[1].wait(timeout=900)
+        took = time.perf_counter() - t0
+        text = _text(logs[1])
+        launches = _launches(logs[1])
+        check(rc == 0 and len(launches) == 1, f"the second supervisor: rc {rc}, "
+              f"{len(launches)} launches:\n{text[-3000:]}")
+        check(resume_args in launches[0][1] and f"resumed from step {saved}" in text,
+              f"the second supervisor's first launch did not resume from {saved}:\n{text[-3000:]}")
+        check(ckpt.latest_step() == R3F_STEPS, f"checkpoints {ckpt.all_steps()}, want the "
+              f"newest at {R3F_STEPS}")
+        rows = [r for r in _jsonl(run) if "train/gen/total_loss" in r]
+        logged = sorted({r["step"] for r in rows})
+        losses = [v for r in rows for k, v in r.items() if k.startswith("train/")]
+        # the step that saw the SIGTERM is saved but not logged (the trainer
+        # stops right after it)
+        check(sorted(set(logged) | {saved - 1}) == list(range(R3F_STEPS)),
+              f"logged steps {logged}")
+        check(all(np.isfinite(v) for v in losses), "a non-finite logged value")
+        last = {k: rows[-1][k] for k in ("step", "train/gen/total_loss", "train/disc/total_loss")
+                if k in rows[-1]}
+        print(f"supervised all-large (c): a new supervisor resumed from step {saved} and ended "
+              f"rc 0 after {took:.1f} s, checkpoints {ckpt.all_steps()}; steps {logged} logged "
+              f"({len(rows)} rows), every value finite; last row {last}; phase "
+              f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    finally:
+        for sup in sups:
+            try:
+                os.killpg(sup.pid, _signal.SIGKILL)  # the supervisor and its children
+            except ProcessLookupError:
+                pass
+            sup.wait()
+        shutil.rmtree(run_dir, ignore_errors=True)  # about 5 GB a checkpoint
+    return paths
+
+
 def f32_launch_shape(kind: str, hq: int, hkv: int, rope: bool) -> dict:
     """The launch shape the library reports for the pipelined f32 forward
     (``kind`` "fwd"), dq ("dq") or dk/dv ("dkv") at hq / hkv heads:
@@ -3748,6 +4095,7 @@ def main() -> int:
         paths.update(phase_data(card))
         paths.update(phase_parity(card))
         paths.update(phase_scan(card))
+        paths.update(phase_supervised_alllarge(card))
         print_f32_table(card, kres, bres, rres, v1res)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

@@ -22,6 +22,7 @@ import torch
 pytest.importorskip("jax")
 
 from chip_smoke import EVAL_SET, EVAL_SET_SHA256, eval_set_sha256  # noqa: E402
+from tests.reference_native import reference_native_lib  # noqa: E402, F401
 from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from tests.util import tiny_config  # noqa: E402
 from titok_tpu.data import chunking as jchunk  # noqa: E402

@@ -12,6 +12,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from tests.reference_native import reference_native_lib  # noqa: E402, F401
 from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from titok_tpu.data import packing as jpack  # noqa: E402
 from titok_tpu.models import rope as jrope  # noqa: E402

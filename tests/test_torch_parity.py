@@ -243,7 +243,7 @@ def test_evaluate_cli_matches_jax_validate(tmp_path, jax_batch0):
         assert r["eval/ssim"] == pytest.approx(jax_batch0[f"ssim_{c}"], abs=SSIM_ATOL)
     with pytest.raises(ValueError, match="convert_orbax_to_torch"):
         evaluate.main([*args[:-4], "--ckpt", fx.ARTIFACT])
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, 'Serving'"):
         evaluate.main([*args, "--quant", "w8a8"])
 
 

@@ -183,7 +183,7 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
                                   "training.main.tp_devices=4", "training.main.fsdp=true",
                                   "training.main.multihost=true"])
 def test_cli_parallel_keys_raise(tmp_path, over):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, 'Parallel modes'"):
         cli.main([f"config={_write_cfg(tmp_path)}", over], device="cpu")
 
 
@@ -191,7 +191,8 @@ def test_cli_parallel_keys_raise(tmp_path, over):
     # ported: the CLI trains at K = 2, two calls of two steps
     pytest.param("training.main.steps_per_call=2", None,
                  id="training.main.steps_per_call=2-steps_per_call"),
-    ("training.eval.log_metrics=[psnr,fvd]", "item 11"),
+    pytest.param("training.eval.log_metrics=[psnr,fvd]", "ROADMAP.md, 'Metrics'",
+                 id="training.eval.log_metrics=[psnr,fvd]-item 11"),
 ])
 def test_unported_trainer_options_raise(tmp_path, over, match):
     if match is None:

@@ -6,7 +6,7 @@ on the host from the eval step's packed reconstruction. Image metrics see
 T as the batch dim; reconstructions are clamped to [-1, 1] first. The
 trainer keeps PSNR and SSIM on the device where it can and passes them as
 ``skip``; this hub takes what is left. The video metrics FVD and JEDi are
-not ported yet (ROADMAP queue 1 item 11).
+not ported yet (ROADMAP.md, 'Metrics').
 """
 
 from __future__ import annotations
@@ -31,8 +31,8 @@ class EvalMetrics:
                 self.metrics[m] = SSIMMetric(data_range=2.0)
             elif m in ("fvd", "jedi"):
                 raise NotImplementedError(
-                    f"eval metric {m!r} is not ported yet (ROADMAP queue 1 item 11, "
-                    "metrics: I3D/FVD and V-JEPA/JEDi)")
+                    f"eval metric {m!r} is not ported yet (ROADMAP.md, 'Metrics': I3D/FVD "
+                    "and V-JEPA/JEDi)")
             else:
                 raise ValueError(f"unknown eval metric {m!r}")
 

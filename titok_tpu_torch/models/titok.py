@@ -132,8 +132,8 @@ def make_titok(config, cp_mesh=None, tp_mesh=None) -> TiTok:
     """Build a TiTok module from a Config (ref ``titok.py:24-45``)."""
     if cp_mesh is not None or tp_mesh is not None:
         raise NotImplementedError(
-            "context and tensor parallelism are not ported yet (ROADMAP queue 1, "
-            "parallel modes)")
+            "context and tensor parallelism are not ported yet (ROADMAP.md, "
+            "'Parallel modes')")
     tm = config.tokenizer.model
     vq = tm.get("vq", {}) or {}
     return TiTok(

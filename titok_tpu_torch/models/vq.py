@@ -101,7 +101,7 @@ class EMAVQ(nn.Module):
         if cp_mesh is not None:
             raise NotImplementedError(
                 "EMA-VQ under context parallelism (vq_nearest_cp) is not ported yet "
-                "(ROADMAP queue 1 item 13, parallel modes)")
+                "(ROADMAP.md, 'Parallel modes')")
         self.codebook_size = int(codebook_size)
         self.codebook_dim = int(dim)
         self.commitment_weight = float(commitment_weight)

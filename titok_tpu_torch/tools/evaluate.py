@@ -115,8 +115,8 @@ def main(argv: list[str], device=None):
     args = ap.parse_args(flags)
     if args.quant:
         raise NotImplementedError(
-            f"--quant {args.quant}: the int8 serving path is not ported yet (ROADMAP queue 1 "
-            "item 9)")
+            f"--quant {args.quant}: the int8 serving path is not ported yet (ROADMAP.md, "
+            "'Serving')")
 
     from titok_tpu_torch.config import config_from_cli
 

@@ -11,8 +11,11 @@ e.g. a data-free run on the synthetic stream:
         dataset.train_dataset=synthetic dataset.eval_dataset=synthetic \\
         tokenizer.losses.allow_random_lpips=true training.main.max_steps=100
 
-It runs on the card; ``main(argv, device="cpu")`` runs the plain path on
-the CPU. The parallel modes (``train_devices``, ``cp_devices`` or
+It runs on the card, with no fallback when none is present; ``--device
+cpu`` (anywhere in the arguments; ``main(argv, device="cpu")`` from
+Python) runs the plain path on the CPU. The supervisor
+``titok_tpu_torch/tools/train_supervised.py`` restarts it after a crash or
+a preemption. The parallel modes (``train_devices``, ``cp_devices`` or
 ``tp_devices`` > 1, ``fsdp``, ``multihost``) are not ported. There is no
 compilation cache to set up: the only cache is the kernel build under
 ``build/torch_kernels/``.
@@ -36,15 +39,30 @@ def validate_parallel_config(config) -> None:
         if int(cm.get(key, 1)) > 1:
             raise NotImplementedError(
                 f"training.main.{key}={cm.get(key)}: the parallel trainers are not ported "
-                "yet (ROADMAP queue 1 item 13)")
+                "yet (ROADMAP.md, 'Parallel modes')")
     for key in ("fsdp", "multihost"):
         if bool(cm.get(key, False)):
             raise NotImplementedError(
-                f"training.main.{key}: the parallel trainers are not ported yet (ROADMAP "
-                "queue 1 item 13)")
+                f"training.main.{key}: the parallel trainers are not ported yet (ROADMAP.md, "
+                "'Parallel modes')")
+
+
+def split_device_flag(argv, device=None):
+    """``(argv without --device X, X)``; ``device`` when no flag is given."""
+    rest = []
+    it = iter(argv)
+    for a in it:
+        if a == "--device":
+            device = next(it, None)
+            if device is None:
+                raise ValueError("--device needs a value, such as cpu or cuda")
+        else:
+            rest.append(a)
+    return rest, device
 
 
 def main(argv, device=None):
+    argv, device = split_device_flag(argv, device)
     config = config_from_cli(argv)
     np.random.seed(int(config.training.main.get("seed", 0)))
     validate_parallel_config(config)

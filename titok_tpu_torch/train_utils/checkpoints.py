@@ -5,9 +5,12 @@ semantics this keeps in torch's own format: no orbax on the card).
 A checkpoint is one directory per step, ``<save_path>/<step>/state.pt``:
 ``torch.save`` of a dict holding ``step``, the generator's and the
 discriminator's state dicts (EMA-VQ's codebook and statistics are buffers
-of the generator, so they travel with it), both optimizers' state dicts
-and the ``noise_gen`` state of the R1/R2 noise and of EMA-VQ's dead-code
-draws, all copied to the host first. It is written under a temporary name
+of the generator, so they travel with it), the optimizer's name
+(``optimizer.name``: ``adamw`` or ``adafactor``; a checkpoint without one
+is AdamW's), both optimizers' state dicts and the ``noise_gen`` state of
+the R1/R2 noise and of EMA-VQ's dead-code draws, all copied to the host
+first. Resuming with another optimizer than the checkpoint's raises before
+anything is loaded. It is written under a temporary name
 and renamed, so a reader never sees half a checkpoint.
 
 - periodic saves as orbax's policy makes them: a step is saved when no
@@ -35,6 +38,8 @@ import shutil
 
 import torch
 
+from titok_tpu_torch.training.adafactor import Adafactor
+
 STATE_FILE = "state.pt"
 
 
@@ -50,12 +55,18 @@ def _host(obj):
     return obj
 
 
+def optimizer_name(opt: torch.optim.Optimizer) -> str:
+    """The ``optimizer.name`` that builds ``opt``."""
+    return "adafactor" if isinstance(opt, Adafactor) else "adamw"
+
+
 def state_payload(state) -> dict:
     """What a checkpoint holds of a ``TrainState``, on the host."""
     return _host({
         "step": int(state.step),
         "gen": state.model.state_dict(),
         "disc": state.disc_model.state_dict() if state.disc_opt is not None else {},
+        "optimizer": optimizer_name(state.gen_opt),
         "gen_opt": state.gen_opt.state_dict(),
         "disc_opt": state.disc_opt.state_dict() if state.disc_opt is not None else None,
         "noise_gen": state.noise_gen.get_state(),
@@ -64,7 +75,15 @@ def state_payload(state) -> dict:
 
 def load_payload(state, payload: dict):
     """Put a checkpoint's contents into ``state`` (in place): weights,
-    buffers, optimizer moments, step and the noise generator's state."""
+    buffers, optimizer moments, step and the noise generator's state.
+    Raises, loading nothing, when the checkpoint's optimizer is not
+    ``state``'s."""
+    saved, running = payload.get("optimizer", "adamw"), optimizer_name(state.gen_opt)
+    if saved != running:
+        raise ValueError(
+            f"the checkpoint at step {payload['step']} holds {saved} state, but this run has "
+            f"optimizer.name={running}: resume with optimizer.name={saved}, or load only its "
+            "weights with general.checkpoints.init_from_checkpoint=<its dir>")
     state.model.load_state_dict(payload["gen"])
     state.gen_opt.load_state_dict(payload["gen_opt"])
     if state.disc_opt is not None:
@@ -174,9 +193,9 @@ class CheckpointManager:
         steps = _steps(self.snapshot_dir)
         return steps[-1] if steps else None
 
-    def restore_newest(self, state):
-        """Resume from whichever is newer: the latest checkpoint or the
-        latest host snapshot."""
+    def newest_payload(self) -> dict:
+        """What :meth:`restore_newest` loads: the newer of the latest
+        checkpoint and the latest host snapshot, read from disk."""
         ckpt_step = self.latest_step()
         snap_step = self.latest_snapshot_step()
         if ckpt_step is None and snap_step is None:
@@ -184,8 +203,14 @@ class CheckpointManager:
         if snap_step is not None and (ckpt_step is None or snap_step > ckpt_step):
             print(f"restored host snapshot at step {snap_step} "
                   f"(newer than checkpoint {ckpt_step})")
-            return load_payload(state, _read_full(os.path.join(self.snapshot_dir, str(snap_step))))
-        return self.restore(state, ckpt_step)
+            return _read_full(os.path.join(self.snapshot_dir, str(snap_step)))
+        return _read_full(os.path.join(self.directory, str(ckpt_step)))
+
+    def restore_newest(self, state, payload: dict | None = None):
+        """Resume from whichever is newer: the latest checkpoint or the
+        latest host snapshot (``payload``: :meth:`newest_payload`, when the
+        caller has read it already)."""
+        return load_payload(state, self.newest_payload() if payload is None else payload)
 
 
 def _merge_by_key(module: torch.nn.Module, src: dict, prefix: str, report: dict) -> None:

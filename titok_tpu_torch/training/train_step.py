@@ -6,16 +6,18 @@ One step: the generator's forward, loss (L1, LPIPS and Gram over the
 perceptual plan's frames, GAN through the discriminator, plus the
 commitment and entropy terms of EMA-VQ) and
 gradient with respect to the generator's parameters only; the non-finite
-guard, global-norm clipping and an AdamW update at the cosine schedule's
-lr; for EMA-VQ the codebook's EMA update from the forward's statistics
-(kept as it was after a non-finite generator step); then the
+guard, global-norm clipping and an update (AdamW or adafactor) at the
+cosine schedule's lr; for EMA-VQ the codebook's EMA update from the
+forward's statistics (kept as it was after a non-finite generator step);
+then the
 discriminator's loss on the detached reconstruction, its gradient, guard,
-clipping and AdamW update at ``lr * disc_lr_ratio``. LPIPS's weights are
+clipping and update at ``lr * disc_lr_ratio``. LPIPS's weights are
 frozen constants of the loss (reference ``train.py:218-220``): no grad, no
 optimizer, no checkpoint.
 
-Optimizers mirror the JAX package's optax chain
-``clip_by_global_norm(max) -> adamw(sched, b1, b2, eps=1e-8, wd)``:
+Optimizers mirror the JAX package's optax chains: ``optimizer.name:
+adamw`` (the default) is ``clip_by_global_norm(max) -> adamw(sched, b1,
+b2, eps=1e-8, wd)``:
 
 - clipping in optax's form, ``g if norm < max else g / norm * max``
   (``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``);
@@ -26,12 +28,16 @@ Optimizers mirror the JAX package's optax chain
 - the non-finite guard zeroes the grads and the optimizer still steps, so
   the moments decay, the count advances and weight decay applies.
 
+``optimizer.name: adafactor`` keeps the clipping and the guard and steps
+:class:`training.adafactor.Adafactor` (factored second moments, block RMS
+clip, bf16 momentum ``optimizer.adafactor_momentum``, decoupled weight
+decay), both generator and discriminator.
+
 ``training.main.remat`` checkpoints every ``Attn`` and ``GEGLU`` call of
 the tokenizer and the discriminator (``models/transformer.py``); the step
 itself does not change. ``training.main.steps_per_call: K`` takes K
 steps a call over K stacked batches (:meth:`TrainStepBuilder.
-make_train_step_scan`). Not ported yet (raises, naming its ROADMAP entry):
-the adafactor optimizer.
+make_train_step_scan`).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from titok_tpu_torch.losses.lpips import lpips_params_for
 from titok_tpu_torch.models.titok import TiTok, init_params, state_tensors
 from titok_tpu_torch.models.vq import init_vq_state, init_vq_state_from_latents
 from titok_tpu_torch.train_utils.lr_schedulers import get_scheduler
+from titok_tpu_torch.training.adafactor import Adafactor
 
 
 @dataclasses.dataclass
@@ -110,16 +117,14 @@ class TrainStepBuilder:
     config: object
 
     def make_optimizers(self):
-        """The schedules of both optimizers; raises for options not ported."""
+        """The schedules of both optimizers; raises for an unknown
+        ``optimizer.name``."""
         opt_c = self.config.optimizer
         cm = self.config.training.main
-        name = str(opt_c.get("name", "adamw")).lower()
-        if name == "adafactor":
-            raise NotImplementedError(
-                "optimizer.name 'adafactor' is not ported yet (ROADMAP queue 1 "
-                "item 6, train-step options)")
-        if name != "adamw":
-            raise ValueError(f"optimizer.name={name!r}: expected 'adamw' or 'adafactor'")
+        self.optimizer_name = str(opt_c.get("name", "adamw")).lower()
+        if self.optimizer_name not in ("adamw", "adafactor"):
+            raise ValueError(f"optimizer.name={self.optimizer_name!r}: expected 'adamw' or "
+                             "'adafactor'")
         lr = float(opt_c.learning_rate)
         elr = float(opt_c.end_lr)
         dlr = float(opt_c.get("disc_lr_ratio", 1.0))
@@ -129,8 +134,13 @@ class TrainStepBuilder:
         self.disc_sched = get_scheduler("cosine", warm, max_steps, lr * dlr, elr * dlr)
         return self.gen_sched, self.disc_sched
 
-    def _adamw(self, params):
+    def _optimizer(self, params) -> torch.optim.Optimizer:
+        """A fresh optimizer of ``optimizer.name`` over ``params`` (its lr is
+        set before each step)."""
         opt_c = self.config.optimizer
+        if self.optimizer_name == "adafactor":
+            return Adafactor(params, momentum=float(opt_c.get("adafactor_momentum", 0.9)),
+                             weight_decay=float(opt_c.weight_decay))
         return torch.optim.AdamW(
             params, lr=0.0, betas=(float(opt_c.beta1), float(opt_c.beta2)), eps=1e-8,
             weight_decay=float(opt_c.weight_decay))
@@ -184,7 +194,7 @@ class TrainStepBuilder:
                 disc_params = ls.init_disc_params(seed + 1)
             ls.disc_model.load_state_dict(state_tensors(disc_params))
             ls.disc_model.to(dev).train()
-            disc_opt = self._adamw(ls.disc_model.parameters())
+            disc_opt = self._optimizer(ls.disc_model.parameters())
         if ls.use_perceptual:
             if lpips_params is None:
                 lpips_params = lpips_params_for(self.config)
@@ -193,7 +203,7 @@ class TrainStepBuilder:
         noise_gen = torch.Generator(device=dev)
         noise_gen.manual_seed(seed)
         return TrainState(step=0, model=self.model, disc_model=ls.disc_model,
-                          gen_opt=self._adamw(self.model.parameters()), disc_opt=disc_opt,
+                          gen_opt=self._optimizer(self.model.parameters()), disc_opt=disc_opt,
                           noise_gen=noise_gen)
 
     def make_train_step(self) -> Callable:

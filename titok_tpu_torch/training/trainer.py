@@ -7,8 +7,8 @@ the modules in place, and the loop logs scalars, runs the periodic eval
 with PSNR/SSIM summed on the device, and saves checkpoints. With
 ``training.main.steps_per_call: K`` it takes K steps a call over K batches
 stacked in one transfer (:meth:`Trainer._fit_scan`, the JAX package's
-scan loop). The JAX package's parallel trainers are not ported (ROADMAP
-queue 1 item 13).
+scan loop). The JAX package's parallel trainers are not ported (ROADMAP.md,
+'Parallel modes').
 """
 
 from __future__ import annotations
@@ -133,8 +133,11 @@ class Trainer:
     def __init__(self, config, batches_fn=None, device=None):
         self.config = config
         self.device = resolve_device(device)
-        self.model = make_titok(config)
-        self.loss_system = LossSystem(config)
+        # built where they run: their default init, which init_state
+        # overwrites, is then no host work (tens of seconds at large width)
+        with torch.device(self.device):
+            self.model = make_titok(config)
+            self.loss_system = LossSystem(config)
         self.builder = TrainStepBuilder(self.model, self.loss_system, config)
         self.patch_size = list(config.tokenizer.model.patch_size)
 
@@ -183,18 +186,28 @@ class Trainer:
 
     def _init_state(self, seed: int):
         """Fresh train state (seeded init; EMA-VQ draws its codebook from one
-        probe batch), then resume or init from a checkpoint."""
+        probe batch), then resume or init from a checkpoint. On resume the
+        checkpoint's weights take the seeded init's place, which is skipped:
+        it would be overwritten, and at large width it is most of a
+        relaunch's start-up."""
         probe = None
         if self.model.quantizer == "vq":
             batch = next(iter(self.batches_fn(self.config, eval=False, seed=seed)))
             probe = to_device(batch, self.device)
+        ckpt_conf = self.config.general.checkpoints
+        payload, params = None, {}
+        if ckpt_conf.get("resume_from_checkpoint", None) and \
+                not ckpt_conf.get("init_from_checkpoint", None):
+            payload = self.ckpt.newest_payload()
+            params = {"gen_params": payload["gen"], "disc_params": payload["disc"] or None}
         state = self.builder.init_state(seed=seed, device=self.device, batch=probe,
-                                        lpips_params=self.lpips_params)
-        return self._maybe_restore(state)
+                                        lpips_params=self.lpips_params, **params)
+        return self._maybe_restore(state, payload)
 
-    def _maybe_restore(self, state):
+    def _maybe_restore(self, state, payload: dict | None = None):
         """Apply resume_from_checkpoint / init_from_checkpoint (mutually
-        exclusive, reference train.py:239-241,265-267,285)."""
+        exclusive, reference train.py:239-241,265-267,285); ``payload``: the
+        checkpoint to resume from, when already read."""
         ckpt_conf = self.config.general.checkpoints
         resume = ckpt_conf.get("resume_from_checkpoint", None)
         init = ckpt_conf.get("init_from_checkpoint", None)
@@ -202,7 +215,7 @@ class Trainer:
             raise ValueError("Only one of resume_from_checkpoint and init_from_checkpoint "
                              "should be specified.")
         if resume:
-            state = self.ckpt.restore_newest(state)
+            state = self.ckpt.restore_newest(state, payload)
             print(f"resumed from step {int(state.step)}", flush=True)
         elif init:
             state = restore_weights_only(init, state)
