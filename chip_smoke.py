@@ -145,14 +145,39 @@ toolkit. Phases, in order; any failure exits non-zero:
    within 0.01 dB and SSIM within 1e-3 of JAX's, the ``token_sweep.jsonl``
    rows; the plain path (dense attention) likewise; bf16-mixed through
    the bf16 kernel against f32; ms an eval batch in f32 and bf16;
-16. ``training.main.steps_per_call`` on seeded uint8 clips: at precision
+16. the serving tools on the trained tiny checkpoint and base_vq: r4's
+   int8 serving path (``serving/quant.py``, w8a16 and w8a8) scored on the
+   committed clips at 1, 16 and 128 tokens through the evaluate CLI's
+   ``quantize_eval`` and ``token_sweep`` (through the f32 attention kernel):
+   the mean over the 30 encoded clips of each clip's share of f32's
+   indices >= 0.98, the int8 decoder's PSNR against f32's on the f32
+   indices > 40 dB, >= 99 % of JAX's committed int8 indices at each count,
+   PSNR within 0.01 dB and SSIM within 1e-3 of JAX's int8 scores; ms an
+   eval batch in f32, bf16, w8a16 and w8a8; then r4 in f32 and w8a8 and
+   base_vq in f32 (seeded) exported with ``torch.export`` on the card
+   (``tools/export_model.py``; the kernels are custom ops) and loaded with
+   ``load_exported`` in one fresh process that must import no
+   ``titok_tpu_torch.models`` module: indices bit for bit the live
+   module's, reconstructions within 1e-5, every kernel launched as often
+   as in the live call (the VQ kernel's counter too), the artifacts'
+   sizes; then r4's f32 artifact behind ``tools/serve.py``'s server on
+   127.0.0.1 at batch windows 0 and 20 ms: served indices equal to
+   ``TiTokModel.encode``'s, ``/forward`` and ``/decode``, 4 concurrent
+   requests in fewer device calls with the single-request indices, and
+   ``tools/serve_bench.py`` (forward, 8 clients, 64 requests of 8x128x128
+   uint8 clips at 64 tokens) at each window, more than one clip a call at
+   20 ms; three planted faults that must be rejected: every int8 scale 1 %
+   off (the int8 gates), the attention op's CUDA implementation replaced
+   by its plain version in the loading process (the launch gate), and
+   ``proj_out``'s int8 weight left unpadded (``torch._int_mm`` must raise);
+17. ``training.main.steps_per_call`` on seeded uint8 clips: at precision
    32 with LPIPS off, K = 3 with a tail of 1 against K = 1 (losses, grad
    norms and params bit for bit); then the r4 config as shipped (K = 8,
    bf16-mixed, LPIPS on with random VGG weights, the uint8 wire) for 16
    steps with an eval and a checkpoint at 16, against K = 1: launches a
    call (16 of each of rows 1-2 a step), one H2D transfer a call, finite
    losses, tokens/s and peak device memory;
-17. the repo's all-large adafactor recipe (``docs/runs/r3f_alllarge_adafactor``:
+18. the repo's all-large adafactor recipe (``docs/runs/r3f_alllarge_adafactor``:
    ``configs/tiny.yaml`` with large encoder, decoder and discriminator,
    ``optimizer.name=adafactor``, remat, the uint8 wire, synthetic data,
    LPIPS off) at full width: in this process 3 steps under AdamW and under
@@ -166,21 +191,26 @@ toolkit. Phases, in order; any failure exits non-zero:
    supervisor exits 143 without a relaunch), and a new supervisor over
    the same directory (it resumes on its first launch and ends rc 0 at
    step 8, every logged value finite);
-18. the f32 rows of the kernel table: each f32 entry of rows 1-4 and the
+19. the f32 rows of the kernel table: each f32 entry of rows 1-4 and the
    v1 f32 dq, its time, bound and share of bound at the shapes timed
    above, with the launch shape the library reports (threads, registers,
    dynamic shared memory, CTAs an SM) for the pipelined forward, dq and
    dk/dv;
-19. one JSON line listing every kernel with its numbers; ``launches`` is
+20. one JSON line listing every kernel with its numbers; ``launches`` is
    the kernel's count on the training path of its dtype (the VQ kernel's:
    the base_vq training path; the rope kernels': the large training path,
    f32 its remat run; the v1 kernels': the trainer's fit, f32 the straight
    f32 run), and ``launches_by_path`` its count on each path, each read
    from counters set to 0 just before that path (the data phase's fits
    too: ``train_data_bf16``, ``train_data_uint8``; the parity sweeps,
-   ``eval_r4_f32``, ``eval_r4_bf16``; the K = 8 fit, ``train_r4_k8``; the
-   all-large adafactor steps, ``train_alllarge``);
-20. last line: ``{"ok": true, "device": {...}}``.
+   ``eval_r4_f32``, ``eval_r4_bf16``; the int8 sweeps, ``eval_r4_w8a16``,
+   ``eval_r4_w8a8``; the exported programs in the loading process,
+   ``exported_r4_f32``, ``exported_r4_w8a8``, ``exported_base_vq_f32``;
+   the two bench runs, ``http_bench_r4``; the K = 8 fit, ``train_r4_k8``;
+   the all-large adafactor steps, ``train_alllarge``);
+21. last line: ``{"ok": true, "device": {...}}``.
+
+Each phase prints its seconds and the script's so far.
 
 Without a card, or outside a checkout, it exits non-zero and prints no
 result. It imports nothing of JAX or of the JAX package.
@@ -3332,13 +3362,16 @@ def phase_data(card: str) -> dict:
 # the trained checkpoint's parity fixtures (tests/torch_parity_fixtures.py
 # writes them on a machine with JAX, orbax and libav; the card machine has
 # none of the three): the converted generator, the first eval clips of
-# docs/eval_set/00000.tar as uint8 THWC chunks, and JAX's f32 results
+# docs/eval_set/00000.tar as uint8 THWC chunks, and JAX's f32, w8a16 and
+# w8a8 results
 R4 = os.path.join(REPO, "docs", "runs", "r4_tiny_lpips", "config.yaml")
 PARITY_DIR = os.path.join(REPO, "docs", "artifacts", "r4_tiny_lpips_5000_torch")
 PARITY_SHA256 = {
     "5000/state.pt": "f10ffa31504c398573974bb1105d29cf3a3095165ec1a84ab37fa55950d30006",
     "eval_clips.npz": "d795b3521b3ee8122d8a90fdca20d6a15f8fd6e18760cd89db700b382b9ea4c9",
     "jax_f32.npz": "d60e63a8203bf9b69dd3bc4562156ca7c1c25381ddca8bc15e91760a0f4f28b3",
+    "jax_w8a16.npz": "50b11f7a7a047112345ff6b66039d63c042309efc21d3143b5b160660c4a9924",
+    "jax_w8a8.npz": "713af50a4c77ddd1fbb8aa51ef5fa6e491b8eb3d79c4c3baa7a2abb6126be23e",
 }
 PARITY_STEP = 5000
 PARITY_COUNTS = (1, 16, 128)
@@ -3393,10 +3426,13 @@ def clip_batches(clips: list):
     return batches_fn
 
 
-def _r4_scorer(clips: list, run: str, **over):
+def _r4_scorer(clips: list, run: str, quant: str | None = None, **over):
     """A ``Trainer`` of the r4 config over ``clips`` with the committed
-    weights, its eval step wrapped to keep each batch's outputs."""
+    weights, its eval step (with ``quant``, the int8 generator's, as the
+    evaluate CLI's ``quantize_eval`` sets it) wrapped to keep each batch's
+    outputs."""
     from titok_tpu_torch.config import load_config
+    from titok_tpu_torch.tools.evaluate import quantize_eval
     from titok_tpu_torch.train_utils.checkpoints import restore_weights_only
     from titok_tpu_torch.training.trainer import Trainer
 
@@ -3407,15 +3443,23 @@ def _r4_scorer(clips: list, run: str, **over):
                                  trainer.builder.init_state(), verbose=False, report=report)
     check(report["loaded"] == 76 and not report["missing"] and not report["mismatched"],
           f"the committed weights loaded as {report}")
-    step, seen = trainer.builder.make_eval_metrics_step(trainer.device_im), []
+    quantize_eval(trainer, state, quant)
+    step = trainer._eval_step or trainer.builder.make_eval_metrics_step(trainer.device_im)
+    return trainer, state, _keep_outputs(trainer, step)
+
+
+def _keep_outputs(trainer, step) -> list:
+    """Make ``step`` ``trainer``'s eval step, wrapped to keep each batch's
+    ``(token count, batch, outputs)`` in the list it returns."""
+    seen = []
 
     def eval_step(batch, plan=None):
         out = step(batch, plan)
-        seen.append((int(cfg.training.sampling.token_range[0]), batch, out))
+        seen.append((int(trainer.config.training.sampling.token_range[0]), batch, out))
         return out
 
     trainer._eval_step = eval_step
-    return trainer, state, seen
+    return seen
 
 
 def _indices_of(seen, count: int, n_clips: int) -> np.ndarray:
@@ -3465,8 +3509,8 @@ def phase_parity(card: str) -> dict:
         check(os.path.exists(path), f"parity fixture {rel} is missing")
         got = _sha256(path)
         check(got == want, f"parity fixture {rel}: sha256 {got}, want {want}")
-    print(f"parity: the three fixtures under {os.path.relpath(PARITY_DIR, REPO)} match their "
-          "sha256 pins")
+    print(f"parity: the {len(PARITY_SHA256)} fixtures under {os.path.relpath(PARITY_DIR, REPO)} "
+          "match their sha256 pins")
     with np.load(os.path.join(PARITY_DIR, "eval_clips.npz")) as f:
         clips = [{"video": f[f"clip_{i}"], "fps": int(fps)} for i, fps in enumerate(f["fps"])]
     with np.load(os.path.join(PARITY_DIR, "jax_f32.npz")) as f:
@@ -3997,6 +4041,475 @@ def phase_supervised_alllarge(card: str) -> dict:
     return paths
 
 
+# the serving tools (phase_serving_tools): the exported artifacts go here
+# (git-ignored, removed at the end of the phase)
+SERVE_DIR = os.path.join(RUN_DIR, "serving")
+QUANT_MODES = ("w8a16", "w8a8")
+# int8 against the port's own f32, at tests/test_quant.py's thresholds: the
+# mean over the encoded clips (10 clips at each of 1, 16, 128 tokens) of each
+# clip's share of indices equal to f32's, and the PSNR (peak 1 on [-1, 1]) of
+# the int8 decoder against the f32 decoder on the f32 indices. At 128 tokens
+# alone the share is 97.7-97.8 % on the CPU, as JAX's own int8 against its
+# f32 (the committed fixtures); the mean over the sweep is 99.1-99.2 %
+QUANT_F32_SHARE = 0.98
+QUANT_DECODE_PSNR_DB = 40.0
+# int8 against JAX's committed int8 results: indices identical on >= 99 % of
+# each count's tokens (measured on the CPU, tests/test_torch_parity.py:
+# 99.77 % at 128 tokens in w8a16, 100 % elsewhere); PSNR within
+# PARITY_PSNR_DB and SSIM within PARITY_SSIM of JAX's
+QUANT_JAX_SHARE = 0.99
+# an exported program against the live module: indices bit for bit, recon
+# within this (f32)
+EXPORT_ATOL = 1e-5
+# a fresh process that loads exported programs with load_exported, calls
+# them on saved batches, and reports their outputs and launches; it prints
+# the titok_tpu_torch.models modules it imported (none is allowed). A case
+# with "plain_on_cuda" (the planted fault; it runs last) first registers
+# the plain version as the attention op's CUDA implementation.
+EXPORTED_CHILD = """
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from titok_tpu_torch.ops import flash_attention_mh as fa
+from titok_tpu_torch.ops import vq_distance as vd
+from titok_tpu_torch.tools.export_model import load_exported
+
+def counts():
+    return {**fa.launches, "vq_f32": vd.launches["f32"]}
+
+def delta(before):
+    return {k: v - before[k] for k, v in counts().items()}
+
+with open(sys.argv[2]) as f:
+    cases = json.load(f)
+for case in cases:
+    if case["plain_on_cuda"]:
+        @fa.segment_attn_fwd.register_kernel("cuda")
+        def _(q, k, v, seg, kseg, scale):
+            return fa.flash_segment_attention_mh_reference(q, k, v, seg, scale, kseg)
+    t0 = time.perf_counter()
+    fwd, dec, meta = load_exported(case["art"])
+    load_s = time.perf_counter() - t0
+    batch = {k: v.to(meta["device"]) for k, v in torch.load(case["batch"]).items()}
+    with torch.no_grad():
+        before = counts()
+        recon, idx = fwd(batch)
+        torch.cuda.synchronize()
+        fwd_counts = delta(before)
+        before = counts()
+        rec2 = dec(idx, batch)
+        torch.cuda.synchronize()
+        dec_counts = delta(before)
+    torch.save({"recon": recon.cpu(), "indices": idx.cpu(), "decoded": rec2.cpu(),
+                "load_s": load_s, "forward_launches": fwd_counts,
+                "decode_launches": dec_counts}, case["out"])
+print(json.dumps(sorted(m for m in sys.modules if m.startswith("titok_tpu_torch.models"))))
+"""
+
+
+def _sweep(trainer, state, seen: list, n_clips: int, run: str, quant: str | None) -> dict:
+    """The evaluate CLI's ``token_sweep`` of r4 at 1, 16, 128 tokens through
+    the trainer's eval step, whose outputs ``seen`` keeps: ``{"rows":
+    {count: row}, "ix": {count: [clips, count]}, "seen"}``."""
+    from titok_tpu_torch.tools.evaluate import token_sweep
+
+    seen.clear()
+    rows = token_sweep(trainer, state, PARITY_STEP, PARITY_COUNTS,
+                       os.path.join(RUN_DIR, run, "token_sweep.jsonl"), quant)
+    return {"rows": {r["token_count"]: r for r in rows}, "seen": list(seen),
+            "ix": {c: _indices_of(seen, c, n_clips) for c in PARITY_COUNTS}}
+
+
+def _decode_psnr(f32_module, module, seen: list) -> float:
+    """The smallest PSNR (peak 1) over the eval batches of ``module``'s
+    decoder against ``f32_module``'s on the f32 sweep's indices, at the
+    patch rows (tests/test_quant.py's check)."""
+    import torch
+
+    worst = float("inf")
+    with torch.no_grad():
+        for _, batch, (_, indices, _) in seen:
+            rows = (batch["segment_ids"] > 0) & ~batch["token_mask"]
+            a = f32_module.decode_indices_packed(indices, batch)[rows].float()
+            b = module.decode_indices_packed(indices, batch)[rows].float()
+            mse = float(((a - b) ** 2).mean())
+            worst = min(worst, 10 * np.log10(1.0 / max(mse, 1e-20)))
+    return worst
+
+
+def _quant_gate(mode: str, f32: dict, q: dict, jax: dict, decode_psnr: float) -> list[str]:
+    """The int8 gates of one sweep ``q`` against the f32 sweep and JAX's
+    committed int8 results; returns what fails (nothing when it passes)."""
+    bad = []
+    per_clip = [float(np.mean(a == b)) for c in PARITY_COUNTS
+                for a, b in zip(q["ix"][c], f32["ix"][c])]
+    if np.mean(per_clip) < QUANT_F32_SHARE:
+        bad.append(f"{mode}: indices equal to f32's on {np.mean(per_clip) * 100:.3f} % "
+                   f"(mean over the clips), want >= {QUANT_F32_SHARE * 100:g} %")
+    if not decode_psnr > QUANT_DECODE_PSNR_DB:
+        bad.append(f"{mode}: decoder PSNR against f32 {decode_psnr:.2f} dB, want > "
+                   f"{QUANT_DECODE_PSNR_DB:g}")
+    for c in PARITY_COUNTS:
+        share = float((q["ix"][c] == jax[f"indices_{c}"]).mean())
+        if share < QUANT_JAX_SHARE:
+            bad.append(f"{mode} at {c} tokens: indices equal to JAX's int8 on {share * 100:.3f} %"
+                       f", want >= {QUANT_JAX_SHARE * 100:g} %")
+        r = q["rows"][c]
+        dp, ds = r["eval/psnr"] - float(jax[f"psnr_{c}"]), r["eval/ssim"] - float(jax[f"ssim_{c}"])
+        if not (abs(dp) <= PARITY_PSNR_DB and abs(ds) <= PARITY_SSIM):
+            bad.append(f"{mode} at {c} tokens: psnr {dp:+.2e} dB, ssim {ds:+.2e} from JAX's int8")
+    return bad
+
+
+def _eval_batch_ms(trainer, step) -> float:
+    """ms an eval batch of r4 at 128 tokens through ``step`` (CUDA events
+    over 5 passes; model plus the PSNR/SSIM sums)."""
+    from titok_tpu_torch.data.packing import to_device
+    from titok_tpu_torch.ops.frames import build_eval_frame_plan
+
+    trainer.config.set_dotted("training.sampling.token_range", [128, 128])
+    batches = list(trainer.batches_fn(trainer.config, eval=True, seed=0))
+    dev = [(to_device(b, "cuda"), to_device(build_eval_frame_plan(
+        b, num_frames=trainer._eval_kmax, patch_size=trainer.patch_size,
+        max_grid_hw=trainer.max_grid[1:]), "cuda")) for b in batches]
+    return cuda_ms(lambda: [step(b, p) for b, p in dev], reps=5) / len(dev)
+
+
+def _serving_quant(card: str, clips: list) -> dict:
+    """r4's int8 serving path through the evaluate CLI's functions: scores,
+    the gates, the planted scale fault, ms an eval batch by mode."""
+    import copy
+
+    import torch
+
+    from titok_tpu_torch.serving.quant import Int8Dense, quantize_module
+    from titok_tpu_torch.tools.evaluate import quantize_eval
+
+    paths, sweeps, ms = {}, {}, {}
+    f32, state, seen = _r4_scorer(clips, "serve_f32")
+    sweeps["f32"] = _sweep(f32, state, seen, len(clips), "serve_f32", None)
+    for mode in QUANT_MODES:
+        tr, st, sn = _r4_scorer(clips, f"serve_{mode}", quant=mode)
+        reset_counts()  # this path: the int8 sweep
+        sweeps[mode] = _sweep(tr, st, sn, len(clips), f"serve_{mode}", mode)
+        paths[f"eval_r4_{mode}"] = read_counts()
+        n_batches = len(sweeps[mode]["seen"])
+        want = {**{k: 0 for k in paths[f"eval_r4_{mode}"]}, "f32": 8 * n_batches}
+        check(paths[f"eval_r4_{mode}"] == want,
+              f"{mode} sweep launches {paths[f'eval_r4_{mode}']}, want {want}")
+        with np.load(os.path.join(PARITY_DIR, f"jax_{mode}.npz")) as f:
+            jax = dict(f)
+        psnr = _decode_psnr(state.model, quantize_module(state.model, mode).eval(),
+                            sweeps["f32"]["seen"])
+        bad = _quant_gate(mode, sweeps["f32"], sweeps[mode], jax, psnr)
+        check(not bad, "; ".join(bad))
+        for c in PARITY_COUNTS:
+            r, ix = sweeps[mode]["rows"][c], sweeps[mode]["ix"][c]
+            print(f"serving int8 {mode} at {c:3d} tokens: indices equal to f32's "
+                  f"{float((ix == sweeps['f32']['ix'][c]).mean()) * 100:.3f} %, to JAX's int8 "
+                  f"{float((ix == jax[f'indices_{c}']).mean()) * 100:.3f} %; "
+                  f"psnr {r['eval/psnr']:.6f} dB (JAX int8 {float(jax[f'psnr_{c}']):.6f}, f32 "
+                  f"{sweeps['f32']['rows'][c]['eval/psnr']:.6f}), ssim {r['eval/ssim']:.6f} (JAX "
+                  f"int8 {float(jax[f'ssim_{c}']):.6f})")
+        per_clip = np.mean([np.mean(a == b) for c in PARITY_COUNTS
+                            for a, b in zip(sweeps[mode]["ix"][c], sweeps["f32"]["ix"][c])])
+        print(f"serving int8 {mode}: {n_batches} eval batches, {paths[f'eval_r4_{mode}']['f32']} "
+              f"row 1 f32 launches; indices equal to f32's {per_clip * 100:.3f} % (mean over "
+              f"the 30 encoded clips); decoder PSNR against f32 {psnr:.2f} dB (smallest batch)")
+        quantize_eval(tr, st, mode)  # the int8 step unwrapped, to time it
+        ms[mode] = _eval_batch_ms(tr, tr._eval_step)
+        if mode == "w8a8":  # the planted fault: every int8 scale 1 % off
+            faulty = quantize_module(state.model, mode).eval()
+            for m in faulty.modules():
+                if isinstance(m, Int8Dense):
+                    m.s.mul_(1.01)
+            builder = copy.copy(tr.builder)
+            builder.model = faulty
+            sn = _keep_outputs(tr, builder.make_eval_metrics_step(tr.device_im))
+            sweep = _sweep(tr, st, sn, len(clips), "serve_fault", mode)
+            bad = _quant_gate(mode, sweeps["f32"], sweep, jax,
+                              _decode_psnr(state.model, faulty, sweeps["f32"]["seen"]))
+            check(bool(bad), "planted fault (every int8 scale 1 % off) passed the int8 gates")
+            print(f"planted fault (every int8 scale 1 % off) rejected: {bad[0]}")
+        del tr, st
+    bf16, bstate, _ = _r4_scorer(clips, "serve_bf16", **{"training.main.precision": "bf16-mixed"})
+    ms["f32"] = _eval_batch_ms(f32, f32.builder.make_eval_metrics_step(f32.device_im))
+    ms["bf16"] = _eval_batch_ms(bf16, bf16.builder.make_eval_metrics_step(bf16.device_im))
+    print(f"serving: ms an eval batch of 4096 rows at 128 tokens [{card}]: " + ", ".join(
+        f"{k} {ms[k]:.3f}" for k in ("f32", "bf16", "w8a16", "w8a8")) + " (CUDA events over 5 "
+        "passes; model, PSNR and SSIM sums; the int8 modes at precision 32)")
+    del f32, bf16, state, bstate
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _r4_model():
+    """The r4 config at precision 32 as a ``TiTokModel`` on the card with the
+    committed weights (the tokenize CLI's ``load_model``)."""
+    from titok_tpu_torch.tools.tokenize import load_model
+
+    return load_model(R4, os.path.join(PARITY_DIR, str(PARITY_STEP)),
+                      ["training.main.precision=32"], device="cuda")[1]
+
+
+def _base_vq_model():
+    """base_vq at precision 32 with seeded weights (dense kernels at 4x the
+    reference init, as its serving phase) and codebook, on the card."""
+    from titok_tpu_torch.config import load_config
+    from titok_tpu_torch.models.titok import TiTokModel, init_params, make_titok
+
+    cfg = load_config(os.path.join(REPO, "configs", "base_vq.yaml"),
+                      ["training.main.precision=32"])
+    module = make_titok(cfg)
+    params = init_params(module, seed=0)
+    for name, w in params.items():
+        if w.ndim == 2 and not name.endswith("mask_token"):
+            params[name] = w * np.float32(4.0)
+    return TiTokModel(module, params=params, seq_len=int(cfg.training.sampling.eval_seq_len),
+                      min_grid=cfg.training.sampling.min_grid, device="cuda", seed=0)
+
+
+def _live_call(module, batch: dict) -> tuple[dict, dict, dict]:
+    """``module``'s forward and decode of its indices on ``batch`` (CPU
+    tensors) on the card (host copies), and each call's launches."""
+    import torch
+
+    dev = {k: v.to("cuda") for k, v in batch.items()}
+    with torch.no_grad():
+        reset_counts()
+        recon, aux = module(dev)
+        torch.cuda.synchronize()
+        fwd = read_counts()
+        reset_counts()
+        decoded = module.decode_indices_packed(aux["indices"], dev)
+        torch.cuda.synchronize()
+        dec = read_counts()
+    return ({"recon": recon.cpu(), "indices": aux["indices"].cpu(), "decoded": decoded.cpu()},
+            fwd, dec)
+
+
+def _exported_gate(name: str, got: dict, live: dict, fwd: dict, dec: dict) -> list[str]:
+    """An exported program's outputs and launches in the loading process
+    against the live module's: indices bit for bit, the forward's and the
+    decode's reconstructions within ``EXPORT_ATOL``, and every kernel
+    launched as often as the live call launches it (``fwd``, ``dec``; the
+    attention forward at least once). Returns what fails."""
+    bad = []
+    if not bool((got["indices"] == live["indices"]).all()):
+        bad.append(f"{name}: indices differ from the live module's at "
+                   f"{int((got['indices'] != live['indices']).sum())} slots")
+    for key in ("recon", "decoded"):
+        diff = float((got[key].float() - live[key].float()).abs().max())
+        if not diff <= EXPORT_ATOL:
+            bad.append(f"{name}: {key} max|diff| {diff:.3e} from the live module's")
+    for call, want, have in (("forward", fwd, got["forward_launches"]),
+                             ("decode", dec, got["decode_launches"])):
+        launched = {k: v for k, v in have.items() if v}
+        if launched != {k: v for k, v in want.items() if v} or not have["f32"]:
+            bad.append(f"{name}: the exported {call} launched {launched}, the live call "
+                       f"{ {k: v for k, v in want.items() if v} }")
+    return bad
+
+
+def _serving_export(card: str, r4, base_vq, clips: list) -> dict:
+    """r4 exported in f32 and w8a8 and base_vq in f32 on the card, loaded in
+    a fresh process without the models; the planted plain-on-cuda fault.
+    Returns the paths' launches."""
+    import shutil
+
+    import torch
+
+    from titok_tpu_torch.serving.quant import quantize_module
+    from titok_tpu_torch.tools.export_model import PROGRAMS, export_model
+
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    os.makedirs(SERVE_DIR)
+    r4_batch = r4._pack([c["video"] for c in clips[:3]], [128, 16, 1]).device_arrays()
+    base_clips, base_tc = _base_vq_clips(np.random.default_rng(0))
+    group = base_vq._groups(base_clips, base_tc)[0]
+    base_batch = base_vq._pack([base_clips[i] for i in group],
+                               [base_tc[i] for i in group]).device_arrays()
+    cases, live = [], {}
+    # r4 in f32 and w8a8; base_vq in f32 (its w8a8 export holds the same
+    # gates and is left out to keep the phase short)
+    for model, name, batch, quant in ((r4, "r4_f32", r4_batch, None),
+                                      (r4, "r4_w8a8", r4_batch, "w8a8"),
+                                      (base_vq, "base_vq_f32", base_batch, None)):
+        art = os.path.join(SERVE_DIR, name)
+        t0 = time.perf_counter()
+        export_model(model.module, model._dummy_batch(), art, quant=quant)
+        took = time.perf_counter() - t0
+        sizes = {n: os.path.getsize(os.path.join(art, n)) for n in PROGRAMS}
+        module = quantize_module(model.module, quant).eval() if quant else model.module
+        tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+        live[name] = _live_call(module, tensors)
+        torch.save(tensors, os.path.join(SERVE_DIR, f"{name}_batch.pt"))
+        cases.append({"name": name, "art": art, "plain_on_cuda": False,
+                      "batch": os.path.join(SERVE_DIR, f"{name}_batch.pt"),
+                      "out": os.path.join(SERVE_DIR, f"{name}_out.pt")})
+        print(f"export {name}: traced and saved in {took:.1f} s; " + ", ".join(
+            f"{n} {s / 2**20:.1f} MiB" for n, s in sizes.items()), flush=True)
+    # the planted fault, last: r4's f32 forward with the attention op's CUDA
+    # implementation the plain version
+    cases.append({**cases[0], "name": "r4_f32 plain_on_cuda",
+                  "out": os.path.join(SERVE_DIR, "fault_out.pt"), "plain_on_cuda": True})
+    with open(os.path.join(SERVE_DIR, "cases.json"), "w") as f:
+        json.dump(cases, f)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", EXPORTED_CHILD, REPO,
+                          os.path.join(SERVE_DIR, "cases.json")], cwd=REPO,
+                         capture_output=True, text=True, timeout=900)
+    check(res.returncode == 0, f"the loading process failed:\n{res.stderr[-4000:]}")
+    imported = json.loads(res.stdout.strip().splitlines()[-1])
+    check(imported == [], f"the loading process imported {imported}")
+    print(f"exported programs: {len(cases)} cases loaded with load_exported and called in one "
+          f"fresh process ({time.perf_counter() - t0:.1f} s), which imported no "
+          "titok_tpu_torch.models module")
+    paths = {}
+    for case in cases:
+        got = torch.load(case["out"])
+        name = case["name"].split()[0]
+        bad = _exported_gate(case["name"], got, *live[name])
+        if case["plain_on_cuda"]:
+            check(any("launched" in b for b in bad),
+                  f"planted fault (the op's CUDA implementation the plain version) passed the "
+                  f"exported gate: {bad}")
+            print(f"planted fault (exported forward, plain version on cuda) rejected: "
+                  f"{[b for b in bad if 'launched' in b][0]}")
+            continue
+        check(not bad, "; ".join(bad))
+        paths[f"exported_{name}"] = {k: got["forward_launches"][k] + got["decode_launches"][k]
+                                     for k in got["forward_launches"]}
+        diff = float((got["recon"].float() - live[name][0]["recon"].float()).abs().max())
+        print(f"exported {name}: loaded in {got['load_s']:.1f} s; indices equal to the live "
+              f"module's bit for bit, recon max|diff| {diff:.3e}; launches forward "
+              f"{ {k: v for k, v in got['forward_launches'].items() if v} }, decode "
+              f"{ {k: v for k, v in got['decode_launches'].items() if v} }")
+    return paths
+
+
+def _serving_http(card: str, r4, clips: list) -> dict:
+    """r4's f32 artifact behind ``make_server`` at windows 0 and 20 ms: the
+    served indices against ``TiTokModel.encode``, batched against single,
+    ``/forward`` and ``/decode``, and ``serve_bench``."""
+    import io
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from titok_tpu_torch.tools.serve import make_server
+    from titok_tpu_torch.tools.serve_bench import run_bench
+
+    art = os.path.join(SERVE_DIR, "r4_f32")
+    vids, tcs = [c["video"] for c in clips[:4]], [1, 16, 64, 128]
+
+    def post(url, **arrays):
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        with urllib.request.urlopen(url, buf.getvalue(), timeout=300) as r:
+            return dict(np.load(io.BytesIO(r.read())))
+
+    servers = []
+    try:
+        for window in (0.0, 20.0):
+            server = make_server(art, port=0, window_ms=window)
+            servers.append(server)
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+        single, batched = (f"http://127.0.0.1:{s.server_address[1]}" for s in servers)
+        want = r4.encode(vids, tcs)
+        got = [post(single + "/encode", video=v, tokens=t)["indices"] for v, t in zip(vids, tcs)]
+        for i, (a, b) in enumerate(zip(got, want)):
+            check(np.array_equal(a, b), f"served indices of clip {i} differ from "
+                  "TiTokModel.encode's")
+        fwd = post(single + "/forward", video=vids[3], tokens=128)
+        check(np.array_equal(fwd["indices"], want[3]), "/forward indices differ from encode's")
+        dec = post(single + "/decode", indices=want[3], grid=np.asarray(fwd["video"].shape[1:]))
+        ref = r4.decode_indices([want[3]], [fwd["video"].shape[1:]])[0]
+        diff = float(np.abs(dec["video"] - ref).max())
+        check(diff <= EXPORT_ATOL, f"/decode max|diff| {diff:.3e} from decode_indices")
+        post(batched + "/encode", video=vids[0], tokens=1)  # first call out of the count
+        calls0 = servers[1].service.device_calls
+        gate = threading.Barrier(len(vids))
+
+        def one(i):
+            gate.wait()
+            return post(batched + "/encode", video=vids[i], tokens=tcs[i])["indices"]
+
+        with ThreadPoolExecutor(len(vids)) as ex:
+            out = list(ex.map(one, range(len(vids))))
+        calls = servers[1].service.device_calls - calls0
+        check(all(np.array_equal(a, b) for a, b in zip(out, got)),
+              "batched serving differs from single serving")
+        check(calls < len(vids), f"no batching at 20 ms: {calls} device calls for {len(vids)} "
+              "concurrent requests")
+        print(f"http: r4 f32 artifact on 127.0.0.1; /encode of 4 committed clips (1, 16, 64, "
+              f"128 tokens) equal to TiTokModel.encode's; /forward's indices equal, /decode "
+              f"max|diff| {diff:.3e}; 4 concurrent requests at 20 ms: {calls} device call(s), "
+              "the single-request indices")
+    finally:
+        for server in servers:
+            server.shutdown()
+            server.server_close()
+            server.service.close()
+    reset_counts()  # this path: the two bench runs
+    for window in (0.0, 20.0):
+        res = run_bench(art, op="forward", clients=8, requests=64, thw=(8, 128, 128), tokens=64,
+                        window_ms=window, uint8=True)
+        check(res["ok"] == res["requests"] and not res["errors"],
+              f"serve_bench at {window} ms: {res}")
+        print(f"serve_bench [{card}]: {json.dumps(res)}")
+        if window > 0:
+            check(res["clips_per_call"] > 1, f"serve_bench at {window} ms batched nothing: {res}")
+    return {"http_bench_r4": read_counts()}
+
+
+def _int_mm_unpadded_fault(r4) -> None:
+    """The planted fault: the FSQ encoder's ``proj_out`` (width -> 5) with
+    its int8 weight left unpadded; ``torch._int_mm`` on the card must
+    raise, never fall back."""
+    import torch
+
+    from titok_tpu_torch.serving.quant import _int8_dense, quantize_kernel
+
+    layer = r4.module.encoder.proj_out
+    k = quantize_kernel(layer.weight.detach())
+    x = torch.randn(4096, layer.in_features, device="cuda")
+    try:
+        _int8_dense(x, k["q"], k["s"], layer.bias, "w8a8", torch.float32)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"planted fault (proj_out's int8 weight unpadded, N = {k['q'].shape[0]}) "
+              f"rejected: torch._int_mm raised: {str(e).splitlines()[0][:160]}")
+        return
+    raise SmokeFailure("planted fault (proj_out unpadded) ran: torch._int_mm took N = 5")
+
+
+def phase_serving_tools(card: str) -> dict:
+    """The serving tools on the card: r4's int8 scores through the evaluate
+    CLI's functions; r4 and base_vq exported and loaded in a fresh process;
+    the HTTP server and its load bench over r4's f32 artifact; three
+    planted faults."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    with np.load(os.path.join(PARITY_DIR, "eval_clips.npz")) as f:
+        clips = [{"video": f[f"clip_{i}"], "fps": int(fps)} for i, fps in enumerate(f["fps"])]
+    paths = _serving_quant(card, clips)
+    r4, base_vq = _r4_model(), _base_vq_model()
+    try:
+        _int_mm_unpadded_fault(r4)
+        paths.update(_serving_export(card, r4, base_vq, clips))
+        del base_vq
+        torch.cuda.empty_cache()
+        paths.update(_serving_http(card, r4, clips))
+    finally:
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    print(f"serving tools: phase {time.perf_counter() - t0:.1f} s [{card}]")
+    return paths
+
+
 def f32_launch_shape(kind: str, hq: int, hkv: int, rope: bool) -> dict:
     """The launch shape the library reports for the pipelined f32 forward
     (``kind`` "fwd"), dq ("dq") or dk/dv ("dkv") at hq / hkv heads:
@@ -4072,31 +4585,42 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from titok_tpu_torch.config import load_config
 
+    t_start = time.perf_counter()
+
+    def timed(phase, *args):
+        """``phase(*args)``, then its seconds and the script's so far."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s (script at "
+              f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+        return out
+
     try:
-        card = phase_build()
-        kres = phase_kernels(card)
-        bres = phase_bwd_kernels(card, train_config())
-        vres = phase_vq_kernel(card)
-        paths = phase_serving(card)
-        phase_lpips(card)
-        paths.update(phase_training(card))
-        paths.update(phase_serving_vq(card))
-        paths.update(phase_training_vq(card))
+        card = timed(phase_build)
+        kres = timed(phase_kernels, card)
+        bres = timed(phase_bwd_kernels, card, train_config())
+        vres = timed(phase_vq_kernel, card)
+        paths = timed(phase_serving, card)
+        timed(phase_lpips, card)
+        paths.update(timed(phase_training, card))
+        paths.update(timed(phase_serving_vq, card))
+        paths.update(timed(phase_training_vq, card))
         large_train = large_config("tokenizer.losses.perceptual_weight=0",
                                    "tokenizer.losses.gram_weight=0")
-        rres = phase_rope_kernels(card, large_train)
-        paths.update(phase_serving_large(card))
-        paths.update(phase_training_large(card))
-        paths.update(phase_remat_large_f32(card))
-        v1res = phase_v1_kernels(card, load_config(TINY16K, tiny16k_overrides("kernels")))
-        paths.update(phase_trainer(card))
-        phase_trainer_cli(card)
-        paths.update(phase_resume_f32(card))
-        paths.update(phase_data(card))
-        paths.update(phase_parity(card))
-        paths.update(phase_scan(card))
-        paths.update(phase_supervised_alllarge(card))
-        print_f32_table(card, kres, bres, rres, v1res)
+        rres = timed(phase_rope_kernels, card, large_train)
+        paths.update(timed(phase_serving_large, card))
+        paths.update(timed(phase_training_large, card))
+        paths.update(timed(phase_remat_large_f32, card))
+        v1res = timed(phase_v1_kernels, card, load_config(TINY16K, tiny16k_overrides("kernels")))
+        paths.update(timed(phase_trainer, card))
+        timed(phase_trainer_cli, card)
+        paths.update(timed(phase_resume_f32, card))
+        paths.update(timed(phase_data, card))
+        paths.update(timed(phase_parity, card))
+        paths.update(timed(phase_serving_tools, card))
+        paths.update(timed(phase_scan, card))
+        paths.update(timed(phase_supervised_alllarge, card))
+        timed(print_f32_table, card, kres, bres, rres, v1res)
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

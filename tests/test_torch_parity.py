@@ -14,7 +14,15 @@ the plain version of its attention kernel. Held, at token counts 1, 16 and
 - reconstructions: within 1e-4 on [-1, 1];
 - PSNR within 1e-3 dB and SSIM within 1e-4 of JAX's ``Trainer.validate``;
 - the evaluate CLI's ``token_sweep.jsonl`` rows against JAX's
-  ``Trainer.validate`` on the same config.
+  ``Trainer.validate`` on the same config, and with ``--quant w8a8``
+  against JAX's int8 serving path;
+- the int8 serving path (``serving/quant.py``, w8a16 and w8a8) against
+  JAX's committed int8 results (``jax_w8a16.npz``, ``jax_w8a8.npz``):
+  indices identical on >= 99 % of each count's tokens (measured: all but 3
+  of 1,280 at 128 tokens in w8a16, every one elsewhere; the int8 products
+  agree bit for bit, the f32 sums around them move a bf16 or int8
+  rounding of an activation now and then), PSNR within 1e-3 dB and SSIM
+  within 1e-4 of JAX's batch sums.
 
 The committed files are held to a fresh computation: the weights to a new
 converter run, tensor for tensor; the clips to the port's eval stream; JAX's
@@ -36,6 +44,7 @@ from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from titok_tpu_torch.data.chunking import pack_chunks  # noqa: E402
 from titok_tpu_torch.metrics.psnr_device import psnr_from_stats  # noqa: E402
 from titok_tpu_torch.tools import evaluate  # noqa: E402
+from titok_tpu_torch.tools.evaluate import quantize_eval  # noqa: E402
 from titok_tpu_torch.train_utils.checkpoints import (  # noqa: E402
     CheckpointManager,
     restore_weights_only,
@@ -46,6 +55,7 @@ BATCH0 = 4  # the clips of the first packed batch, at every count
 RECON_ATOL = 1e-4
 PSNR_DB = 1e-3
 SSIM_ATOL = 1e-4
+QUANT_SHARE = 0.99
 
 
 def port_clip_batches(clips):
@@ -57,16 +67,19 @@ def port_clip_batches(clips):
     return batches_fn
 
 
-def port_results(clips, counts, n_clips, save_path) -> dict:
+def port_results(clips, counts, n_clips, save_path, quant=None) -> dict:
     """The port's f32 results on the first ``n_clips`` of ``clips``, as
-    :func:`fx.jax_results` gives JAX's (no ``prebound_<c>``)."""
+    :func:`fx.jax_results` gives JAX's (no ``prebound_<c>``); with
+    ``quant``, those of its int8 serving path."""
     config = fx.port_config(save_path, n_clips)
     trainer = Trainer(config, batches_fn=port_clip_batches(clips), device="cpu")
     report = {}
     state = restore_weights_only(fx.WEIGHTS, trainer.builder.init_state(device="cpu"),
                                  report=report)
     assert report["loaded"] == 76 and not report["missing"] and not report["mismatched"]
-    step, seen = trainer.builder.make_eval_metrics_step(trainer.device_im), []
+    quantize_eval(trainer, state, quant)
+    step = trainer._eval_step or trainer.builder.make_eval_metrics_step(trainer.device_im)
+    seen = []
 
     def eval_step(batch, plan=None):
         out = step(batch, plan)
@@ -152,13 +165,13 @@ def test_committed_weights_equal_a_fresh_conversion(tmp_path):
 
 
 def test_chip_smoke_pins_the_committed_fixtures():
-    """``chip_smoke.py`` checks the three files by their sha256 first (the
+    """``chip_smoke.py`` checks the five files by their sha256 first (the
     card machine cannot remake them): its pins are the committed files'."""
     from chip_smoke import PARITY_DIR, PARITY_SHA256, _sha256
 
     assert PARITY_DIR == fx.FIXTURES
     assert {os.path.join(PARITY_DIR, rel) for rel in PARITY_SHA256} == \
-        {fx.WEIGHTS, fx.CLIPS, fx.JAX_RESULTS}
+        {fx.WEIGHTS, fx.CLIPS, fx.JAX_RESULTS, *fx.JAX_QUANT_RESULTS.values()}
     for rel, want in PARITY_SHA256.items():
         assert _sha256(os.path.join(PARITY_DIR, rel)) == want, rel
 
@@ -226,8 +239,8 @@ def test_evaluate_cli_matches_jax_validate(tmp_path, jax_batch0):
     """``python -m titok_tpu_torch.tools.evaluate --device cpu --ckpt
     <converted> --token-sweep 1,128`` on the r4 config over the first batch
     of the eval tar: its rows carry JAX's keys and JAX's scores. An orbax
-    directory is refused with a pointer to the converter; ``--quant`` is
-    not ported."""
+    directory is refused with a pointer to the converter; ``--quant w8a8``
+    writes ``"quant": "w8a8"`` rows with JAX's int8 score."""
     out = tmp_path / "eval"
     args = [f"config={fx.R4_CONFIG}", *fx.score_overrides(str(tmp_path / "unused"), BATCH0),
             "--device", "cpu", "--ckpt", os.path.dirname(fx.WEIGHTS), "--token-sweep", "1,128",
@@ -243,8 +256,33 @@ def test_evaluate_cli_matches_jax_validate(tmp_path, jax_batch0):
         assert r["eval/ssim"] == pytest.approx(jax_batch0[f"ssim_{c}"], abs=SSIM_ATOL)
     with pytest.raises(ValueError, match="convert_orbax_to_torch"):
         evaluate.main([*args[:-4], "--ckpt", fx.ARTIFACT])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, 'Serving'"):
-        evaluate.main([*args, "--quant", "w8a8"])
+    # --quant scores the int8 serving path: JAX's int8 score of this batch
+    qout = tmp_path / "eval_w8a8"
+    evaluate.main([*args[:-4], "--token-sweep", "128", "--out", str(qout), "--quant", "w8a8"])
+    (row,) = [json.loads(line) for line in open(qout / "token_sweep.jsonl")]
+    assert row["quant"] == "w8a8" and row["token_count"] == 128
+    with np.load(fx.JAX_QUANT_RESULTS["w8a8"]) as f:
+        want = psnr_from_stats(f["psnr_sse_128"][0], f["psnr_cnt_128"][0])
+    assert row["eval/psnr"] == pytest.approx(want, abs=PSNR_DB)
+
+
+@pytest.mark.parametrize("quant", fx.QUANT_MODES)
+def test_port_quantized_matches_jax_on_the_trained_weights(quant, clips, tmp_path):
+    """The int8 serving path on the first batch at 1, 16 and 128 tokens
+    against JAX's committed int8 results: indices identical on
+    ``QUANT_SHARE`` of each count's tokens, PSNR and SSIM of the batch's
+    sums within ``PSNR_DB`` and ``SSIM_ATOL``."""
+    got = port_results(clips, fx.COUNTS, BATCH0, str(tmp_path), quant=quant)
+    with np.load(fx.JAX_QUANT_RESULTS[quant]) as f:
+        want = dict(f)
+    for c in fx.COUNTS:
+        share = float((got[f"indices_{c}"] == want[f"indices_{c}"][:BATCH0]).mean())
+        assert share >= QUANT_SHARE, (quant, c, share)
+        assert psnr_from_stats(got[f"psnr_sse_{c}"][0], got[f"psnr_cnt_{c}"][0]) == \
+            pytest.approx(psnr_from_stats(want[f"psnr_sse_{c}"][0], want[f"psnr_cnt_{c}"][0]),
+                          abs=PSNR_DB)
+        assert got[f"ssim_sum_{c}"][0] / got[f"ssim_cnt_{c}"][0] == pytest.approx(
+            want[f"ssim_sum_{c}"][0] / want[f"ssim_cnt_{c}"][0], abs=SSIM_ATOL)
 
 
 @pytest.mark.slow
@@ -263,6 +301,12 @@ def test_port_matches_jax_on_every_committed_clip(tmp_path, clips, committed):
             np.testing.assert_allclose(a, b, rtol=0, atol=RECON_ATOL)
         assert got[f"psnr_{c}"] == pytest.approx(float(committed[f"psnr_{c}"]), abs=PSNR_DB)
         assert got[f"ssim_{c}"] == pytest.approx(float(committed[f"ssim_{c}"]), abs=SSIM_ATOL)
+    for quant, path in fx.JAX_QUANT_RESULTS.items():  # the int8 fixtures: a fresh JAX run
+        fresh = fx.jax_results(clips, quant=quant)
+        with np.load(path) as f:
+            for key in f.files:
+                np.testing.assert_allclose(fresh[key], f[key], rtol=1e-6, atol=1e-6,
+                                           err_msg=f"{quant} {key}")
 
 
 SWEEP = (1, 4, 16, 64, 128)

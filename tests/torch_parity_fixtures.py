@@ -21,9 +21,13 @@ so what its half of the check reads is committed under
   tie), and JAX ``Trainer.validate``'s device sums of each packed batch
   (``psnr_sse_<c>``, ``psnr_cnt_<c>``, ``ssim_sum_<c>``, ``ssim_cnt_<c>``,
   one entry a batch) and its scores over all the clips (``psnr_<c>``,
-  ``ssim_<c>``).
+  ``ssim_<c>``);
+- ``jax_w8a16.npz`` and ``jax_w8a8.npz``: the same of JAX's int8 serving
+  path (``titok_tpu/serving/quant.py``: the generator's kernels quantized,
+  the eval epoch run under its interceptor, as JAX's ``tools/evaluate.py
+  --quant`` scores it).
 
-``tests/test_torch_parity.py`` recomputes all three and holds the committed
+``tests/test_torch_parity.py`` recomputes them and holds the committed
 files to them. Rewrite them with (from the repo root, on a machine with
 JAX, orbax and libav)::
 
@@ -47,6 +51,8 @@ FIXTURES = os.path.join(REPO, "docs", "artifacts", "r4_tiny_lpips_5000_torch")
 WEIGHTS = os.path.join(FIXTURES, "5000", "state.pt")
 CLIPS = os.path.join(FIXTURES, "eval_clips.npz")
 JAX_RESULTS = os.path.join(FIXTURES, "jax_f32.npz")
+QUANT_MODES = ("w8a16", "w8a8")
+JAX_QUANT_RESULTS = {mode: os.path.join(FIXTURES, f"jax_{mode}.npz") for mode in QUANT_MODES}
 EVAL_TAR = os.path.join(REPO, "docs", "eval_set", "00000.tar")
 STEP = 5000
 COUNTS = (1, 16, 128)
@@ -119,20 +125,27 @@ def per_clip(rows: np.ndarray, token_counts, grid_sizes, n: int) -> list[np.ndar
     return [rows[offs[b]: offs[b] + int(token_counts[b])] for b in range(n)]
 
 
-def jax_results(clips: list[dict], counts=COUNTS, n_clips: int = N_CLIPS) -> dict:
+def jax_results(clips: list[dict], counts=COUNTS, n_clips: int = N_CLIPS,
+                quant: str | None = None) -> dict:
     """JAX's f32 results on the first ``n_clips`` of ``clips`` at each
     count: ``Trainer.validate`` over them at ``token_range [c, c]`` (its
     scores, and its eval step's device sums per batch), with that step
     wrapped to keep each batch's indices, reconstruction and the values FSQ
-    rounds (caught where the model calls FSQ, so nothing runs twice).
-    Returns the arrays of ``jax_f32.npz`` plus ``recon_<c>``: per clip, the
-    ``[c + grid, P]`` rows of its sample (not committed)."""
+    rounds (caught where the model calls FSQ, so nothing runs twice). With
+    ``quant`` ('w8a16' or 'w8a8') those of JAX's int8 serving path: the
+    quantized kernels, the epochs run under its interceptor. Returns the
+    arrays of ``jax_f32.npz`` (or ``jax_<quant>.npz``) plus ``recon_<c>``:
+    per clip, the ``[c + grid, P]`` rows of its sample (not committed)."""
+    import contextlib
+
+    import flax.linen as nn
     import jax
     import jax.numpy as jnp
     import orbax.checkpoint as ocp
 
     from titok_tpu.config import load_config
     from titok_tpu.models.quantizer import FSQ
+    from titok_tpu.serving.quant import make_interceptor, quantize_params
     from titok_tpu.train_utils.checkpoints import restore_raw
     from titok_tpu.training.trainer import Trainer
 
@@ -142,11 +155,13 @@ def jax_results(clips: list[dict], counts=COUNTS, n_clips: int = N_CLIPS) -> dic
         bounds.append(self.bound(z.astype(jnp.float32)))
         return fsq_call(self, z)
 
-    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(FSQ, "__call__", caught):
+    int8 = nn.intercept_methods(make_interceptor(quant)) if quant else contextlib.nullcontext()
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(FSQ, "__call__", caught), int8:
         config = load_config(R4_CONFIG, score_overrides(tmp, n_clips))
         trainer = Trainer(config, batches_fn=jax_clip_batches(clips))
         raw = restore_raw(ocp.StandardCheckpointer(), os.path.abspath(ARTIFACT))
-        state = type("State", (), {"gen_params": raw["gen_params"], "vq_state": None})()
+        gen = quantize_params(raw["gen_params"]) if quant else raw["gen_params"]
+        state = type("State", (), {"gen_params": gen, "vq_state": None})()
         step = trainer.builder.make_eval_metrics_step(trainer.device_im)
 
         def traced(p, batch, plan, vq):
@@ -210,11 +225,13 @@ def main() -> None:
         shutil.copyfile(convert(tmp), _mkdir(WEIGHTS))
         chunks = eval_chunks(port_config(tmp), N_CLIPS)
     save_clips(CLIPS, chunks)
-    res = jax_results(load_clips(CLIPS))
-    np.savez(JAX_RESULTS, **{k: v for k, v in res.items() if not k.startswith("recon_")})
-    for c in COUNTS:
-        print(f"tokens {c}: psnr {res[f'psnr_{c}']:.6f} dB, ssim {res[f'ssim_{c}']:.6f}")
-    for p in (WEIGHTS, CLIPS, JAX_RESULTS):
+    for quant, path in ((None, JAX_RESULTS), *JAX_QUANT_RESULTS.items()):
+        res = jax_results(load_clips(CLIPS), quant=quant)
+        np.savez(path, **{k: v for k, v in res.items() if not k.startswith("recon_")})
+        for c in COUNTS:
+            print(f"{quant or 'f32'}, tokens {c}: psnr {res[f'psnr_{c}']:.6f} dB, ssim "
+                  f"{res[f'ssim_{c}']:.6f}")
+    for p in (WEIGHTS, CLIPS, JAX_RESULTS, *JAX_QUANT_RESULTS.values()):
         print(f"{os.path.relpath(p, REPO)}: {os.path.getsize(p)} bytes")
 
 

@@ -16,13 +16,16 @@ Reference semantics (reference ``model/base/rope.py``):
 
 The cos/sin tables are computed once per batch on the host in float64 and
 shipped as fp32 ``[S, rot_dim/2]``; on the device the rotation is a few
-elementwise torch ops.
+elementwise torch ops (``ops/rotary.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
+
+# the rotation itself lives with the ops, which the attention kernels' plain
+# versions and the exported programs reach without importing the models
+from titok_tpu_torch.ops.rotary import apply_rotary_emb  # noqa: F401
 
 
 def rope_inv_freqs(head_dim: int, grid_dims: int, theta: float = 10000.0) -> np.ndarray:
@@ -72,21 +75,3 @@ def positions_for_sample(grid: np.ndarray, token_count: int) -> np.ndarray:
         axis=-1,
     ).reshape(-1, gd)
     return np.concatenate([token_ids, coords + float(token_count)], axis=0)
-
-
-def apply_rotary_emb(x: torch.Tensor, cos: torch.Tensor,
-                     sin: torch.Tensor) -> torch.Tensor:
-    """Rotate ``x`` ``[L, H, D]`` by per-position tables ``[L, P]``: the
-    first P (even, odd) pairs rotate in fp32, the rest pass through; the
-    result is cast back to ``x``'s dtype (ref ``rope.py:20-27``)."""
-    L, H, D = x.shape
-    P = cos.shape[-1]
-    xf = x.to(torch.float32).reshape(L, H, D // 2, 2)
-    xr, xi = xf[..., 0], xf[..., 1]
-    c = cos[:, None, :]  # [L, 1, P]
-    s = sin[:, None, :]
-    out_r = xr[..., :P] * c - xi[..., :P] * s
-    out_i = xr[..., :P] * s + xi[..., :P] * c
-    rot = torch.stack([out_r, out_i], dim=-1)
-    out = torch.cat([rot, xf[:, :, P:, :]], dim=2).reshape(L, H, D)
-    return out.to(x.dtype)

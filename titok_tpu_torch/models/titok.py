@@ -218,6 +218,15 @@ class TiTokModel:
         self.module.load_state_dict(state)
         self.module.to(self.device).eval()
 
+    def _dummy_batch(self) -> dict:
+        """A packed batch of the model's shape (one zero clip of twice the
+        patch size, one token), as numpy arrays: the example an exported
+        program is traced on (JAX ``TiTokModel._dummy_batch``)."""
+        ps = list(self.module.patch_size)
+        vid = np.zeros([self.module.in_channels] + [p * 2 for p in ps], np.float32)
+        return pack_samples([vid], [1], seq_len=self.seq_len, max_samples=self.max_samples,
+                            patch_size=ps, head_dim=HEAD_DIM).device_arrays()
+
     def _pack(self, videos, token_counts) -> PackedBatch:
         # uint8 THWC clips go through the packer's normalize+patchify;
         # everything else is the reference's float CTHW wire

@@ -24,7 +24,8 @@ bounds the kernels on the H100.
 - :func:`flash_segment_attention` — the entry point ``attn_impl:
   flash_v1`` reaches. With grad enabled and an input that requires grad
   it goes through :class:`_FlashSegmentAttnV1`, whose backward runs the
-  dq and dk/dv kernels; otherwise only the forward kernel. For a CUDA
+  dq and dk/dv kernels; otherwise only the forward kernel, through the
+  custom op :func:`segment_attn_v1_fwd` (``ops/custom_ops.py``). For a CUDA
   tensor every wrapper launches its kernel or raises; for a CPU tensor it
   takes the plain version. There is no fallback on the card.
 - :func:`flash_segment_attention_reference` and
@@ -51,6 +52,7 @@ from titok_tpu_torch.ops.flash_attention_mh import (
     _check,
     _check_bwd,
     _delta,
+    _out_lse_fake,
     _remap_pad,
     launches,
 )
@@ -288,6 +290,28 @@ def _bwd(q, k, v, segment_ids, out, lse, dout,
     return dq, dk, dv
 
 
+@torch.library.custom_op("titok::segment_attn_v1_fwd", mutates_args=(), device_types="cpu")
+def segment_attn_v1_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        segment_ids: torch.Tensor,
+                        scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The v1 forward ``(out, lse)`` as the custom op
+    ``torch.ops.titok.segment_attn_v1_fwd``: the plain version for CPU
+    tensors, the kernel (launch counted) for CUDA tensors, no
+    implementation for any other device. What :func:`flash_segment_attention`
+    calls without grad."""
+    return flash_segment_attention_reference(q, k, v, segment_ids, scale)
+
+
+@segment_attn_v1_fwd.register_kernel("cuda")
+def _(q, k, v, segment_ids, scale):
+    return launch_fwd(q, k, v, segment_ids, scale)
+
+
+@segment_attn_v1_fwd.register_fake
+def _(q, k, v, segment_ids, scale):
+    return _out_lse_fake(q)
+
+
 class _FlashSegmentAttnV1(torch.autograd.Function):
     """v1 attention with the hand-written backward (the ``custom_vjp``
     ``_flash`` of the JAX package): the forward saves ``out`` and ``lse``,
@@ -324,4 +348,4 @@ def flash_segment_attention(
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashSegmentAttnV1.apply(q, k, v, segment_ids, scale)
-    return _fwd(q, k, v, segment_ids, scale)[0]
+    return segment_attn_v1_fwd(q, k, v, segment_ids, scale)[0]

@@ -15,7 +15,9 @@ The source notes say what bounds each on the H100 and how it is laid out.
 - :func:`flash_segment_attention_mh` — the entry point the model calls.
   When grad is enabled and an input requires grad it goes through
   :class:`_FlashSegmentAttn`, whose backward runs the backward kernels;
-  otherwise (serving, ``torch.inference_mode``) only the forward kernel.
+  otherwise (serving, ``torch.inference_mode``) through the custom op
+  :func:`segment_attn_fwd` (with tables, :func:`segment_attn_rope_fwd`),
+  which ``torch.export`` records as one node (``ops/custom_ops.py``).
   For a CUDA tensor every wrapper launches its kernel or raises; for a CPU
   tensor it takes the plain version. There is no fallback on the card.
 - :func:`_fwd` / :func:`_bwd` — the forward ``(out, lse)`` and the
@@ -41,10 +43,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
-from titok_tpu_torch.models.rope import apply_rotary_emb
+from titok_tpu_torch.ops.rotary import apply_rotary_emb
 
 NEG_INF = -1e30
 PAD_ID = 2**30  # pad slots (segment 0) sit after every sample
@@ -385,6 +388,13 @@ def _fwd(q, k, v, segment_ids, scale=None,
     if q.device.type == "cpu":
         return flash_segment_attention_mh_reference(
             q, k, v, segment_ids, scale, k_segment_ids)
+    return _launch_fwd(q, k, v, segment_ids, scale, k_segment_ids)
+
+
+def _launch_fwd(q, k, v, segment_ids, scale=None,
+                k_segment_ids=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on CUDA tensors: ``(out, lse)``. Raises for any
+    other device."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     seg_k = segment_ids if k_segment_ids is None else k_segment_ids
@@ -464,6 +474,13 @@ def _rope_fwd(q, k, v, segment_ids, cos, sin, scale=None, k_segment_ids=None, k_
     if q.device.type == "cpu":
         return flash_segment_attention_mh_rope_reference(
             q, k, v, segment_ids, cos, sin, scale, k_segment_ids, k_cos, k_sin)
+    return _launch_rope_fwd(q, k, v, segment_ids, cos, sin, scale, k_segment_ids, k_cos, k_sin)
+
+
+def _launch_rope_fwd(q, k, v, segment_ids, cos, sin, scale=None, k_segment_ids=None,
+                     k_cos=None, k_sin=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rope forward kernel on CUDA tensors: ``(out, lse)``. Raises for
+    any other device."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     seg_k = segment_ids if k_segment_ids is None else k_segment_ids
@@ -526,6 +543,57 @@ def _rope_bwd(q, k, v, segment_ids, cos, sin, out, lse, dout, scale=None, k_segm
             raise RuntimeError(f"flash_segment_attn_rope_bwd_dkv launch failed: CUDA error {err}")
         launches[f"rope_bwd_dkv_{key}"] += 1
     return dq, dk, dv
+
+
+def _out_lse_fake(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The outputs a forward op returns, as ``register_fake`` describes
+    them: ``out`` like q, ``lse`` f32 ``[S, Hq]``."""
+    return torch.empty_like(q), q.new_empty((q.shape[0], q.shape[1]), dtype=torch.float32)
+
+
+@torch.library.custom_op("titok::segment_attn_fwd", mutates_args=(), device_types="cpu")
+def segment_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     segment_ids: torch.Tensor, k_segment_ids: Optional[torch.Tensor],
+                     scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward ``(out, lse)`` as the custom op
+    ``torch.ops.titok.segment_attn_fwd``: the plain version for CPU
+    tensors, the kernel (launch counted) for CUDA tensors, no
+    implementation for any other device. What :func:`flash_segment_attention_mh`
+    calls without grad, so ``torch.export`` records the call as one node."""
+    return flash_segment_attention_mh_reference(q, k, v, segment_ids, scale, k_segment_ids)
+
+
+@segment_attn_fwd.register_kernel("cuda")
+def _(q, k, v, segment_ids, k_segment_ids, scale):
+    return _launch_fwd(q, k, v, segment_ids, scale, k_segment_ids)
+
+
+@segment_attn_fwd.register_fake
+def _(q, k, v, segment_ids, k_segment_ids, scale):
+    return _out_lse_fake(q)
+
+
+@torch.library.custom_op("titok::segment_attn_rope_fwd", mutates_args=(), device_types="cpu")
+def segment_attn_rope_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          segment_ids: torch.Tensor, k_segment_ids: Optional[torch.Tensor],
+                          cos: torch.Tensor, sin: torch.Tensor, k_cos: Optional[torch.Tensor],
+                          k_sin: Optional[torch.Tensor],
+                          scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RoPE-fused forward ``(out, lse)`` over unrotated q and k as the
+    custom op ``torch.ops.titok.segment_attn_rope_fwd``, dispatched as
+    :func:`segment_attn_fwd`."""
+    return flash_segment_attention_mh_rope_reference(
+        q, k, v, segment_ids, cos, sin, scale, k_segment_ids, k_cos, k_sin)
+
+
+@segment_attn_rope_fwd.register_kernel("cuda")
+def _(q, k, v, segment_ids, k_segment_ids, cos, sin, k_cos, k_sin, scale):
+    return _launch_rope_fwd(q, k, v, segment_ids, cos, sin, scale, k_segment_ids, k_cos, k_sin)
+
+
+@segment_attn_rope_fwd.register_fake
+def _(q, k, v, segment_ids, k_segment_ids, cos, sin, k_cos, k_sin, scale):
+    return _out_lse_fake(q)
 
 
 class _FlashSegmentAttn(torch.autograd.Function):
@@ -608,8 +676,8 @@ def flash_segment_attention_mh(
         if grad:
             return _FlashSegmentAttnRope.apply(q, k, v, segment_ids, k_segment_ids, rope_cos,
                                                rope_sin, k_rope_cos, k_rope_sin, float(scale))
-        return _rope_fwd(q, k, v, segment_ids, rope_cos, rope_sin, scale, k_segment_ids,
-                         k_rope_cos, k_rope_sin)[0]
+        return segment_attn_rope_fwd(q, k, v, segment_ids, k_segment_ids, rope_cos, rope_sin,
+                                     k_rope_cos, k_rope_sin, float(scale))[0]
     if grad:
         return _FlashSegmentAttn.apply(q, k, v, segment_ids, k_segment_ids, float(scale))
-    return _fwd(q, k, v, segment_ids, scale, k_segment_ids)[0]
+    return segment_attn_fwd(q, k, v, segment_ids, k_segment_ids, float(scale))[0]

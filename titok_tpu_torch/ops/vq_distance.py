@@ -12,7 +12,8 @@ For ``z [S, D]`` and a codebook ``c [N, D]`` (both f32) each returns
 All arithmetic is fp32 on both sides, never TF32 or bf16: a rounded product
 flips near-ties, and token ids must be stable.
 
-- :func:`vq_nearest` — the entry point the quantizer calls: the kernel for
+- :func:`vq_nearest` — the entry point the quantizer calls, through the
+  custom op :func:`vq_nearest_op` (``ops/custom_ops.py``): the kernel for
   CUDA tensors (it raises rather than fall back), the plain version for CPU
   tensors.
 - :func:`vq_nearest_reference` — the plain version: an explicit fp32 sum
@@ -212,14 +213,9 @@ def _check(z: torch.Tensor, codebook: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def vq_nearest(z: torch.Tensor, codebook: torch.Tensor, impl: str = "auto"):
-    """``(indices int32 [S], dists f32 [S])``. ``impl``: 'auto' takes the
-    kernel for CUDA tensors and the plain version for CPU tensors;
-    'reference' the plain version on any device."""
-    if impl == "reference" or z.device.type == "cpu":
-        return vq_nearest_reference(z, codebook)
-    if impl != "auto":
-        raise ValueError(f"unknown vq impl {impl!r}")
+def _launch(z: torch.Tensor, codebook: torch.Tensor):
+    """The kernel on CUDA tensors: ``(indices, dists)``. Raises for any
+    other device."""
     if z.device.type != "cuda":
         raise ValueError(f"no kernel for device {z.device}")
     _check(z, codebook)
@@ -238,3 +234,31 @@ def vq_nearest(z: torch.Tensor, codebook: torch.Tensor, impl: str = "auto"):
         raise RuntimeError(f"vq_nearest launch failed: CUDA error {err}")
     launches["f32"] += 1
     return idx, dist
+
+
+@torch.library.custom_op("titok::vq_nearest", mutates_args=(), device_types="cpu")
+def vq_nearest_op(z: torch.Tensor, codebook: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(indices, dists)`` as the custom op ``torch.ops.titok.vq_nearest``:
+    the plain version for CPU tensors, the kernel (launch counted) for CUDA
+    tensors, no implementation for any other device."""
+    return vq_nearest_reference(z, codebook)
+
+
+vq_nearest_op.register_kernel("cuda")(_launch)
+
+
+@vq_nearest_op.register_fake
+def _(z, codebook):
+    S = z.shape[0]
+    return z.new_empty((S,), dtype=torch.int32), z.new_empty((S,), dtype=torch.float32)
+
+
+def vq_nearest(z: torch.Tensor, codebook: torch.Tensor, impl: str = "auto"):
+    """``(indices int32 [S], dists f32 [S])``. ``impl``: 'auto' calls
+    :func:`vq_nearest_op`, the kernel for CUDA tensors and the plain version
+    for CPU tensors; 'reference' the plain version on any device."""
+    if impl == "reference":
+        return vq_nearest_reference(z, codebook)
+    if impl != "auto":
+        raise ValueError(f"unknown vq impl {impl!r}")
+    return vq_nearest_op(z, codebook)

@@ -17,15 +17,19 @@ rate-distortion curve over the 1-128 token axis. The losses are switched
 off, so scoring needs no LPIPS weights and builds no discriminator; an
 empty ``dataset.train_dataset`` falls back to the eval set.
 
-A checkpoint of the JAX package (orbax) is converted first with
-``python tools/convert_orbax_to_torch.py <orbax dir> <out dir>`` (on a
-machine with JAX and orbax). ``--quant`` (the int8 serving path) is not
-ported. It runs on the card unless ``--device cpu`` is given.
+``--quant w8a16|w8a8`` scores the int8 serving path: the restored
+generator quantized (``serving/quant.py``: int8 Dense layers) runs the eval
+epoch, the quality cost of int8 on a real checkpoint; the rows carry
+``"quant"``. A checkpoint of the JAX package (orbax) is converted first
+with ``python tools/convert_orbax_to_torch.py <orbax dir> <out dir>`` (on a
+machine with JAX and orbax). It runs on the card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import re
@@ -67,13 +71,27 @@ def _resolve_ckpts(path: str, steps: str) -> list[tuple[int, str]]:
     return [(want, os.path.join(path, str(want)))]
 
 
-def token_sweep(trainer, state, step: int, counts, path: str) -> list[dict]:
+def quantize_eval(trainer, state, quant: str | None) -> None:
+    """Point ``trainer.validate`` at ``state``'s generator quantized to
+    ``quant`` ('w8a16' or 'w8a8'; None: the float generator)."""
+    trainer._eval_step = None
+    if quant:
+        from titok_tpu_torch.serving.quant import quantize_module
+
+        builder = copy.copy(trainer.builder)
+        builder.model = quantize_module(state.model, quant).eval()
+        trainer._eval_step = builder.make_eval_metrics_step(trainer.device_im)
+
+
+def token_sweep(trainer, state, step: int, counts, path: str,
+                quant: str | None = None) -> list[dict]:
     """Score the eval set once per token count of ``counts``: for each,
     ``training.sampling.token_range = [c, c]``, the packed eval cache
     dropped (the batches repack at the new count) and one
     ``trainer.validate``; each row (``step``, ``token_count``, ``quant``
     and the ``eval/*`` scores) is appended to ``path`` as a JSON line.
-    Returns the rows."""
+    ``quant`` names the int8 mode the trainer's eval step runs
+    (:func:`quantize_eval`). Returns the rows."""
     trainer.config.set_dotted("training.eval.train_probe_dataset", None)
     trainer.config.set_dotted("training.eval.log_recon_num", 0)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -83,7 +101,7 @@ def token_sweep(trainer, state, step: int, counts, path: str) -> list[dict]:
             trainer.config.set_dotted("training.sampling.token_range", [int(c), int(c)])
             trainer._eval_cache = None
             scores = trainer.validate(state, step) or {}
-            row = {"step": int(step), "token_count": int(c), "quant": None,
+            row = {"step": int(step), "token_count": int(c), "quant": quant,
                    **{k: float(v) for k, v in scores.items()}}
             f.write(json.dumps(row) + "\n")
             f.flush()
@@ -110,13 +128,10 @@ def main(argv: list[str], device=None):
                     help="comma-separated token counts (e.g. '1,4,16,64,128'): score the eval "
                          "set once per fixed count; writes <out>/token_sweep.jsonl")
     ap.add_argument("--quant", choices=("w8a16", "w8a8"), default=None,
-                    help="the int8 serving path (not ported)")
+                    help="score the int8 serving path: the restored generator with int8 Dense "
+                         "layers (serving/quant.py)")
     ap.add_argument("--device", default=device, help="'cpu' for the plain path (default: cuda)")
     args = ap.parse_args(flags)
-    if args.quant:
-        raise NotImplementedError(
-            f"--quant {args.quant}: the int8 serving path is not ported yet (ROADMAP.md, "
-            "'Serving')")
 
     from titok_tpu_torch.config import config_from_cli
 
@@ -147,10 +162,11 @@ def main(argv: list[str], device=None):
     results = []
     for step, ckpt_dir in ckpts:
         state = restore_weights_only(ckpt_dir, state)
+        quantize_eval(trainer, state, args.quant)
         if args.token_sweep:
             counts = [int(x) for x in args.token_sweep.split(",")]
             results += token_sweep(trainer, state, step, counts,
-                                   os.path.join(out, "token_sweep.jsonl"))
+                                   os.path.join(out, "token_sweep.jsonl"), args.quant)
         else:
             results.append(trainer.validate(state, step))
     return results

@@ -110,6 +110,12 @@ def _read(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
+def read_generator(path: str) -> dict:
+    """The generator's state dict of a checkpoint directory (or its
+    ``state.pt``), EMA-VQ's buffers included: what the serving tools load."""
+    return _read(os.path.abspath(path))["gen"]
+
+
 def _read_full(path: str) -> dict:
     """A checkpoint to resume from: one that holds the optimizers' state.
     A weights-only one (``tools/convert_orbax_to_torch.py``) raises, naming
