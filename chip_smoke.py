@@ -145,7 +145,21 @@ toolkit. Phases, in order; any failure exits non-zero:
    within 0.01 dB and SSIM within 1e-3 of JAX's, the ``token_sweep.jsonl``
    rows; the plain path (dense attention) likewise; bf16-mixed through
    the bf16 kernel against f32; ms an eval batch in f32 and bf16;
-16. the serving tools on the trained tiny checkpoint and base_vq: r4's
+16. the eval metrics at full width on seeded weights (no real weights in
+   the repo), loaded from converter ``.npz`` files by the port's loaders:
+   I3D (400 classes, 224²), V-JEPA ``vit_large`` and InceptionV3 (299²)
+   over the committed clips and one seeded 16x256x320 clip, against the
+   sha256-pinned features and scores of the JAX package
+   (``jax_metrics.npz``): features within 1e-5 of JAX's largest, FVD and
+   FID within 1e-3 relative, JEDi, MMD and IS 1e-4, the port's host math
+   on JAX's features 1e-6; ms a clip of each network; planted faults
+   (symmetric padding in I3D's stride-2 stem, the resize without
+   antialias, V-JEPA's position table recomputed) that must be rejected;
+   then r4 with ``log_metrics: [ssim, psnr, fvd, jedi]`` through
+   ``Trainer.validate`` (finite ``eval/fvd`` and ``eval/jedi`` in
+   ``metrics.jsonl``; the eval pass with and without them) and
+   ``token_sweep`` at 1, 16 and 128 tokens;
+17. the serving tools on the trained tiny checkpoint and base_vq: r4's
    int8 serving path (``serving/quant.py``, w8a16 and w8a8) scored on the
    committed clips at 1, 16 and 128 tokens through the evaluate CLI's
    ``quantize_eval`` and ``token_sweep`` (through the f32 attention kernel):
@@ -170,14 +184,14 @@ toolkit. Phases, in order; any failure exits non-zero:
    off (the int8 gates), the attention op's CUDA implementation replaced
    by its plain version in the loading process (the launch gate), and
    ``proj_out``'s int8 weight left unpadded (``torch._int_mm`` must raise);
-17. ``training.main.steps_per_call`` on seeded uint8 clips: at precision
+18. ``training.main.steps_per_call`` on seeded uint8 clips: at precision
    32 with LPIPS off, K = 3 with a tail of 1 against K = 1 (losses, grad
    norms and params bit for bit); then the r4 config as shipped (K = 8,
    bf16-mixed, LPIPS on with random VGG weights, the uint8 wire) for 16
    steps with an eval and a checkpoint at 16, against K = 1: launches a
    call (16 of each of rows 1-2 a step), one H2D transfer a call, finite
    losses, tokens/s and peak device memory;
-18. the repo's all-large adafactor recipe (``docs/runs/r3f_alllarge_adafactor``:
+19. the repo's all-large adafactor recipe (``docs/runs/r3f_alllarge_adafactor``:
    ``configs/tiny.yaml`` with large encoder, decoder and discriminator,
    ``optimizer.name=adafactor``, remat, the uint8 wire, synthetic data,
    LPIPS off) at full width: in this process 3 steps under AdamW and under
@@ -191,24 +205,25 @@ toolkit. Phases, in order; any failure exits non-zero:
    supervisor exits 143 without a relaunch), and a new supervisor over
    the same directory (it resumes on its first launch and ends rc 0 at
    step 8, every logged value finite);
-19. the f32 rows of the kernel table: each f32 entry of rows 1-4 and the
+20. the f32 rows of the kernel table: each f32 entry of rows 1-4 and the
    v1 f32 dq, its time, bound and share of bound at the shapes timed
    above, with the launch shape the library reports (threads, registers,
    dynamic shared memory, CTAs an SM) for the pipelined forward, dq and
    dk/dv;
-20. one JSON line listing every kernel with its numbers; ``launches`` is
+21. one JSON line listing every kernel with its numbers; ``launches`` is
    the kernel's count on the training path of its dtype (the VQ kernel's:
    the base_vq training path; the rope kernels': the large training path,
    f32 its remat run; the v1 kernels': the trainer's fit, f32 the straight
    f32 run), and ``launches_by_path`` its count on each path, each read
    from counters set to 0 just before that path (the data phase's fits
    too: ``train_data_bf16``, ``train_data_uint8``; the parity sweeps,
-   ``eval_r4_f32``, ``eval_r4_bf16``; the int8 sweeps, ``eval_r4_w8a16``,
+   ``eval_r4_f32``, ``eval_r4_bf16``; the sweep with the video metrics,
+   ``eval_r4_metrics``; the int8 sweeps, ``eval_r4_w8a16``,
    ``eval_r4_w8a8``; the exported programs in the loading process,
    ``exported_r4_f32``, ``exported_r4_w8a8``, ``exported_base_vq_f32``;
    the two bench runs, ``http_bench_r4``; the K = 8 fit, ``train_r4_k8``;
    the all-large adafactor steps, ``train_alllarge``);
-21. last line: ``{"ok": true, "device": {...}}``.
+22. last line: ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds and the script's so far.
 
@@ -3610,6 +3625,263 @@ def phase_parity(card: str) -> dict:
 
 
 
+# the eval metrics' parity fixture (``python tests/torch_parity_fixtures.py
+# metrics`` writes it where JAX runs): the JAX package's I3D, V-JEPA-L and
+# InceptionV3 features at full width on the seeded weights of
+# tests/torch_metric_fixtures.py, over the committed clips and one seeded
+# 16x256x320 clip, and JAX's FVD, JEDi, FID, MMD and IS on them
+METRICS_SHA256 = {
+    "jax_metrics.npz": "ad4e3a539b5113a510475631163611d79610e2579fb0f1d73bd72ab502e5eae9",
+}
+# features against JAX's: the largest |d| over JAX's largest |x|, per
+# network. The port on the CPU shows 7.1e-7 (I3D), 2.3e-6 (V-JEPA-L),
+# 2.1e-6 (InceptionV3 activations) and 1.9e-6 (logits); the bound is about
+# 5x the worst of them
+METRIC_FEATURE_RTOL = 1e-5
+# scores from the card's features against JAX's committed scores. FVD and
+# FID take sqrtm of a rank-deficient covariance (5 and 6 clips at 400-d;
+# 48 and 76 frames at 2048-d), which amplifies feature noise: noise of
+# 1e-5 of the largest feature moved FVD by 1.3e-5 relative on the CPU,
+# JEDi, FID, MMD by 1.0e-6 to 1.9e-6, IS by 8e-9. Bounds: 1e-3 for FVD and
+# FID, 1e-4 for the rest
+METRIC_SCORE_RTOL = {"fvd": 1e-3, "fid": 1e-3, "jedi": 1e-4, "mmd": 1e-4, "is": 1e-4}
+# the port's host math on JAX's committed features against JAX's committed
+# scores (bit for bit on the CPU that wrote them; this machine's scipy and
+# BLAS may differ)
+METRIC_HOST_RTOL = 1e-6
+METRIC_DIR = os.path.join(RUN_DIR, "metrics")
+
+
+def _metric_fixtures():
+    """``tests/torch_metric_fixtures.py`` loaded by its path: the card
+    machine has a ``tests`` package of its own installed, which shadows
+    the checkout's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_metric_fixtures", os.path.join(REPO, "tests", "torch_metric_fixtures.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _metric_extractors(weights: dict) -> dict:
+    """The port's three networks on the card, loaded from the converter
+    ``.npz`` files by the port's loaders."""
+    from titok_tpu_torch.metrics.i3d import I3DExtractor, load_i3d_params
+    from titok_tpu_torch.metrics.inception_v3 import load_inception_extractor
+    from titok_tpu_torch.metrics.vjepa import VJEPAExtractor, load_vjepa_params
+
+    return {"i3d": I3DExtractor(load_i3d_params(weights["i3d"]), device="cuda"),
+            "vjepa": VJEPAExtractor(load_vjepa_params(weights["vjepa"]), "vit_large",
+                                    device="cuda"),
+            "inception": load_inception_extractor(weights["inception"], device="cuda")}
+
+
+def _metric_features(ex: dict, clips: list, clip_frames, only=None) -> tuple[dict, dict]:
+    """Each network's features of every clip (InceptionV3 per frame, as
+    ``clip_frames`` splits a clip) and its host ms a clip (host clock; each
+    call ends in a copy to the host, so the card is done), by network;
+    ``only`` names the networks to run."""
+    feats, ms = {}, {}
+    for name in only or ("i3d", "vjepa", "inception"):
+        out = []
+        t0 = time.perf_counter()
+        for clip in clips:
+            out.append(ex[name](clip_frames(clip) if name == "inception" else clip))
+        ms[name] = (time.perf_counter() - t0) * 1e3 / len(clips)
+        if name == "inception":
+            feats["inception_acts"] = np.concatenate([a for a, _ in out])
+            feats["inception_logits"] = np.concatenate([lg for _, lg in out])
+        else:
+            feats[name] = np.concatenate(out)
+    return feats, ms
+
+
+def _feature_error(got: dict, want: dict) -> dict:
+    """Per feature array, the largest |d| over JAX's largest |x|."""
+    return {k: float(np.abs(v - want[k]).max() / np.abs(want[k]).max()) for k, v in got.items()}
+
+
+def _planted_metric_faults(ex: dict, clips: list, clip_frames, want: dict) -> None:
+    """Three faults, each planted in the port's module for one run of the
+    network it touches, must move its features past the gate: symmetric
+    padding in I3D's stride-2 stem unit, the FVD resize without antialias
+    (``F.interpolate`` trilinear), V-JEPA's position table recomputed for
+    the input grid instead of interpolated."""
+    import torch
+    import torch.nn.functional as F
+
+    from titok_tpu_torch.metrics import i3d, vjepa
+
+    same_pads, linear_resize = i3d.same_pads, i3d.linear_resize
+    interpolate_pos_embed = vjepa.interpolate_pos_embed
+
+    def symmetric(sizes, kernel, strides):
+        if tuple(kernel) == (7, 7, 7):  # the stride-2 stem: k // 2 on both sides
+            return [k // 2 for k in reversed(kernel) for _ in (0, 1)]
+        return same_pads(sizes, kernel, strides)
+
+    def recomputed(table, src_grid, dst_grid):
+        d = table.shape[-1]
+        return torch.from_numpy(vjepa.get_3d_sincos_pos_embed(d, *dst_grid)).to(table.device)
+
+    faults = [("symmetric padding in I3D's stride-2 Conv3d_1a_7x7", "i3d", i3d, "same_pads",
+               symmetric),
+              ("the FVD resize without antialias", "i3d", i3d, "linear_resize",
+               lambda x, shape: F.interpolate(x, size=tuple(shape[2:]), mode="trilinear",
+                                              align_corners=False)),
+              ("V-JEPA's position table recomputed for the input grid", "vjepa", vjepa,
+               "interpolate_pos_embed", recomputed)]
+    for what, net, module, attr, planted in faults:
+        orig = getattr(module, attr)
+        setattr(module, attr, planted)
+        try:
+            feats, _ = _metric_features(ex, clips, clip_frames, only=(net,))
+        finally:
+            setattr(module, attr, orig)
+        err = _feature_error(feats, want)[net]
+        check(err > METRIC_FEATURE_RTOL, f"planted fault ({what}) passed the gate: {err:.3e}")
+        print(f"planted fault ({what}) rejected: {net} features {err:.3e} of JAX's largest "
+              f"from JAX's (gate {METRIC_FEATURE_RTOL:g})")
+    check(i3d.same_pads is same_pads and i3d.linear_resize is linear_resize
+          and vjepa.interpolate_pos_embed is interpolate_pos_embed, "a planted fault stayed")
+
+
+def _timed_validate(trainer, state) -> float:
+    """Host ms of one ``Trainer.validate`` over the eval set, synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.validate(state, PARITY_STEP)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_metrics(card: str) -> dict:
+    """The eval metrics on the card. Full-width I3D (400 classes, 224²),
+    V-JEPA ``vit_large`` and InceptionV3 (299², 1000 classes) on seeded
+    weights, loaded from converter ``.npz`` files by the port's loaders,
+    against JAX's committed features and scores (the fixture pinned by its
+    sha256); three planted faults; then r4 (f32) with ``log_metrics: [ssim,
+    psnr, fvd, jedi]`` through ``Trainer.validate`` and the evaluate CLI's
+    ``token_sweep`` at 1, 16 and 128 tokens."""
+    import shutil
+
+    import torch
+
+    import titok_tpu_torch.metrics.image_metrics as image_metrics
+    from titok_tpu_torch.tools.evaluate import token_sweep
+
+    mf = _metric_fixtures()
+
+    t_phase = time.perf_counter()
+    for rel, want in METRICS_SHA256.items():
+        got = _sha256(os.path.join(PARITY_DIR, rel))
+        check(got == want, f"metrics fixture {rel}: sha256 {got}, want {want}")
+    with np.load(os.path.join(PARITY_DIR, "jax_metrics.npz")) as f:
+        jax = dict(f)
+    with np.load(os.path.join(PARITY_DIR, "eval_clips.npz")) as f:
+        uint8 = [f[f"clip_{i}"] for i in range(len(f["fps"]))]
+        r4_clips = [{"video": f[f"clip_{i}"], "fps": int(fps)} for i, fps in enumerate(f["fps"])]
+    clips = mf.metric_clips(uint8)
+    check([c.shape[2] for c in clips] == list(jax["frames"]), "the clips are not the fixture's")
+
+    shutil.rmtree(METRIC_DIR, ignore_errors=True)
+    os.makedirs(METRIC_DIR)
+    t0 = time.perf_counter()
+    weights = {}
+    for name, draw in (("i3d", mf.i3d_weights), ("vjepa", mf.vjepa_weights),
+                       ("inception", mf.inception_weights)):
+        weights[name] = os.path.join(METRIC_DIR, f"{name}.npz")
+        np.savez(weights[name], **draw(mf.SEEDS[name]))
+    t_draw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex = _metric_extractors(weights)
+    t_load = time.perf_counter() - t0
+    try:
+        first, first_ms = _metric_features(ex, clips, mf.clip_frames)
+        feats, ms = _metric_features(ex, clips, mf.clip_frames)
+        feats["frames"] = jax["frames"]
+        print(f"metrics: seeded weights drawn and written in {t_draw:.1f} s, loaded to the card "
+              f"in {t_load:.1f} s ({sum(os.path.getsize(p) for p in weights.values()) / 2**20:.1f}"
+              f" MiB of .npz); {len(clips)} clips, {int(jax['frames'].sum())} frames")
+        for name in ms:
+            print(f"metrics [{card}]: {name} {ms[name]:.3f} ms a clip (first pass "
+                  f"{first_ms[name]:.3f}; host clock, preprocessing and copies included)")
+        errs = _feature_error({k: v for k, v in feats.items() if k != "frames"}, jax)
+        same = all(np.array_equal(first[k], feats[k]) for k in first)
+        for k, e in errs.items():
+            check(e <= METRIC_FEATURE_RTOL, f"{k}: {e:.3e} of JAX's largest from JAX's, more than "
+                  f"{METRIC_FEATURE_RTOL:g}")
+        print("metrics: features against JAX's (largest |d| over JAX's largest |x|): "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + f" (gate {METRIC_FEATURE_RTOL:g}); two passes the same bits: {same}")
+        t0 = time.perf_counter()
+        ours = mf.metric_scores(feats, image_metrics)
+        host = mf.metric_scores(jax, image_metrics)
+        print(f"metrics: both sets of scores in {time.perf_counter() - t0:.1f} s of host math "
+              "(two sqrtm of a 2048-d product for FID)")
+        for k, v in ours.items():
+            want = float(jax[k])
+            check(abs(v / want - 1) <= METRIC_SCORE_RTOL[k],
+                  f"{k}: {v!r} on the card's features, JAX's {want!r}")
+            check(abs(host[k] / want - 1) <= METRIC_HOST_RTOL,
+                  f"{k}: {host[k]!r} by the port's host math on JAX's features, JAX's {want!r}")
+            print(f"  {k}: {v:.9g} on the card's features, {host[k]:.9g} by the port's host math "
+                  f"on JAX's features, JAX's {want:.9g} (relative {v / want - 1:+.2e} / "
+                  f"{host[k] / want - 1:+.2e}; gates {METRIC_SCORE_RTOL[k]:g} / "
+                  f"{METRIC_HOST_RTOL:g})")
+        _planted_metric_faults(ex, clips, mf.clip_frames, jax)
+    finally:
+        del ex
+        torch.cuda.empty_cache()
+
+    over = {"training.eval.log_metrics": "[ssim,psnr,fvd,jedi]",
+            "training.eval.i3d_path": weights["i3d"],
+            "training.eval.jedi_vjepa_params": weights["vjepa"],
+            "training.eval.jedi_jepa_model": "vit_large"}
+    for run in ("metrics_on", "metrics_off"):  # token_sweep appends to its file
+        shutil.rmtree(os.path.join(RUN_DIR, run), ignore_errors=True)
+    with_metrics, state, _ = _r4_scorer(r4_clips, "metrics_on", **over)
+    without, bstate, _ = _r4_scorer(r4_clips, "metrics_off")
+    try:
+        for tr in (with_metrics, without):
+            tr.config.set_dotted("training.sampling.token_range", [128, 128])
+        cold = _timed_validate(with_metrics, state)  # builds both networks from the .npz
+        rows = _jsonl("metrics_on")
+        check(any(np.isfinite(r.get("eval/fvd", np.nan)) and r["eval/fvd"] >= 0
+                  and np.isfinite(r.get("eval/jedi", np.nan)) and r["eval/jedi"] >= 0
+                  for r in rows), f"metrics.jsonl has no finite eval/fvd and eval/jedi: {rows}")
+        _timed_validate(without, bstate)
+        on, off = _timed_validate(with_metrics, state), _timed_validate(without, bstate)
+        print(f"metrics [{card}]: r4 eval pass over {len(r4_clips)} clips at 128 tokens, host "
+              f"clock, synchronised: with fvd and jedi {on:.1f} ms (the first, which builds both "
+              f"networks, {cold:.1f}), without {off:.1f} ms; the metric pass {on - off:.1f} ms, "
+              f"{(on - off) / len(r4_clips):.1f} ms a clip")
+        sweep = os.path.join(RUN_DIR, "metrics_on", "token_sweep.jsonl")
+        reset_counts()  # this path: r4's sweep with the video metrics
+        srows = token_sweep(with_metrics, state, PARITY_STEP, PARITY_COUNTS, sweep)
+        paths = {"eval_r4_metrics": read_counts()}
+        check(paths["eval_r4_metrics"]["f32"] > 0, "the sweep launched no row 1 f32 kernel")
+        for r in srows:
+            check(all(np.isfinite(r[k]) and r[k] >= 0 for k in ("eval/fvd", "eval/jedi")),
+                  f"token_sweep row {r}")
+            print(f"  {r['token_count']:3d} tokens: eval/fvd {r['eval/fvd']:.6g}, eval/jedi "
+                  f"{r['eval/jedi']:.6g}, psnr {r['eval/psnr']:.6f} dB, ssim {r['eval/ssim']:.6f}")
+        with open(sweep) as f:
+            written = [json.loads(line) for line in f]
+        check(written == srows and [r["token_count"] for r in srows] == list(PARITY_COUNTS),
+              f"token_sweep.jsonl rows {written}")
+    finally:
+        del with_metrics, without, state, bstate
+        torch.cuda.empty_cache()
+        shutil.rmtree(METRIC_DIR, ignore_errors=True)
+    print(f"metrics: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return paths
+
+
 def _scan_fit(card: str, run: str, batches_fn, K: int, **over) -> dict:
     """``Trainer(cfg).fit()`` of the r4 config (its sampling, loss and wire;
     seeded uint8 clips) at ``steps_per_call`` K, into ``RUN_DIR/<run>``:
@@ -4617,6 +4889,7 @@ def main() -> int:
         paths.update(timed(phase_resume_f32, card))
         paths.update(timed(phase_data, card))
         paths.update(timed(phase_parity, card))
+        paths.update(timed(phase_metrics, card))
         paths.update(timed(phase_serving_tools, card))
         paths.update(timed(phase_scan, card))
         paths.update(timed(phase_supervised_alllarge, card))

@@ -119,7 +119,7 @@ def test_npz_loader_matches_jax(weights, tmp_path):
         np.testing.assert_array_equal(got[k], sd[k], err_msg=k)
     assert got["net.conv0.weight"].shape == (64, 3, 3, 3)
     assert got["lin4.weight"].shape == (1, 512, 1, 1)
-    ours, theirs = _flatten(tlpips._unflatten(flat)), _flatten(jlpips._unflatten(flat))
+    ours, theirs = _flatten(tlpips.unflatten(flat)), _flatten(jlpips._unflatten(flat))
     assert set(ours) == set(theirs)
     for k in ours:
         np.testing.assert_array_equal(ours[k], np.asarray(theirs[k]), err_msg=k)

@@ -176,6 +176,17 @@ def test_chip_smoke_pins_the_committed_fixtures():
         assert _sha256(os.path.join(PARITY_DIR, rel)) == want, rel
 
 
+def test_chip_smoke_pins_the_metrics_fixture():
+    """``chip_smoke.py``'s ``phase_metrics`` checks JAX's committed metric
+    features and scores by their sha256 first: its pin is the committed
+    file's."""
+    from chip_smoke import METRICS_SHA256, PARITY_DIR, _sha256
+
+    assert {os.path.join(PARITY_DIR, rel) for rel in METRICS_SHA256} == {fx.JAX_METRICS}
+    for rel, want in METRICS_SHA256.items():
+        assert _sha256(os.path.join(PARITY_DIR, rel)) == want, rel
+
+
 def test_converter_takes_the_layouts_jax_restores(tmp_path):
     """The converter resolves what JAX's ``restore_weights_only`` accepts
     (a step dir holding ``default/``, ``<step>/default``, a bare artifact)

@@ -23,6 +23,7 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from tests.torch_metric_fixtures import SEEDS, i3d_weights  # noqa: E402
 from tests.torch_threads import one_torch_thread  # noqa: E402, F401
 from tests.util import tiny_config  # noqa: E402
 from titok_tpu.metrics.psnr_device import packed_psnr_stats as j_psnr_stats  # noqa: E402
@@ -191,7 +192,9 @@ def test_cli_parallel_keys_raise(tmp_path, over):
     # ported: the CLI trains at K = 2, two calls of two steps
     pytest.param("training.main.steps_per_call=2", None,
                  id="training.main.steps_per_call=2-steps_per_call"),
-    pytest.param("training.eval.log_metrics=[psnr,fvd]", "ROADMAP.md, 'Metrics'",
+    # ported: FVD raises JAX's RuntimeError without I3D weights, and scores
+    # with a seeded converter .npz
+    pytest.param("training.eval.log_metrics=[psnr,fvd]", "FVD needs local I3D weights",
                  id="training.eval.log_metrics=[psnr,fvd]-item 11"),
 ])
 def test_unported_trainer_options_raise(tmp_path, over, match):
@@ -204,5 +207,13 @@ def test_unported_trainer_options_raise(tmp_path, over, match):
         assert CheckpointManager(str(tmp_path / "run")).all_steps() == [4]
         _leave_nothing(tmp_path)
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(RuntimeError, match=match):
         cli.main([f"config={_write_cfg(tmp_path)}", over], device="cpu")
+    shutil.rmtree(tmp_path / "run")
+    npz = tmp_path / "i3d.npz"
+    np.savez(npz, **i3d_weights(SEEDS["i3d"]))
+    cli.main([f"config={_write_cfg(tmp_path)}", over, f"training.eval.i3d_path={npz}",
+              "training.eval.eval_samples=2"], device="cpu")
+    fvd = [(r["step"], r["eval/fvd"]) for r in _rows(tmp_path / "run") if "eval/fvd" in r]
+    assert [step for step, _ in fvd] == [2, 4] and all(np.isfinite(v) and v >= 0 for _, v in fvd)
+    _leave_nothing(tmp_path)

@@ -25,13 +25,24 @@ so what its half of the check reads is committed under
 - ``jax_w8a16.npz`` and ``jax_w8a8.npz``: the same of JAX's int8 serving
   path (``titok_tpu/serving/quant.py``: the generator's kernels quantized,
   the eval epoch run under its interceptor, as JAX's ``tools/evaluate.py
-  --quant`` scores it).
+  --quant`` scores it);
+- ``jax_metrics.npz``: the eval metrics' networks of the JAX package at
+  full width (I3D, V-JEPA ``vit_large``, InceptionV3) on seeded weights
+  (``tests/torch_metric_fixtures.py``) over the committed clips and one
+  seeded 16x256x320 clip: I3D logits ``i3d``, V-JEPA pooled features
+  ``vjepa``, InceptionV3 ``inception_acts`` and ``inception_logits`` per
+  frame, each clip's ``frames``, and JAX's host math on them (``fvd``,
+  ``jedi``, ``fid``, ``mmd``, ``is``; see ``metric_scores``).
 
 ``tests/test_torch_parity.py`` recomputes them and holds the committed
 files to them. Rewrite them with (from the repo root, on a machine with
 JAX, orbax and libav)::
 
     JAX_PLATFORMS=cpu python tests/torch_parity_fixtures.py
+
+and only ``jax_metrics.npz`` (JAX, no orbax or libav; about 5 minutes on
+8 cores, V-JEPA-L is about 1.6 TFLOP a clip) with ``... metrics``; it also
+prints how far the port on the CPU lies from JAX on the same inputs.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ CLIPS = os.path.join(FIXTURES, "eval_clips.npz")
 JAX_RESULTS = os.path.join(FIXTURES, "jax_f32.npz")
 QUANT_MODES = ("w8a16", "w8a8")
 JAX_QUANT_RESULTS = {mode: os.path.join(FIXTURES, f"jax_{mode}.npz") for mode in QUANT_MODES}
+JAX_METRICS = os.path.join(FIXTURES, "jax_metrics.npz")
 EVAL_TAR = os.path.join(REPO, "docs", "eval_set", "00000.tar")
 STEP = 5000
 COUNTS = (1, 16, 128)
@@ -217,6 +229,84 @@ def convert(out_dir: str) -> str:
     return converter().convert(ARTIFACT, out_dir, disc=False)
 
 
+def metric_weights(out_dir: str) -> dict[str, str]:
+    """The seeded full-width weights of the three networks as converter
+    ``.npz`` files under ``out_dir``; returns their paths by network."""
+    from tests.torch_metric_fixtures import SEEDS, i3d_weights, inception_weights, vjepa_weights
+
+    paths = {}
+    for name, draw in (("i3d", i3d_weights), ("vjepa", vjepa_weights),
+                       ("inception", inception_weights)):
+        paths[name] = os.path.join(out_dir, f"{name}.npz")
+        np.savez(paths[name], **draw(SEEDS[name]))
+    return paths
+
+
+def jax_metrics(weights: dict[str, str], clips: list[np.ndarray]) -> dict:
+    """The JAX package's features and scores of ``jax_metrics.npz``."""
+    import titok_tpu.metrics.image_metrics as jim
+    from tests.torch_metric_fixtures import clip_frames, metric_scores
+    from titok_tpu.metrics.i3d import JaxI3DExtractor, load_i3d_params
+    from titok_tpu.metrics.inception_v3 import load_inception_extractor
+    from titok_tpu.metrics.vjepa import JaxVJEPAExtractor, load_vjepa_params
+
+    i3d = JaxI3DExtractor(load_i3d_params(weights["i3d"]))
+    vjepa = JaxVJEPAExtractor(load_vjepa_params(weights["vjepa"]), "vit_large")
+    inception = load_inception_extractor(weights["inception"])
+    res = {"i3d": [], "vjepa": [], "inception_acts": [], "inception_logits": []}
+    for clip in clips:
+        res["i3d"].append(i3d(clip))
+        res["vjepa"].append(vjepa(clip))
+        acts, logits = inception(clip_frames(clip))
+        res["inception_acts"].append(acts)
+        res["inception_logits"].append(logits)
+    res = {k: np.concatenate(v).astype(np.float32) for k, v in res.items()}
+    res["frames"] = np.asarray([c.shape[2] for c in clips], np.int32)
+    res.update({k: np.float64(v) for k, v in metric_scores(res, jim).items()})
+    return res
+
+
+def port_metric_gaps(weights: dict[str, str], clips: list[np.ndarray], want: dict) -> None:
+    """Print, per network, the largest difference of the port's features
+    on the CPU from JAX's (``want``), absolute and over JAX's largest."""
+    from tests.torch_metric_fixtures import clip_frames
+    from titok_tpu_torch.metrics.i3d import I3DExtractor, load_i3d_params
+    from titok_tpu_torch.metrics.inception_v3 import load_inception_extractor
+    from titok_tpu_torch.metrics.vjepa import VJEPAExtractor, load_vjepa_params
+
+    i3d = I3DExtractor(load_i3d_params(weights["i3d"]), device="cpu")
+    vjepa = VJEPAExtractor(load_vjepa_params(weights["vjepa"]), "vit_large", device="cpu")
+    inception = load_inception_extractor(weights["inception"], device="cpu")
+    got = {"i3d": np.concatenate([i3d(c) for c in clips]),
+           "vjepa": np.concatenate([vjepa(c) for c in clips])}
+    acts, logits = zip(*(inception(clip_frames(c)) for c in clips))
+    got["inception_acts"], got["inception_logits"] = np.concatenate(acts), np.concatenate(logits)
+    for k, v in got.items():
+        err = np.abs(v - want[k]).max(axis=1)
+        rel = err.max() / np.abs(want[k]).max()
+        print(f"port on the CPU against JAX, {k}: largest |d| {err.max():.3e} (clip or frame "
+              f"{int(err.argmax())}), over JAX's largest |x| {rel:.3e}")
+
+
+def main_metrics() -> None:
+    """Write ``jax_metrics.npz`` alone."""
+    import time
+
+    from tests.torch_metric_fixtures import metric_clips
+
+    clips = metric_clips([c["video"] for c in load_clips(CLIPS)])
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = metric_weights(tmp)
+        t0 = time.perf_counter()
+        res = jax_metrics(weights, clips)
+        print(f"JAX's features of {len(clips)} clips in {time.perf_counter() - t0:.1f} s")
+        np.savez(JAX_METRICS, **res)
+        port_metric_gaps(weights, clips, res)
+    print("JAX's scores: " + ", ".join(f"{k} {float(res[k]):.9g}"
+                                       for k in ("fvd", "jedi", "fid", "mmd", "is")))
+    print(f"{os.path.relpath(JAX_METRICS, REPO)}: {os.path.getsize(JAX_METRICS)} bytes")
+
+
 def main() -> None:
     import shutil
 
@@ -233,6 +323,7 @@ def main() -> None:
                   f"{res[f'ssim_{c}']:.6f}")
     for p in (WEIGHTS, CLIPS, JAX_RESULTS, *JAX_QUANT_RESULTS.values()):
         print(f"{os.path.relpath(p, REPO)}: {os.path.getsize(p)} bytes")
+    main_metrics()
 
 
 def _mkdir(path: str) -> str:
@@ -242,4 +333,7 @@ def _mkdir(path: str) -> str:
 
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
-    main()
+    if sys.argv[1:] == ["metrics"]:
+        main_metrics()
+    else:
+        main()

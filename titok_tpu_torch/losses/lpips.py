@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from titok_tpu_torch.weights import from_flax_params
+from titok_tpu_torch.weights import from_flax_params, unflatten
 
 # VGG16 'features': conv channel sizes, 'M' a 2x2 max pool of stride 2
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
@@ -170,7 +170,7 @@ def load_lpips_params(path: str | None = None, seed: int = 0) -> dict[str, np.nd
     path = path or DEFAULT_WEIGHTS
     if os.path.exists(path):
         with np.load(path) as data:
-            return from_flax_params(_unflatten(dict(data)))
+            return from_flax_params(unflatten(dict(data)))
     warnings.warn(f"LPIPS weights not found at {path} — using seeded random VGG features. "
                   "Run tools/convert_lpips.py to convert the torch weights.")
     g = torch.Generator().manual_seed(seed)
@@ -208,15 +208,3 @@ def lpips_params_for(config) -> dict[str, np.ndarray]:
             "tokenizer.losses.allow_random_lpips: true to train with seeded-random VGG "
             "features (NOT the reference loss).")
     return load_lpips_params(path)
-
-
-def _unflatten(flat: dict) -> dict:
-    """``{"net/conv0/kernel": a, ...}`` -> the nested flax tree."""
-    tree: dict = {}
-    for key, val in flat.items():
-        parts = key.split("/")
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = np.asarray(val)
-    return tree

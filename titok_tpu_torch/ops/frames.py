@@ -202,6 +202,40 @@ def _resize_weights(in_size: int, out_size: int, scale: torch.Tensor,
     return torch.where(inside[:, None, :], w, zero)
 
 
+def _linear_weights(in_size: int, out_size: int, device) -> torch.Tensor:
+    """The ``[in, out]`` weights of ``jax.image.resize(..., "linear")``
+    along one axis (``jax/_src/image/scale.py:compute_weight_mat``,
+    antialias on): the triangle kernel widened by ``1/scale`` when the axis
+    shrinks, columns normalised by their sum, zero where the sample point
+    lies outside ``[-0.5, in - 0.5]``."""
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = max(inv_scale, 1.0)
+    sample_f = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) \
+        * inv_scale - 0.5
+    pos = torch.arange(in_size, dtype=torch.float32, device=device)
+    w = torch.clamp(1.0 - (sample_f[None, :] - pos[:, None]).abs() / kernel_scale, min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    zero = torch.zeros_like(w)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)), zero)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], w, zero)
+
+
+def linear_resize(x: torch.Tensor, out_shape: Sequence[int]) -> torch.Tensor:
+    """``jax.image.resize(x, out_shape, "trilinear")`` (any rank; antialiased
+    on a downscale): each axis whose size changes is contracted with its
+    weight matrix by one matmul on ``x``'s device, in f32."""
+    if len(out_shape) != x.ndim:
+        raise ValueError(f"out_shape {tuple(out_shape)} has not the rank of {tuple(x.shape)}")
+    x = x.to(torch.float32)
+    for d, n in enumerate(out_shape):
+        if x.shape[d] != n:
+            w = _linear_weights(x.shape[d], int(n), x.device)
+            x = torch.movedim(torch.tensordot(x, w, dims=([d], [0])), -1, d)
+    return x
+
+
 def crop_resize(frames: torch.Tensor, plan: dict, sample_size: int) -> torch.Tensor:
     """Per-frame cubic scale and translate of ``[K, H, W, C]`` frames to
     ``[K, s, s, C]`` f32, as ``jax.image.scale_and_translate(...,

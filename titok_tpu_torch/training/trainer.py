@@ -153,7 +153,7 @@ class Trainer:
         if "ssim" in im and min(int(cs.min_grid[1]), int(cs.min_grid[2])) < 11:
             im.remove("ssim")
         self.device_im = tuple(im) if ce.get("device_metrics", True) else ()
-        self.eval_metrics = EvalMetrics(config, skip=self.device_im)
+        self.eval_metrics = EvalMetrics(config, skip=self.device_im, device=self.device)
         if "ssim" in self.device_im:
             self._eval_kmax = max_eval_frames(int(cs.eval_seq_len), cs.min_grid, self.patch_size)
 

@@ -5,15 +5,21 @@ attn_0.to_qkv`` …), so the mapping is mechanical:
 
 - a flax ``Dense`` ``kernel [in, out]`` becomes ``Linear.weight [out, in]``;
 - a flax ``Conv`` ``kernel [kh, kw, in, out]`` (HWIO) becomes
-  ``Conv2d.weight [out, in, kh, kw]`` (OIHW);
-- ``bias``, RMSNorm ``weight`` and ``mask_token [1, 1]`` are copied as
-  they are.
+  ``Conv2d.weight [out, in, kh, kw]`` (OIHW), and a 3-D one
+  ``[kt, kh, kw, in, out]`` ``Conv3d.weight [out, in, kt, kh, kw]``;
+- a flax ``LayerNorm`` ``scale`` becomes ``LayerNorm.weight``;
+- ``bias``, RMSNorm ``weight``, ``mask_token [1, 1]``, the folded
+  BatchNorm's ``bn_scale`` and ``bn_offset`` and the pooler's
+  ``query_tokens`` are copied as they are.
 
 The same holds for the discriminator, a ``PackedEncoder`` under the same
 names. The EMA-VQ state (the JAX ``VQState``: codebook, ema_counts,
 ema_sums, ages) maps onto the buffers of ``TiTok.quantize`` under the same
 field names. An LPIPS tree (``net/conv{i}`` HWIO kernels and biases,
-``lin{k}/kernel [1, 1, C, 1]``) maps by :func:`from_flax_params` too.
+``lin{k}/kernel [1, 1, C, 1]``) maps by :func:`from_flax_params` too, and
+so do the eval metrics' networks (I3D, V-JEPA, InceptionV3) from the flat
+``.npz`` that ``tools/convert_{i3d,vjepa,inception}.py`` write, the file
+the JAX package's loaders read (:func:`load_flat_npz`).
 Takes a nested dict (or a ``VQState``) whose leaves convert with
 ``np.asarray`` (numpy arrays, or the arrays of a JAX tree); imports no
 JAX.
@@ -26,6 +32,31 @@ from typing import Mapping
 import numpy as np
 
 from titok_tpu_torch.models.vq import STATE_NAMES
+
+
+# flax kernel layout -> torch weight layout, by rank: Dense [in, out], Conv
+# HWIO, Conv DHWIO
+_KERNEL_PERM = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+
+
+def unflatten(flat: Mapping) -> dict:
+    """``{"a/b/kernel": x, ...}`` (a converter's flat ``.npz``) -> the
+    nested flax tree, numpy leaves."""
+    tree: dict = {}
+    for key, val in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.asarray(val)
+    return tree
+
+
+def load_flat_npz(path: str) -> dict[str, np.ndarray]:
+    """A converter's flat ``.npz`` (keys '/'-joined flax paths) as a torch
+    state dict."""
+    with np.load(path) as z:
+        return from_flax_params(unflatten({k: z[k] for k in z.files}))
 
 
 def from_flax_params(tree: Mapping) -> dict[str, np.ndarray]:
@@ -42,11 +73,12 @@ def from_flax_params(tree: Mapping) -> dict[str, np.ndarray]:
                 walk(val, name + ".")
             elif key == "kernel":
                 arr = np.asarray(val, np.float32)
-                if arr.ndim not in (2, 4):
-                    raise ValueError(f"{name}: expected a 2-D Dense or a 4-D Conv kernel, "
-                                     f"got {arr.shape}")
-                perm = (1, 0) if arr.ndim == 2 else (3, 2, 0, 1)
-                out[f"{prefix}weight"] = np.ascontiguousarray(arr.transpose(perm))
+                if arr.ndim not in _KERNEL_PERM:
+                    raise ValueError(f"{name}: expected a 2-D Dense or a 4-D or 5-D Conv "
+                                     f"kernel, got {arr.shape}")
+                out[f"{prefix}weight"] = np.ascontiguousarray(arr.transpose(_KERNEL_PERM[arr.ndim]))
+            elif key == "scale":  # flax LayerNorm
+                out[f"{prefix}weight"] = np.asarray(val, np.float32)
             else:
                 out[name] = np.asarray(val, np.float32)
 
